@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -118,18 +117,33 @@ def nbytes(*ts) -> int:
 def phase_build(torch):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.get_ext(verbose=bool(os.environ.get("REPRO_TORCH_BUILD_VERBOSE")))
+    _build.get_ext()
     emit({"phase": "build", "ok": True,
           "build_s": time.perf_counter() - t0,
           "sources": [os.path.relpath(s, HERE) for s in _build.sources()],
           "cuda_flags": _build.CUDA_FLAGS})
 
 
-def bf16_tol(plain) -> float:
-    """Kernel and plain version round the same f32 result to bf16 after
-    summing in different orders: at most one bf16 ulp apart, and an ulp
-    is at most 2^-7 of the largest magnitude."""
-    return 2.0 ** -7 * float(plain.abs().max()) + 1e-6
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+F32_ATOL = 1e-5
+
+
+def closeness(out, plain, dt):
+    """(max |out - plain|, the tolerance, the worst element's share of its
+    limit; it passes at <= 1).
+
+    bf16: kernel and plain version compute in f32, sum in different
+    orders (a gap near 1e-6) and round to bf16, so an element may be one
+    bf16 ulp of its own magnitude apart (at most 2^-7 |plain|) plus that
+    f32 gap, held at 1e-4. f32: 1e-5 absolute."""
+    d = (out.float() - plain.float()).abs()
+    if dt == "bfloat16":
+        limit = BF16_RTOL * plain.float().abs() + BF16_ATOL
+        tol = f"per element: 2^-7*|plain| + {BF16_ATOL}"
+    else:
+        limit = F32_ATOL
+        tol = f"absolute: {F32_ATOL}"
+    return float(d.max()), tol, float((d / limit).max())
 
 
 def check_k1(torch, n_plane: int):
@@ -190,6 +204,19 @@ def attention_pairs(Lq, Lk, causal, window, q_offset):
     return n
 
 
+def attention_mask(torch, Lq, Lk, causal, window, q_offset):
+    """(Lq, Lk) boolean mask, True where a query attends a key: the mask
+    the kernel computes from absolute positions."""
+    qpos = torch.arange(Lq, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(Lk, device="cuda")[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def check_k7(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops as attn_ops
@@ -215,40 +242,36 @@ def check_k7(torch):
         out = attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
         plain = attn_ops.flash_attention(q, k, v, impl="torch", **kw)
         torch.cuda.synchronize()
-        err = float((out.float() - plain.float()).abs().max())
-        tol = bf16_tol(plain) if dt == "bfloat16" else 1e-5
+        err, tol, worst = closeness(out, plain, dt)
         ms = time_ms(lambda: attn_ops.flash_attention(q, k, v, impl="cuda",
                                                       **kw), torch)
         plain_ms = time_ms(lambda: attn_ops.flash_attention(
             q, k, v, impl="torch", **kw), torch)
-        lib_ms = None
-        if qoff == 0:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            mask = None
-            if window is not None:
-                i = torch.arange(L, device="cuda")
-                mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-            if hdv == hd:
-                lib_ms = library_time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask,
-                    is_causal=(mask is None and causal), enable_gqa=True),
-                    torch)
+        # SDPA's own causal flag where it means the same mask (q_offset 0,
+        # no window), else the kernel's mask given explicitly
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        own_causal = causal and window is None and qoff == 0
+        mask = (None if own_causal or not (causal or window)
+                else attention_mask(torch, L, L + qoff, causal, window, qoff))
+        lib_ms = library_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=own_causal,
+            enable_gqa=True), torch)
         pairs = attention_pairs(L, L + qoff, causal, window, qoff)
         flops = 2.0 * B * H * pairs * (hd + hdv)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out), flops, dt)
         row = {"name": "flash_attention",
                "case": f"B={B} H={H} Kv={Kv} L={L} hd={hd} hd_v={hdv} {dt} "
                        f"causal={causal} window={window} q_offset={qoff}",
-               "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms,
+               "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         if summary is None:
             summary = row
-        if not (err <= tol and math.isfinite(err)):
+        if not worst <= 1.0:
             raise PhaseFailed(f"K7 disagrees with plain: {row['case']} "
-                              f"err {err} > tol {tol}")
+                              f"err {err}, {worst} of the limit ({tol})")
     return rows, summary
 
 
@@ -279,8 +302,7 @@ def check_k8(torch):
         out = dec_ops.decode_attention(q, kc, vc, kvl, impl="cuda")
         plain = dec_ops.decode_attention(q, kc, vc, kvl, impl="torch")
         torch.cuda.synchronize()
-        err = float((out.float() - plain.float()).abs().max())
-        tol = bf16_tol(plain) if dt == "bfloat16" else 1e-5
+        err, tol, worst = closeness(out, plain, dt)
         ms = time_ms(lambda: dec_ops.decode_attention(q, kc, vc, kvl,
                                                       impl="cuda"), torch)
         plain_ms = time_ms(lambda: dec_ops.decode_attention(
@@ -299,16 +321,16 @@ def check_k8(torch):
         row = {"name": "flash_decode",
                "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} {dt} "
                        f"ragged={ragged}",
-               "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms,
+               "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         if summary is None:
             summary = row
-        if not (err <= tol and math.isfinite(err)):
+        if not worst <= 1.0:
             raise PhaseFailed(f"K8 disagrees with plain: {row['case']} "
-                              f"err {err} > tol {tol}")
+                              f"err {err}, {worst} of the limit ({tol})")
     return rows, summary
 
 
@@ -372,7 +394,12 @@ def phase_serve(torch, cfg):
                 "flash_attention": k7.launches, "flash_decode": k8.launches}
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # summary() takes its adapt percentiles over every request, a hit
+    # counting 0 ms, as the reference does; the misses of one flush share
+    # its wall time, so these are the flushes' own walls, in order
     summary = report.summary()
+    flush_ms = list(dict.fromkeys(rec["adapt_ms"] for rec in report.records
+                                  if not rec["hit"]))
 
     errors = []
     for name, n in launches.items():
@@ -432,7 +459,8 @@ def phase_serve(torch, cfg):
     emit({"phase": "serve", "ok": not errors, "arch": cfg.name,
           "n_plane": engine.plane.n_padded, "requests": len(reqs),
           "support_len": L_SUP, "prompt_len": L_PROMPT,
-          "max_new_tokens": NEW, "summary": summary, "launches": launches,
+          "max_new_tokens": NEW, "summary": summary,
+          "adapt_ms_by_flush": flush_ms, "launches": launches,
           "launches_per_request": {k: v / len(reqs)
                                    for k, v in launches.items()},
           "peak_mem_gb": peak_gb, "solo_bitwise_equal": solo_equal,

@@ -31,8 +31,9 @@ def sources() -> list:
         str(p) for p in CSRC.glob("*.cu"))
 
 
-def get_ext(verbose: bool = False):
-    """The loaded extension, built on first call."""
+def get_ext():
+    """The loaded extension, built on first call. Set
+    ``REPRO_TORCH_BUILD_VERBOSE=1`` to see the compiler's output."""
     global _EXT
     with _LOCK:
         if _EXT is None:
@@ -43,6 +44,6 @@ def get_ext(verbose: bool = False):
                         extra_cflags=["-O2", "-std=c++17"],
                         extra_cuda_cflags=list(CUDA_FLAGS),
                         extra_include_paths=[str(CSRC)],
-                        verbose=verbose or bool(
+                        verbose=bool(
                             os.environ.get("REPRO_TORCH_BUILD_VERBOSE")))
         return _EXT

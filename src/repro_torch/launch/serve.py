@@ -31,22 +31,19 @@ def build_serving_fns(cfg):
 def build_engine(cfg, phi=None, *, algo_name: str = "fomaml",
                  inner_lr: float = 0.05, inner_steps: int = 1,
                  adapt_batch: int = 4, cache_capacity: Optional[int] = 64,
-                 adapt_impl: Optional[str] = None,
-                 decode_impl: Optional[str] = None, seed: int = 0,
+                 adapt_impl: Optional[str] = None, seed: int = 0,
                  device="cuda"):
     """Wire an LM config into a `ServingEngine`: FedMeta algorithm over
     `lm_loss`, prefill/decode steps, bounded adaptation cache. `phi`
     defaults to a fresh init from `seed` on `device`. `adapt_impl` picks
     the inner-update route ("cuda" | "torch") and is passed through to
-    the engine (the reference accepts it and drops it); `decode_impl`
-    scopes the decode-attention route for every decode step.
+    the engine (the reference accepts it and drops it).
 
     float32 matmuls stay in full float32 on the card
     (``allow_tf32 = False``, PyTorch's default, set here explicitly)."""
     from repro_torch.core import make_algorithm
     from repro_torch.core.losses import lm_loss
     from repro_torch.federated.serving import AdaptationCache, ServingEngine
-    from repro_torch.kernels.decode_attention import ops as dec_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     loss_fn, eval_fn = lm_loss(make_apply_fn(cfg))
@@ -58,13 +55,6 @@ def build_engine(cfg, phi=None, *, algo_name: str = "fomaml",
                if algo_name.startswith("meta-sgd")
                else {"theta": model_init(seed)})
     prefill, decode = build_serving_fns(cfg)
-    if decode_impl is not None:
-        raw = decode
-
-        def decode(params, cache, tokens):
-            with dec_ops.use_impl(decode_impl):
-                return raw(params, cache, tokens)
-
     return ServingEngine(algo, phi, adapt_batch=adapt_batch,
                          adapt_steps=inner_steps,
                          cache=AdaptationCache(cache_capacity),

@@ -11,6 +11,8 @@ difference on both sides — f32 rtol 1e-5 / atol 1e-6. Attention sums
 in another order (online softmax over tiles vs one pass), so it is held
 at 2e-5, the reference's own kernel-vs-oracle tolerance
 (tests/test_kernels_attention.py)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,9 +47,9 @@ def _alpha(kind, rng):
 
 # ---- K1: inner update -----------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["scalar", "shared", "per_client"])
-@pytest.mark.parametrize("impl", ["cuda", "torch"])
-def test_inner_update_matches_pallas(kind, impl):
+@functools.lru_cache(maxsize=None)
+def _inner_update_case(kind):
+    """Inputs and the Pallas (interpret) result, shared by both impls."""
     rng = np.random.RandomState(0)
     theta = rng.randn(C, N).astype(np.float32)
     g = rng.randn(C, N).astype(np.float32)
@@ -55,9 +57,16 @@ def test_inner_update_matches_pallas(kind, impl):
     expect = jax_mu.inner_update(
         jnp.asarray(theta), alpha if kind == "scalar" else jnp.asarray(alpha),
         jnp.asarray(g), impl="pallas_interpret")
+    return theta, g, alpha, np.asarray(expect)
+
+
+@pytest.mark.parametrize("kind", ["scalar", "shared", "per_client"])
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_inner_update_matches_pallas(kind, impl):
+    theta, g, alpha, expect = _inner_update_case(kind)
     a = alpha if kind == "scalar" else _t(alpha)
     got = mu_ops.inner_update(_t(theta), a, _t(g), impl=impl)
-    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **F32)
+    np.testing.assert_allclose(got.numpy(), expect, **F32)
 
 
 def test_inner_update_one_client_plane_and_in_place():
@@ -178,9 +187,10 @@ def test_flash_attention_kv_length_stays_on_plain_version():
 
 # ---- K8: flash decode -----------------------------------------------------
 
-@pytest.mark.parametrize("B,Cc,Kv,G,hd", [(3, 64, 2, 3, 32), (2, 96, 1, 4, 16)])
-@pytest.mark.parametrize("impl", ["cuda", "torch"])
-def test_flash_decode_matches_pallas(B, Cc, Kv, G, hd, impl):
+@functools.lru_cache(maxsize=None)
+def _decode_case(B, Cc, Kv, G, hd):
+    """Inputs and the Pallas (interpret) results for a ragged and a
+    scalar kv_length, shared by both impls."""
     rng = np.random.RandomState(6)
     q = rng.randn(B, Kv * G, hd).astype(np.float32)
     kc = rng.randn(B, Cc, Kv, hd).astype(np.float32)
@@ -188,15 +198,22 @@ def test_flash_decode_matches_pallas(B, Cc, Kv, G, hd, impl):
     kvl = rng.randint(1, Cc + 1, size=B).astype(np.int32)
     expect = jax_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
                         jnp.asarray(kvl), block_k=32, interpret=True)
-    got = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), _t(kvl), impl=impl)
-    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **ATT)
-    # a scalar kv_length broadcasts over the batch
-    one = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), int(kvl[0]),
-                                   impl=impl)
     ref1 = jax_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
                       jnp.full((B,), kvl[0], jnp.int32), block_k=32,
                       interpret=True)
-    np.testing.assert_allclose(one.numpy(), np.asarray(ref1), **ATT)
+    return q, kc, vc, kvl, np.asarray(expect), np.asarray(ref1)
+
+
+@pytest.mark.parametrize("B,Cc,Kv,G,hd", [(3, 64, 2, 3, 32), (2, 96, 1, 4, 16)])
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_flash_decode_matches_pallas(B, Cc, Kv, G, hd, impl):
+    q, kc, vc, kvl, expect, ref1 = _decode_case(B, Cc, Kv, G, hd)
+    got = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), _t(kvl), impl=impl)
+    np.testing.assert_allclose(got.numpy(), expect, **ATT)
+    # a scalar kv_length broadcasts over the batch
+    one = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), int(kvl[0]),
+                                   impl=impl)
+    np.testing.assert_allclose(one.numpy(), ref1, **ATT)
 
 
 def test_flash_attention_function_backward_recomputes_plain(monkeypatch):

@@ -149,45 +149,59 @@ def test_engine_cache_bound_replay_and_publish():
 
 # ---- against the reference engine -----------------------------------------
 
+# one support shape: each further shape costs the reference one more
+# trace and compile of the LM gradient (the port's bucketing by shape is
+# covered by the MLP engine tests above)
+SERVE_TRAFFIC = dict(num_clients=3, rate=50.0, support_sizes=(3,), seed=6)
+
+
 @pytest.fixture(scope="module")
-def lm_setup():
+def reference_serve():
+    """One reduced serve by the reference engine, shared by the parity
+    tests below (tracing the reference dominates their cost). Each flush
+    is the engine's `jax.jit(adapt_packed_batch)` with the meta-update
+    impl set to `pallas_interpret` (and restored); decode runs the
+    flash-decode kernel in interpret mode."""
     jcfg = jax_reduced_config(jax_get_config("smollm-360m"))
     tcfg = reduced_config(get_config("smollm-360m"))
     jengine = jax_build_engine(jcfg, adapt_batch=2, seed=0,
                                decode_impl="pallas_interpret")
     tphi = {"theta": from_numpy_tree(
         jax.tree.map(np.asarray, jengine._phi["theta"]), "cpu")}
-    return jcfg, tcfg, jengine, tphi
-
-
-def test_adapt_packed_batch_matches_reference_pallas(lm_setup):
-    jcfg, tcfg, jengine, tphi = lm_setup
-    mk, _ = _lm_payloads(jcfg.vocab_size)
-    rng = np.random.RandomState(4)
-    sups = np.stack([mk(rng, 3) for _ in range(3)])
+    mk, mp = _lm_payloads(jcfg.vocab_size)
+    reqs = JaxTraffic(**SERVE_TRAFFIC).requests(5, mk, mp)
     prev = jax_mu.get_default_impl()
     jax_mu.set_default_impl("pallas_interpret")
     try:
-        jrows = jax.jit(lambda p, s: jengine.algo.adapt_packed_batch(
-            p, s, plane=jengine.plane))(jengine._phi, jnp.asarray(sups))
-        jrows = np.asarray(jrows)
+        jrep = jengine.serve(reqs, max_new_tokens=3)
     finally:
         jax_mu.set_default_impl(prev)
+    return tcfg, tphi, reqs, jrep
+
+
+def test_adapt_packed_batch_matches_reference_pallas(reference_serve):
+    """The port's `adapt_packed_batch` over the misses' supports, as one
+    batch, against the rows the reference's jitted flushes produced (a
+    full flush and a padded one)."""
+    tcfg, tphi, reqs, jrep = reference_serve
+    by_rid = {r.rid: r for r in reqs}
+    misses = [rec for rec in jrep.records if not rec["hit"]]
+    assert [rec["batch_fill"] for rec in misses] == [2, 2, 1]
+    sups = np.stack([by_rid[rec["rid"]].support for rec in misses])
     engine = build_engine(tcfg, tphi, adapt_batch=2, device="cpu")
     trows = engine.algo.adapt_packed_batch(tphi, torch.from_numpy(sups))
-    np.testing.assert_allclose(trows.numpy(), jrows, **NET)
+    np.testing.assert_allclose(
+        trows.numpy(), np.stack([np.asarray(rec["row"]) for rec in misses]),
+        **NET)
 
 
-def test_build_engine_serve_matches_reference_engine(lm_setup):
+def test_build_engine_serve_matches_reference_engine(reference_serve):
     """The whole reduced serve: same φ, same traffic — rows allclose and
     the generated tokens equal to the reference engine's."""
-    jcfg, tcfg, jengine, tphi = lm_setup
-    mk, mp = _lm_payloads(jcfg.vocab_size)
-    kw = dict(num_clients=3, rate=50.0, support_sizes=(2, 3), seed=1)
-    jrep = jengine.serve(JaxTraffic(**kw).requests(5, mk, mp),
-                         max_new_tokens=3)
+    tcfg, tphi, _, jrep = reference_serve
+    mk, mp = _lm_payloads(tcfg.vocab_size)
     engine = build_engine(tcfg, tphi, adapt_batch=2, device="cpu")
-    trep = engine.serve(TrafficModel(**kw).requests(5, mk, mp),
+    trep = engine.serve(TrafficModel(**SERVE_TRAFFIC).requests(5, mk, mp),
                         max_new_tokens=3)
     assert [r["rid"] for r in trep.records] == [r["rid"] for r in jrep.records]
     assert [r["hit"] for r in trep.records] == [r["hit"] for r in jrep.records]
