@@ -7,13 +7,15 @@ Phases, each printing one JSON line:
 
   device   fails (nonzero exit, no result) without a CUDA card or outside
            a checkout; prints `nvidia-smi --query-gpu=name,power.limit`.
-  build    builds the port's kernels (K1, K7, K8) from kernels/csrc/ for
-           sm_90a into build/torch_ext/ and prints the build time.
+  build    builds the port's kernels (K1, K2, K3, K7, K8) from
+           kernels/csrc/ for sm_90a into build/torch_ext/ and prints the
+           build time.
   kernels  holds each kernel against its plain PyTorch version on the
-           card at the serving path's shapes: K1 bitwise, K7 and K8
-           within a stated bf16 tolerance. Times kernel, plain version
-           and one PyTorch library call (a yardstick the port never
-           calls) with CUDA events: median of 20 runs after warm-up.
+           card at the main paths' shapes: K1, K2 and K3 bitwise (K2 and
+           K3 at the full SmolLM-360M plane), K7 and K8 within a stated
+           bf16 tolerance. Times kernel, plain version and one PyTorch
+           library call (a yardstick the port never calls) with CUDA
+           events: median of 20 runs after warm-up.
   serve    drives the port's serving path at full SmolLM-360M width —
            `build_engine` + `ServingEngine.serve` over 16 seeded
            requests (adapt -> prefill -> decode) — with every kernel's
@@ -22,6 +24,17 @@ Phases, each printing one JSON line:
            solo `adapt_packed`, and the distance to the all-plain route.
   trace    torch.profiler over a further adaptation and decode: device
            busy share and device time by kernel group.
+  train    the FedMeta training round. FEMNIST through the entry point:
+           `FederatedTrainer(packed=True, client_plane=True)` runs 20
+           FOMAML rounds of 4 clients with evals, then again with
+           impl="torch" (history and φ must be bitwise equal), and one
+           round each of MAML (order 2) and Meta-SGD; bytes per round
+           must be the reference's 14,772,160; one more round is
+           traced. Then 3 packed FOMAML rounds of SmolLM-360M at full
+           width on the client plane (4 clients, 4 + 4 sequences of 128
+           tokens each), round 1 held against the same round on the
+           all-plain route, round 3 traced.
+           Each path's kernel launches are counted from 0.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and last `{"ok": true, "device": {...}}`. Any failed
@@ -30,7 +43,9 @@ phase exits nonzero.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,12 +59,19 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA-core f32; dense bf16
 REPLACES = {
-    "inner_update_plane": "src/repro/kernels/meta_update/fused.py:115",
+    "inner_update_plane": "src/repro/kernels/meta_update/fused.py:115 "
+                          "(_inner_plane_scalar_call), "
+                          "src/repro/kernels/meta_update/fused.py:138 "
+                          "(_inner_plane_vec_call)",
+    "weighted_aggregate": "src/repro/kernels/meta_update/aggregate.py:80",
+    "adam_flat": "src/repro/optim/fused_adam.py:58",
     "flash_attention": "src/repro/kernels/attention/flash_attention.py:101",
     "flash_decode": "src/repro/kernels/decode_attention/flash_decode.py:85",
 }
 SOURCES = {
     "inner_update_plane": "src/repro_torch/kernels/csrc/inner_update.cu",
+    "weighted_aggregate": "src/repro_torch/kernels/csrc/aggregate.cu",
+    "adam_flat": "src/repro_torch/kernels/csrc/adam.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
 }
@@ -190,6 +212,114 @@ def check_k1(torch, n_plane: int):
         if not bitwise:
             raise PhaseFailed(f"K1 not bitwise equal to plain ({mode}): {err}")
     del theta, g
+    torch.cuda.empty_cache()
+    return rows, summary
+
+
+def check_k2(torch, n_plane: int):
+    """K2 against its plain version, bitwise: m = 4 at the full plane in
+    f32 and bf16, then m = 1, 7 and an int8 block at a small N."""
+    from repro_torch.kernels.meta_update import aggregate
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    small = 1 << 20
+    rows, summary = [], None
+    for m, N, dt in ((4, n_plane, "float32"), (4, n_plane, "bfloat16"),
+                     (1, small, "float32"), (7, small, "float32"),
+                     (4, small, "int8")):
+        if dt == "int8":
+            G = torch.randint(-127, 128, (m, N), device="cuda", generator=gen,
+                              dtype=torch.int8)
+        else:
+            G = torch.randn((m, N), device="cuda", generator=gen).to(
+                getattr(torch, dt))
+        w = torch.rand((m,), device="cuda", generator=gen) + 0.1
+        w = w / w.sum()
+        out = aggregate.weighted_aggregate_flat(G, w)
+        plain = aggregate.weighted_aggregate_ref(G, w)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(out, plain))
+        err = float((out - plain).abs().max())
+        del out, plain
+        ms = time_ms(lambda: aggregate.weighted_aggregate_flat(G, w), torch)
+        plain_ms = time_ms(lambda: aggregate.weighted_aggregate_ref(G, w),
+                           torch)
+        lib_ms = (None if dt == "int8" else library_time_ms(
+            lambda: torch.mv(G.t(), w.to(G.dtype)), torch))
+        b_ms, b_by = bound_ms(nbytes(G, w) + 4 * N, 2.0 * m * N, "float32")
+        row = {"name": "weighted_aggregate", "case": f"m={m} N={N} {dt}",
+               "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch.mv (cuBLAS GEMV)", "bound_ms": b_ms,
+               "bound_by": b_by}
+        rows.append(row)
+        if summary is None:
+            summary = row
+        del G, w
+        torch.cuda.empty_cache()
+        if not bitwise:
+            raise PhaseFailed(f"K2 not bitwise equal to plain: {row['case']} "
+                              f"err {err}")
+    return rows, summary
+
+
+def check_k3(torch, n_plane: int):
+    """K3 against its plain version, bitwise, at the full plane: f32 and
+    bf16 moments, weight decay 0 and 0.01, at steps 1 and 1000."""
+    from repro_torch.optim import fused_adam
+    N = n_plane
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    phi = torch.randn((N,), device="cuda", generator=gen)
+    g = torch.randn((N,), device="cuda", generator=gen)
+    m32 = torch.randn((N,), device="cuda", generator=gen) * 1e-2
+    v32 = torch.rand((N,), device="cuda", generator=gen) * 1e-3
+    rows, summary = [], None
+    for sd, wd, step in (("float32", 0.0, 1), ("float32", 0.01, 1000),
+                         ("bfloat16", 0.0, 1), ("bfloat16", 0.01, 1000)):
+        sdt = getattr(torch, sd)
+        m, v = m32.to(sdt), v32.to(sdt)
+        scales = fused_adam.adam_scales(
+            torch.tensor(step, dtype=torch.int32, device="cuda"),
+            hyper["b1"], hyper["b2"])
+        kw = dict(hyper, wd=wd)
+        p1, m1, v1 = phi.clone(), m.clone(), v.clone()
+        fused_adam.adam_flat_pallas(p1, g, m1, v1, scales, **kw)
+        pp, mp, vp = fused_adam.adam_flat_ref(phi, g, m, v, scales, **kw)
+        mp, vp = mp.to(sdt), vp.to(sdt)
+        torch.cuda.synchronize()
+        bitwise = all(bool(torch.equal(a, b)) for a, b in
+                      ((p1, pp), (m1, mp), (v1, vp)))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in ((p1, pp), (m1, mp), (v1, vp)))
+        del pp, mp, vp
+        ms = time_ms(lambda: fused_adam.adam_flat_pallas(
+            p1, g, m1, v1, scales, **kw), torch)
+        plain_ms = time_ms(lambda: fused_adam.adam_flat_ref(
+            phi, g, m, v, scales, **kw), torch)
+        steps = [torch.tensor(float(step), device="cuda")]
+        lib_ms = library_time_ms(lambda: torch._fused_adam_(
+            [p1], [g], [m1], [v1], [], steps, lr=kw["lr"], beta1=kw["b1"],
+            beta2=kw["b2"], weight_decay=wd, eps=kw["eps"], amsgrad=False,
+            maximize=False), torch)
+        itemsize = m.element_size()
+        flops = (16.0 if wd > 0 else 14.0) * N
+        b_ms, b_by = bound_ms(N * (4 + 4 + 2 * itemsize + 4 + 2 * itemsize),
+                              flops, "float32")
+        row = {"name": "adam_flat",
+               "case": f"N={N} state={sd} wd={wd} step={step}",
+               "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch._fused_adam_ (rounds differently)",
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        if summary is None:
+            summary = row
+        del p1, m1, v1, m, v
+        torch.cuda.empty_cache()
+        if not bitwise:
+            raise PhaseFailed(f"K3 not bitwise equal to plain: {row['case']} "
+                              f"err {err}")
+    del phi, g, m32, v32
     torch.cuda.empty_cache()
     return rows, summary
 
@@ -344,6 +474,8 @@ def phase_kernels(torch, cfg):
     rows = []
     summaries = {}
     for name, check in (("inner_update_plane", lambda: check_k1(torch, n_plane)),
+                        ("weighted_aggregate", lambda: check_k2(torch, n_plane)),
+                        ("adam_flat", lambda: check_k3(torch, n_plane)),
                         ("flash_attention", lambda: check_k7(torch)),
                         ("flash_decode", lambda: check_k8(torch))):
         r, s = check()
@@ -472,6 +604,8 @@ def phase_serve(torch, cfg):
 
 
 KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
+                 ("K2 weighted_aggregate", ("weighted_aggregate_kernel",)),
+                 ("K3 adam", ("adam_kernel",)),
                  ("K7 flash_attention", ("flash_attention_kernel",)),
                  ("K8 flash_decode", ("flash_decode_kernel",)),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
@@ -479,14 +613,10 @@ KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
                  ("copy/cast/fill", ("copy", "memcpy", "memset", "fill")))
 
 
-def _device_profile(torch, fn):
-    """(host wall s untraced, host wall s traced, device summary) for fn."""
+def _traced(torch, fn):
+    """(host wall s, device summary) of one traced run of fn."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -512,11 +642,24 @@ def _device_profile(torch, fn):
         else:
             groups["other"] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms_untraced": plain_s * 1e3, "wall_ms_traced": traced_s * 1e3,
-            "device_events": n_events, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / (traced_s * 1e3),
-            "device_ms_by_group": groups,
-            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+    return traced_s, {
+        "wall_ms_traced": traced_s * 1e3, "device_events": n_events,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (traced_s * 1e3),
+        "device_ms_by_group": groups,
+        "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+
+
+def _device_profile(torch, fn):
+    """Device summary of fn, run once untraced and once traced (the
+    difference in wall time is the profiler's cost)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _, summary = _traced(torch, fn)
+    return {"wall_ms_untraced": plain_s * 1e3, **summary}
 
 
 def phase_trace(torch, engine, mk, mp, new_tokens):
@@ -538,6 +681,226 @@ def phase_trace(torch, engine, mk, mp, new_tokens):
     visible = adapt["device_events"] > 0 and decode["device_events"] > 0
     emit({"phase": "trace", "ok": True, "requests": len(reqs),
           "device_time_visible": visible, "adapt": adapt, "decode": decode})
+
+
+# ------------------------------------------------------------------ train
+
+# 4 clients x (download + upload) x 1,846,520 B of f32 φ for
+# femnist_cnn(62, hidden=128): the committed comparison artifact's
+# 14.77216 MB a round (results/experiments/femnist_compare.json)
+FEMNIST_ROUND_BYTES = 14_772_160
+
+
+def _kernel_modules():
+    from repro_torch.kernels.attention import flash_attention as k7
+    from repro_torch.kernels.decode_attention import flash_decode as k8
+    from repro_torch.kernels.meta_update import aggregate as k2
+    from repro_torch.kernels.meta_update import fused as k1
+    from repro_torch.optim import fused_adam as k3
+    return {"inner_update_plane": k1, "weighted_aggregate": k2,
+            "adam_flat": k3, "flash_attention": k7, "flash_decode": k8}
+
+
+def reset_launches():
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+def phase_train_femnist(torch):
+    """FedMeta on FEMNIST through `FederatedTrainer` on the packed client
+    plane: the kernel route, then the all-plain route (impl="torch"),
+    which must agree bit for bit, then one round each of MAML (order 2)
+    and Meta-SGD."""
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.data import make_femnist
+    from repro_torch.federated.server import FederatedTrainer
+    from repro_torch.models.paper import femnist_cnn
+    from repro_torch.optim import adam
+
+    ROUNDS, EVAL_EVERY = 20, 10
+    train, val, _ = make_femnist(num_clients=100, mean_samples=60,
+                                 seed=0).split_clients(0)
+    model = femnist_cnn(62, hidden=128, device="cuda")
+    loss_fn, eval_fn = classification_loss(model.apply)
+
+    def run(name, impl, rounds, eval_every=0):
+        algo = make_algorithm(name, loss_fn, eval_fn, 0.05)
+        tr = FederatedTrainer(algo, adam(1e-3), train, clients_per_round=4,
+                              support_frac=0.2, support_size=16,
+                              query_size=16, seed=0, packed=True,
+                              client_plane=True, impl=impl, device="cuda")
+        state = tr.init(0, model.init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.run(state, rounds, eval_every=eval_every,
+                       eval_clients=val)
+        torch.cuda.synchronize()
+        return tr, state, time.perf_counter() - t0
+
+    run("fomaml", "cuda", 1)            # warm-up: first-call set-up
+    reset_launches()
+    tr, state, wall_s = run("fomaml", "cuda", ROUNDS, EVAL_EVERY)
+    launches = read_launches()
+    tr_t, state_t, wall_t = run("fomaml", "torch", ROUNDS, EVAL_EVERY)
+
+    errors = []
+    for name in ("inner_update_plane", "weighted_aggregate", "adam_flat"):
+        if launches[name] <= 0:
+            errors.append(f"{name} was not launched on the training path")
+    if tr.comm.total_bytes != ROUNDS * FEMNIST_ROUND_BYTES:
+        errors.append(f"bytes {tr.comm.total_bytes} != "
+                      f"{ROUNDS} x {FEMNIST_ROUND_BYTES}")
+    for rec in tr.history:
+        if rec["comm_MB"] != rec["rounds"] * FEMNIST_ROUND_BYTES / 1e6:
+            errors.append(f"round {rec['round']}: comm_MB {rec['comm_MB']}")
+    finite = bool(torch.isfinite(state["phi"]).all()) and all(
+        math.isfinite(rec["query_loss"]) for rec in tr.history)
+    if not finite:
+        errors.append("non-finite φ or query loss")
+    same_history = tr.history == tr_t.history
+    same_phi = bool(torch.equal(state["phi"], state_t["phi"])) and all(
+        torch.equal(state["opt"][k], state_t["opt"][k])
+        for k in ("m", "v", "step"))
+    if not (same_history and same_phi):
+        errors.append(f"kernel and plain routes differ: history "
+                      f"{same_history}, state {same_phi}")
+    others = {}
+    for name in ("maml", "meta-sgd"):
+        o_tr, o_state, o_s = run(name, "cuda", 1)
+        ok = bool(torch.isfinite(o_state["phi"]).all()) and math.isfinite(
+            o_tr.history[0]["query_loss"])
+        others[name] = {"query_loss": o_tr.history[0]["query_loss"],
+                        "wall_s": o_s, "finite": ok}
+        if not ok:
+            errors.append(f"{name}: non-finite round")
+    evals = [{k: rec[k] for k in ("round", "eval_acc", "eval_loss")}
+             for rec in tr.history if "eval_acc" in rec]
+    # where a round's time goes: one more round of the kernel run, traced
+    _, trace = _traced(torch, lambda: tr.run(state, 1))
+    emit({"phase": "train_femnist", "ok": not errors, "rounds": ROUNDS,
+          "clients_per_round": 4, "n_real": tr._plane.n_real,
+          "phi_bytes": tr.comm.phi_bytes,
+          "bytes_per_round": tr.comm.total_bytes / ROUNDS,
+          "wall_s": wall_s, "wall_s_plain_route": wall_t,
+          "round_ms": wall_s / ROUNDS * 1e3, "launches": launches,
+          "launches_per_round": {k: v / ROUNDS for k, v in launches.items()},
+          "first": {k: tr.history[0][k] for k in ("query_loss", "accuracy")},
+          "last": {k: tr.history[-1][k] for k in ("query_loss", "accuracy")},
+          "evals": evals, "bitwise_equal_plain_route":
+              same_history and same_phi, "others": others,
+          "trace_round": trace, "errors": errors})
+    if errors:
+        raise PhaseFailed("; ".join(errors))
+    return launches
+
+
+def phase_train_lm(torch, cfg):
+    """Three packed FOMAML rounds of SmolLM-360M at full width on the
+    client plane: m = 4 clients, 4 support and 4 query sequences of 128
+    tokens each, Adam(1e-3). Round 1 is held against the same round on
+    the all-plain route (K1, K2, K3 and attention plain); round 3 is
+    traced."""
+    import numpy as np
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.fedmeta import (init_packed_state,
+                                          make_packed_meta_train_step)
+    from repro_torch.core.losses import lm_loss
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch.steps import make_apply_fn
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adam
+    from repro_torch.utils.flat import plane_for
+    from repro_torch.utils.pytree import tree_map
+
+    M, S, Q, L, LR = 4, 4, 4, 128, 1e-3
+    algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
+    phi = {"theta": init_lm(0, cfg, device="cuda")}
+    plane = plane_for(phi)
+    opt = adam(LR)
+    state = init_packed_state(opt, plane, phi)
+    del phi
+    rng = np.random.RandomState(0)
+    batches = [tuple(torch.as_tensor(rng.randint(0, cfg.vocab_size, (M, n, L)),
+                                     dtype=torch.int32, device="cuda")
+                     for n in (S, Q)) for _ in range(3)]
+    step = make_packed_meta_train_step(algo, opt, plane, client_plane=True,
+                                       impl="cuda")
+
+    # round 1 on the all-plain route, from a copy (K3 updates in place)
+    plain_step = make_packed_meta_train_step(algo, opt, plane,
+                                             client_plane=True, impl="torch")
+    st = {"phi": state["phi"].clone(), "opt": tree_map(torch.clone,
+                                                       state["opt"])}
+    with attn_ops.use_impl("torch"):
+        st, _ = plain_step(st, *batches[0])
+    phi_plain, m_plain = st["phi"], st["opt"]["m"]
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    walls, metrics = [], []
+    for r in range(2):
+        t0 = time.perf_counter()
+        state, met = step(state, *batches[r])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in met.items()})
+        if r == 0:
+            # Adam's first step moves each entry by lr·g/(|g| + eps), at
+            # most lr, so any gradient difference moves φ by at most
+            # 2·lr; the meta-gradient itself (m / (1 - b1)) is held at
+            # 1/8 of its largest entry, the serve phase's tolerance for
+            # the same kernel-vs-plain attention rounding through 32
+            # bf16 layers
+            d_phi = float((state["phi"] - phi_plain).abs().max())
+            moved = float(((state["phi"] - phi_plain).abs() > 1e-6)
+                          .float().mean())
+            d_g = float((state["opt"]["m"] - m_plain).abs().max()
+                        / m_plain.abs().max())
+            del phi_plain, m_plain
+    box = {}
+
+    def third():
+        box["state"], box["met"] = step(state, *batches[2])
+
+    wall3, trace = _traced(torch, third)
+    state = box["state"]
+    walls.append(wall3)
+    metrics.append({k: float(v) for k, v in box["met"].items()})
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    errors = []
+    for name in ("inner_update_plane", "weighted_aggregate", "adam_flat",
+                 "flash_attention"):
+        if launches[name] <= 0:
+            errors.append(f"{name} was not launched on the LM training path")
+    if not bool(torch.isfinite(state["phi"]).all()):
+        errors.append("non-finite φ")
+    phi_tol = 2 * LR + 1e-6
+    g_tol = 0.125
+    if not (d_phi <= phi_tol and d_g <= g_tol):
+        errors.append(f"round 1 vs the plain route: |dφ| {d_phi} (limit "
+                      f"{phi_tol}), meta-gradient {d_g} (limit {g_tol})")
+    emit({"phase": "train_lm", "ok": not errors, "arch": cfg.name,
+          "n_plane": plane.n_padded, "clients": M, "support": S, "query": Q,
+          "seq_len": L, "round_wall_ms": [w * 1e3 for w in walls],
+          "round3_traced": True, "metrics": metrics, "peak_mem_gb": peak_gb,
+          "launches": launches,
+          "plain_route_round1": {"max_abs_dphi": d_phi, "phi_tol": phi_tol,
+                                 "share_moved_1e-6": moved,
+                                 "meta_grad_rel": d_g, "meta_grad_tol": g_tol},
+          "trace_round3": trace, "errors": errors})
+    if errors:
+        raise PhaseFailed("; ".join(errors))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -566,7 +929,10 @@ def main(argv=None) -> int:
     phase = "build"
     try:
         from repro_torch.configs import get_config
+        # full-f32 matmuls and convolutions, deterministic cuDNN algorithms
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
         cfg = get_config("smollm-360m")
         phase_build(torch)
         phase = "kernels"
@@ -575,16 +941,29 @@ def main(argv=None) -> int:
         launches, ctx = phase_serve(torch, cfg)
         phase = "trace"
         phase_trace(torch, *ctx)
+        del ctx                     # the engine's cache holds ~20 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "train"
+        paths = {"serve": launches,
+                 "train_femnist": phase_train_femnist(torch),
+                 "train_lm": phase_train_lm(torch, cfg)}
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})
         return 1
 
+    # `launches`: on the first main path that runs the kernel (serving
+    # for K1, K7, K8; FEMNIST training for K2, K3), each path counted
+    # from 0; every path's count beside it
     kernels = []
     for name, s in summaries.items():
+        first = next(p for p in paths if paths[p].get(name, 0) > 0)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": paths[first][name],
+            "launches_path": first,
+            "launches_by_path": {p: paths[p].get(name, 0) for p in paths},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],

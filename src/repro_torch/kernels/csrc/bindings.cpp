@@ -29,6 +29,14 @@ cudaError_t launch_flash_decode(int dtype, const void* q, const void* k,
                                 const long long* strides, int B, int C,
                                 int Kv, int G, int hd, float scale,
                                 cudaStream_t stream);
+cudaError_t launch_weighted_aggregate(int dtype, const void* G,
+                                      const float* w, float* out, int m,
+                                      long long N, cudaStream_t stream);
+cudaError_t launch_adam_flat(int state_dtype, float* p, const float* g,
+                             void* m, void* v, const float* scales,
+                             long long N, float lr, float b1, float c1,
+                             float b2, float c2, float eps, float wd,
+                             cudaStream_t stream);
 
 namespace {
 
@@ -182,10 +190,79 @@ void flash_decode(torch::Tensor q, torch::Tensor k_cache,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// G: (m, N) f32, bf16 or int8, contiguous; w: (m,) f32; out: (N,) f32.
+void weighted_aggregate(torch::Tensor G, torch::Tensor w, torch::Tensor out) {
+  check_cuda(G, "G");
+  check_cuda(w, "w");
+  check_cuda(out, "out");
+  TORCH_CHECK(G.dim() == 2 && G.is_contiguous(), "G must be contiguous (m, N)");
+  int dt = 0;
+  if (G.scalar_type() == torch::kBFloat16) {
+    dt = 1;
+  } else if (G.scalar_type() == torch::kChar) {
+    dt = 2;
+  } else {
+    TORCH_CHECK(G.scalar_type() == torch::kFloat,
+                "G must be float32, bfloat16 or int8, got ", G.scalar_type());
+  }
+  const long long m = G.size(0), N = G.size(1);
+  TORCH_CHECK(m >= 1 && m <= 12288, "1 <= m <= 12288 client rows");
+  TORCH_CHECK(N % 4 == 0, "N must be a multiple of 4");
+  TORCH_CHECK(w.scalar_type() == torch::kFloat && w.is_contiguous() &&
+                  w.dim() == 1 && w.size(0) == m,
+              "w must be contiguous (m,) float32");
+  TORCH_CHECK(out.scalar_type() == torch::kFloat && out.is_contiguous() &&
+                  out.dim() == 1 && out.size(0) == N,
+              "out must be contiguous (N,) float32");
+  check_aligned16(G, "G");
+  check_aligned16(out, "out");
+  const at::cuda::CUDAGuard guard(G.device());
+  launch_weighted_aggregate(dt, G.data_ptr(), w.data_ptr<float>(),
+                            out.data_ptr<float>(), static_cast<int>(m), N,
+                            at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// p, g: (N,) f32; m, v: (N,) f32 or bf16; scales: (2,) f32. In place.
+void adam_flat(torch::Tensor p, torch::Tensor g, torch::Tensor m,
+               torch::Tensor v, torch::Tensor scales, double lr, double b1,
+               double c1, double b2, double c2, double eps, double wd) {
+  for (const auto* t : {&p, &g, &m, &v, &scales}) check_cuda(*t, "adam input");
+  TORCH_CHECK(p.scalar_type() == torch::kFloat &&
+                  g.scalar_type() == torch::kFloat,
+              "phi and g must be float32");
+  TORCH_CHECK(m.scalar_type() == v.scalar_type() &&
+                  (m.scalar_type() == torch::kFloat ||
+                   m.scalar_type() == torch::kBFloat16),
+              "m and v must share a dtype, float32 or bfloat16");
+  const long long N = p.numel();
+  for (const auto* t : {&p, &g, &m, &v}) {
+    TORCH_CHECK(t->dim() == 1 && t->numel() == N && t->is_contiguous(),
+                "phi, g, m, v must be contiguous (N,)");
+    check_aligned16(*t, "adam input");
+  }
+  TORCH_CHECK(N % 4 == 0, "N must be a multiple of 4");
+  TORCH_CHECK(scales.scalar_type() == torch::kFloat && scales.numel() == 2 &&
+                  scales.is_contiguous(),
+              "scales must be contiguous (2,) float32");
+  const at::cuda::CUDAGuard guard(p.device());
+  launch_adam_flat(m.scalar_type() == torch::kFloat ? 0 : 1,
+                   p.data_ptr<float>(), g.data_ptr<float>(), m.data_ptr(),
+                   v.data_ptr(), scales.data_ptr<float>(), N,
+                   static_cast<float>(lr), static_cast<float>(b1),
+                   static_cast<float>(c1), static_cast<float>(b2),
+                   static_cast<float>(c2), static_cast<float>(eps),
+                   static_cast<float>(wd), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("inner_update", &inner_update, "K1: theta <- theta - alpha * g");
   m.def("flash_attention", &flash_attention, "K7: flash-attention forward");
   m.def("flash_decode", &flash_decode, "K8: one-token decode attention");
+  m.def("weighted_aggregate", &weighted_aggregate,
+        "K2: out = sum_u w[u] * G[u]");
+  m.def("adam_flat", &adam_flat, "K3: one fused Adam step, in place");
 }

@@ -1,17 +1,18 @@
-"""Dispatchers for the fused meta-step ops (this slice: the inner update).
+"""Dispatchers for the fused meta-step ops: the inner update (K1) and
+the weighted aggregation (K2).
 
-impl: "cuda" (default; the K1 kernel for CUDA tensors, its plain
-version for CPU tensors) or "torch" (the plain version everywhere),
+impl: "cuda" (default; the kernels for CUDA tensors, their plain
+versions for CPU tensors) or "torch" (the plain version everywhere),
 selected per call — the port's counterpart of the reference's
 xla/pallas switch (`repro/kernels/meta_update/ops.py:43-60`).
-Aggregation, compression and the robust reductions join with the
-training slice.
+The robust reductions (K5) and compression (K6) join with their slices.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.meta_update import ref
+from repro_torch.kernels.meta_update.aggregate import weighted_aggregate_flat
 from repro_torch.kernels.meta_update.fused import inner_update_plane
 from repro_torch.utils.flat import plane_for
 
@@ -60,3 +61,11 @@ def inner_update(theta, alpha, g, *, impl: str | None = None):
             raise ValueError("2-D alpha with 1-D theta")
     out = inner_update_plane(theta, alpha, g)
     return out[0] if squeeze else out
+
+
+def weighted_aggregate(gs, w, *, impl: str | None = None):
+    """(m, N) packed client grads × (m,) weights -> (N,) Σ_u w_u·g_u."""
+    impl = resolve_impl(impl)
+    if impl == "torch":
+        return ref.weighted_aggregate_ref(gs, w)
+    return weighted_aggregate_flat(gs, w)

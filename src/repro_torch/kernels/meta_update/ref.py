@@ -30,3 +30,16 @@ def meta_update_ref(theta, alpha, grads):
     return tree_map(
         lambda p, a, g: (p.float() - a.float() * g.float()).to(p.dtype),
         theta, alpha, grads)
+
+
+def weighted_aggregate_ref(gs, w):
+    """Plain version of K2: Σ_u w_u·gs[u] into (N,) f32, summed in the
+    order u = 0..m-1 from zero, one rounded product and one rounded sum
+    per row — the Pallas kernel's `fori_loop` order, which the CUDA
+    kernel reproduces bit for bit. gs: (m, N) f32, bf16 or int8; w: (m,)
+    weights, already normalized by the caller."""
+    w = w.float()
+    acc = torch.zeros(gs.shape[1:], dtype=torch.float32, device=gs.device)
+    for u in range(gs.shape[0]):
+        acc = acc + w[u] * gs[u].float()
+    return acc

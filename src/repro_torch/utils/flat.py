@@ -89,6 +89,20 @@ class FlatPlane:
                for s, p in zip(self.slots, parts)]
         return tree_unflatten(self.treedef, out)
 
+    def pack_batch(self, tree, dtype=torch.float32):
+        """tree with a leading batch axis on every leaf -> (B, n_padded)."""
+        leaves = tree_flatten(tree)[0]
+        B = leaves[0].shape[0]
+        parts = [x.reshape(B, -1).to(dtype) for x in leaves]
+        pad = self.n_padded - self.n_real
+        if pad:
+            parts.append(parts[0].new_zeros((B, pad)))
+        return torch.cat(parts, dim=1)
+
+    def zeros(self, device="cuda"):
+        return torch.zeros((self.n_padded,), dtype=torch.float32,
+                           device=device)
+
     def unpack_ad(self, flat):
         """``unpack`` whose backward writes every leaf's gradient straight
         into one zeroed f32 plane: a single (n_padded,) buffer per

@@ -8,6 +8,10 @@ by the JAX package.
 """
 from __future__ import annotations
 
+import math
+
+import torch
+
 
 def tree_flatten(tree):
     """-> (leaves, treedef). `treedef` is a hashable skeleton."""
@@ -54,3 +58,54 @@ def tree_map(fn, tree, *rest):
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(treedef,
                           [fn(x, *xs) for x, *xs in zip(leaves, *others)])
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_size(a) -> int:
+    """Total number of elements across all leaves."""
+    return sum(math.prod(x.shape) for x in tree_leaves(a))
+
+
+def tree_bytes(a) -> int:
+    """Total bytes across all leaves (honours per-leaf dtype)."""
+    return sum(math.prod(x.shape) * x.element_size()
+               for x in tree_leaves(a))
+
+
+def tree_norm(a):
+    """Global L2 norm of a tree, as a 0-d f32 tensor."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(a)))
+
+
+def tree_cast(a, dtype):
+    return tree_map(lambda x: x.to(dtype), a)
+
+
+def tree_any_nan(a):
+    """0-d bool tensor: any non-finite value in a floating leaf."""
+    flags = [torch.any(~torch.isfinite(x)) for x in tree_leaves(a)
+             if x.is_floating_point()]
+    if not flags:
+        return torch.tensor(False)
+    return torch.any(torch.stack(flags))
+
+
+def tree_axpy(alpha, x, y):
+    """y + alpha * x, leafwise."""
+    return tree_map(lambda xi, yi: yi + alpha * xi, x, y)

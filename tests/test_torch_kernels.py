@@ -7,7 +7,10 @@ kernels in interpret mode, as the JAX package's own tests do. Inputs
 come from seeded numpy streams and go through both.
 
 Tolerances: the inner update is one rounded product and one rounded
-difference on both sides — f32 rtol 1e-5 / atol 1e-6. Attention sums
+difference on both sides — f32 rtol 1e-5 / atol 1e-6. The aggregation
+and the fused Adam round each step the same way on both sides but may
+differ in the last bit (XLA may fuse or reorder, and `b ** t` may differ
+by an ulp between XLA and PyTorch): f32 rtol 1e-5 / atol 1e-6 as well. Attention sums
 in another order (online softmax over tiles vs one pass), so it is held
 at 2e-5, the reference's own kernel-vs-oracle tolerance
 (tests/test_kernels_attention.py)."""
@@ -23,11 +26,15 @@ from repro.kernels.attention.flash_attention import flash_attention_bhld as jax_
 from repro.kernels.attention.ref import mha_reference as jax_mha
 from repro.kernels.decode_attention.flash_decode import flash_decode as jax_decode
 from repro.kernels.meta_update import ops as jax_mu
+from repro.kernels.meta_update.aggregate import weighted_aggregate_flat as jax_agg
 from repro.kernels.meta_update.fused import inner_update_plane as jax_plane
+from repro.optim.fused_adam import adam_flat_update as jax_adam_flat
+from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.flash_attention import flash_attention_bhld
 from repro_torch.kernels.decode_attention import ops as dec_ops
-from repro_torch.kernels.meta_update import fused, ops as mu_ops
+from repro_torch.kernels.meta_update import aggregate, fused, ops as mu_ops
+from repro_torch.optim import fused_adam
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 ATT = dict(rtol=2e-5, atol=2e-5)
@@ -236,3 +243,88 @@ def test_flash_attention_function_backward_recomputes_plain(monkeypatch):
         (k7._plain_bhld(*ref_ins, causal, window, qoff) * w).sum(), ref_ins)
     for a, b in zip(got, expect):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---- K2: weighted aggregation ---------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_weighted_aggregate_matches_pallas(m, dtype, impl):
+    rng = np.random.RandomState(m)
+    G = jnp.asarray(rng.randn(m, N).astype(np.float32)).astype(dtype)
+    w = rng.rand(m).astype(np.float32)
+    w /= w.sum()
+    expect = np.asarray(jax_agg(G, jnp.asarray(w), interpret=True))
+    Gt = tensor_from_numpy(np.asarray(G), "cpu")
+    got = mu_ops.weighted_aggregate(Gt, _t(w), impl=impl)
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), expect, **F32)
+
+
+def test_weighted_aggregate_plain_version_sums_rows_in_order():
+    """The plain version is the Pallas loop's order, row by row from
+    zero — the order the CUDA kernel reproduces bit for bit; an int8
+    block (the int8 codec's slice folds scales into w) sums exactly."""
+    rng = np.random.RandomState(4)
+    G = torch.from_numpy(rng.randint(-127, 128, (5, N)).astype(np.int8))
+    w = torch.from_numpy(rng.rand(5).astype(np.float32))
+    acc = torch.zeros(N)
+    for u in range(5):
+        acc = acc + w[u] * G[u].float()
+    launches = aggregate.launches
+    assert torch.equal(aggregate.weighted_aggregate_flat(G, w), acc)
+    assert aggregate.launches == launches      # CPU: no kernel launch
+
+
+# ---- K3: fused Adam --------------------------------------------------------
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_adam_flat_update_matches_pallas(wd, state_dtype, impl):
+    """Three steps from zero moments against the Pallas kernel run in
+    interpret mode; φ, m and v after each step. bf16 moments are held
+    to one bf16 ulp (rtol 2^-7): their f32 value before the store may
+    differ in the last bit between XLA and PyTorch and round the other
+    way, which then moves that element's φ step by under 1e-5."""
+    rng = np.random.RandomState(7)
+    phi = rng.randn(N).astype(np.float32)
+    grads = [rng.randn(N).astype(np.float32) for _ in range(3)]
+    kw = dict(lr=1e-3, wd=wd)
+    jp, jm, jv = jnp.asarray(phi), jnp.zeros(N, state_dtype), \
+        jnp.zeros(N, state_dtype)
+    jstep = jnp.zeros((), jnp.int32)
+    tdt = getattr(torch, state_dtype)
+    tp, tm, tv = _t(phi), torch.zeros(N, dtype=tdt), torch.zeros(N, dtype=tdt)
+    tstep = torch.zeros((), dtype=torch.int32)
+    p_tol, s_tol = (F32, F32) if state_dtype == "float32" else (
+        dict(rtol=1e-5, atol=1e-5), dict(rtol=2.0 ** -7, atol=1e-6))
+    for g in grads:
+        jp, jm, jv, jstep = jax_adam_flat(
+            jp, jnp.asarray(g), jm, jv, jstep, state_dtype=jnp.dtype(
+                state_dtype), impl="pallas_interpret", **kw)
+        tp, tm, tv, tstep = fused_adam.adam_flat_update(
+            tp, _t(g), tm, tv, tstep, state_dtype=tdt, impl=impl, **kw)
+        assert tm.dtype == tdt and tv.dtype == tdt
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **p_tol)
+        for t, j in ((tm, jm), (tv, jv)):
+            np.testing.assert_allclose(t.float().numpy(),
+                                       np.asarray(j, np.float32), **s_tol)
+    assert int(tstep) == int(jstep) == 3
+
+
+def test_adam_kernel_wrapper_updates_in_place_on_cpu():
+    """`adam_flat_pallas` writes φ, m, v where they lie (the reference's
+    aliases), with the plain version's values."""
+    rng = np.random.RandomState(8)
+    phi, g = _t(rng.randn(N).astype(np.float32)), _t(rng.randn(N).astype(
+        np.float32))
+    m, v = torch.zeros(N), torch.zeros(N)
+    scales = torch.tensor([10.0, 1000.0])
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
+    expect = fused_adam.adam_flat_ref(phi, g, m, v, scales, **kw)
+    out = fused_adam.adam_flat_pallas(phi, g, m, v, scales, **kw)
+    assert out[0] is phi and out[1] is m and out[2] is v
+    for a, b in zip(out, expect):
+        assert torch.equal(a, b)
