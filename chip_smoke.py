@@ -7,15 +7,17 @@ Phases, each printing one JSON line:
 
   device   fails (nonzero exit, no result) without a CUDA card or outside
            a checkout; prints `nvidia-smi --query-gpu=name,power.limit`.
-  build    builds the port's kernels (K1, K2, K3, K7, K8) from
+  build    builds the port's kernels (K1–K4, K6, K7, K8) from
            kernels/csrc/ for sm_90a into build/torch_ext/ and prints the
            build time.
   kernels  holds each kernel against its plain PyTorch version on the
-           card at the main paths' shapes: K1, K2 and K3 bitwise (K2 and
-           K3 at the full SmolLM-360M plane), K7 and K8 within a stated
-           bf16 tolerance. Times kernel, plain version and one PyTorch
-           library call (a yardstick the port never calls) with CUDA
-           events: median of 20 runs after warm-up.
+           card at the main paths' shapes: K1, K2, K3, K4 and K6 bitwise
+           (K2, K3, K4 and K6 at the full SmolLM-360M plane; K6 also on a
+           FEMNIST block with a zero row and exact .5 products; K2 on the
+           int8 block with the folded weights w·s), K7 and K8 within a
+           stated bf16 tolerance. Times kernel, plain version and one
+           PyTorch library call (a yardstick the port never calls) with
+           CUDA events: median of 20 runs after warm-up.
   serve    drives the port's serving path at full SmolLM-360M width —
            `build_engine` + `ServingEngine.serve` over 16 seeded
            requests (adapt -> prefill -> decode) — with every kernel's
@@ -35,6 +37,17 @@ Phases, each printing one JSON line:
            tokens each), round 1 held against the same round on the
            all-plain route, round 3 traced.
            Each path's kernel launches are counted from 0.
+  train_comm  the bytes-on-the-wire round and the experiment plane,
+           through `run_comparison` on the client plane: (i) the
+           compression sweep (FOMAML, 30 rounds, f32 / bf16 / int8+ef /
+           topk0.05+ef), bytes per round held exactly, K6 launched once
+           a round under int8, and the int8 run again with impl="torch",
+           bitwise equal; (ii) int8+ef with DP for 5 rounds, kernel and
+           plain routes bitwise equal; (iii) the committed FEMNIST
+           comparison plan (five methods, 100 rounds), bytes held
+           exactly; (iv) 2 FOMAML rounds of SmolLM-360M at full width
+           with int8 uploads, error feedback over 8 client rows and DP,
+           round 1 held against the all-plain route.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and last `{"ok": true, "device": {...}}`. Any failed
@@ -43,6 +56,7 @@ phase exits nonzero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -67,6 +81,8 @@ REPLACES = {
     "adam_flat": "src/repro/optim/fused_adam.py:58",
     "flash_attention": "src/repro/kernels/attention/flash_attention.py:101",
     "flash_decode": "src/repro/kernels/decode_attention/flash_decode.py:85",
+    "int8_encode": "src/repro/kernels/meta_update/compress.py:157",
+    "meta_update_flat": "src/repro/kernels/meta_update/fused.py:70",
 }
 SOURCES = {
     "inner_update_plane": "src/repro_torch/kernels/csrc/inner_update.cu",
@@ -74,6 +90,8 @@ SOURCES = {
     "adam_flat": "src/repro_torch/kernels/csrc/adam.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "int8_encode": "src/repro_torch/kernels/csrc/int8_encode.cu",
+    "meta_update_flat": "src/repro_torch/kernels/csrc/inner_update.cu",
 }
 
 
@@ -324,6 +342,136 @@ def check_k3(torch, n_plane: int):
     return rows, summary
 
 
+def _equal_all(torch, pairs) -> bool:
+    return all(a.dtype == b.dtype and bool(torch.equal(a, b))
+               for a, b in pairs)
+
+
+def femnist_edge_block(torch, N: int):
+    """(4, N) f32: a random row, a zero row, a row of half-integers
+    (max 127, so s = 1) and the same over 32 (s = 2^-5): every product
+    g·inv of rows 2 and 3 is an exact .5, which rounds half to even."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    G = torch.zeros((4, N), device="cuda")
+    G[0] = torch.randn((N,), device="cuda", generator=gen)
+    half = torch.arange(N, device="cuda", dtype=torch.float32) % 254 - 126.5
+    half[0] = 127.0
+    G[2] = half
+    G[3] = half / 32
+    return G
+
+
+def check_k6(torch, n_plane: int):
+    """K6 against its plain version, bitwise (q, scales and residual):
+    at the full SmolLM-360M plane (m = 4) and on a FEMNIST-width block
+    with a zero row and exact .5 products; then K2 over the int8 block
+    with the folded weights w·s, bitwise against its plain loop. K6's
+    time is the kernel's (scales given); `wrapper_ms` adds the scales'
+    row reduction."""
+    from repro_torch.kernels._build import get_ext
+    from repro_torch.kernels.meta_update import compress as k6
+    ext = get_ext()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, summary, k2_rows = [], None, []
+    for case, m, N in (("lm", 4, n_plane), ("femnist", 4, 461_824)):
+        G = (torch.randn((m, N), device="cuda", generator=gen)
+             if case == "lm" else femnist_edge_block(torch, N))
+        q, s, r = k6.int8_encode_flat(G)
+        qp, sp, rp = k6.int8_encode_ref(G)
+        torch.cuda.synchronize()
+        bitwise = _equal_all(torch, ((q, qp), (s, sp), (r, rp)))
+        err = float((r - rp).abs().max())
+        q_err = int((q.int() - qp.int()).abs().max())
+        extra = {}
+        if case == "femnist":
+            want = torch.round(G[2])
+            extra = {
+                "zero_row_ok": bool(float(s[1]) == 0.0 and not q[1].any()
+                                    and not r[1].any()),
+                "half_to_even_ok": bool(
+                    float(s[2]) == 1.0 and float(s[3]) == 2.0 ** -5
+                    and torch.equal(q[2].float(), want)
+                    and torch.equal(q[3], q[2])
+                    and bool((want[1:] % 2 == 0).all()))}
+        del qp, sp, rp
+        ms = time_ms(lambda: ext.int8_encode(G, s, q, r), torch)
+        plain_ms = time_ms(lambda: k6._quantize(G, s), torch)
+        wrapper_ms = time_ms(lambda: k6.int8_encode_flat(G), torch)
+        b_ms, b_by = bound_ms(nbytes(G, q, r, s), 5.0 * m * N, "float32")
+        row = {"name": "int8_encode", "case": f"{case} m={m} N={N} f32",
+               "bitwise_equal": bitwise, "max_abs_err": err,
+               "max_q_diff": q_err, "tol": 0.0, "ms": ms,
+               "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
+               "library_ms": None,
+               "library": "none (no single PyTorch call emits q and the "
+                          "residual)",
+               "bound_ms": b_ms, "bound_by": b_by, **extra}
+        rows.append(row)
+        if summary is None:
+            summary = row
+        if not bitwise or not all(extra.values()):
+            raise PhaseFailed(f"K6 disagrees with plain: {row}")
+        if case == "lm":
+            # K2 over the int8 block, dequantization folded into w·s
+            w = torch.rand((m,), device="cuda", generator=gen) + 0.1
+            w = w / w.sum()
+            out = k6.int8_aggregate_flat(q, s, w)
+            plain = k6.int8_aggregate_ref(q, s, w)
+            torch.cuda.synchronize()
+            k2_bit = bool(torch.equal(out, plain))
+            k2_err = float((out - plain).abs().max())
+            del out, plain
+            k2_ms = time_ms(lambda: k6.int8_aggregate_flat(q, s, w), torch)
+            k2_plain = time_ms(lambda: k6.int8_aggregate_ref(q, s, w), torch)
+            kb_ms, kb_by = bound_ms(nbytes(q, s, w) + 4 * N, 2.0 * m * N,
+                                    "float32")
+            k2_rows.append({
+                "name": "weighted_aggregate",
+                "case": f"int8 m={m} N={N}, weights w*s (int8 codec)",
+                "bitwise_equal": k2_bit, "max_abs_err": k2_err, "tol": 0.0,
+                "ms": k2_ms, "plain_ms": k2_plain, "library_ms": None,
+                "library": "none (int8 block)", "bound_ms": kb_ms,
+                "bound_by": kb_by})
+            if not k2_bit:
+                raise PhaseFailed(f"K2 int8 (w*s) not bitwise: {k2_err}")
+            del w
+        del G, q, s, r
+        torch.cuda.empty_cache()
+    return rows + k2_rows, summary
+
+
+def check_k4(torch, n_plane: int):
+    """K4 (flat θ − α∘g, one client, (N,) α) against its plain version,
+    bitwise, at the full SmolLM-360M plane."""
+    from repro_torch.kernels.meta_update import fused, ref
+    N = n_plane
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    theta, g = (torch.randn((N,), device="cuda", generator=gen)
+                for _ in range(2))
+    alpha = torch.rand((N,), device="cuda", generator=gen) * 0.1
+    out = fused.meta_update_flat(theta, alpha, g)
+    plain = ref.meta_update_flat_ref(theta, alpha, g)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, plain))
+    err = float((out - plain).abs().max())
+    del out, plain
+    ms = time_ms(lambda: fused.meta_update_flat(theta, alpha, g), torch)
+    plain_ms = time_ms(lambda: ref.meta_update_flat_ref(theta, alpha, g),
+                       torch)
+    lib_ms = time_ms(lambda: torch.addcmul(theta, alpha, g, value=-1.0),
+                     torch)
+    b_ms, b_by = bound_ms(nbytes(theta, alpha, g, theta), 2.0 * N, "float32")
+    row = {"name": "meta_update_flat", "case": f"N={N} alpha=(N,) f32",
+           "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "torch.addcmul", "bound_ms": b_ms, "bound_by": b_by}
+    del theta, g, alpha
+    torch.cuda.empty_cache()
+    if not bitwise:
+        raise PhaseFailed(f"K4 not bitwise equal to plain: {err}")
+    return [row], row
+
+
 def attention_pairs(Lq, Lk, causal, window, q_offset):
     qpos = [i + q_offset for i in range(Lq)]
     n = 0
@@ -473,11 +621,14 @@ def phase_kernels(torch, cfg):
     torch.cuda.empty_cache()
     rows = []
     summaries = {}
-    for name, check in (("inner_update_plane", lambda: check_k1(torch, n_plane)),
-                        ("weighted_aggregate", lambda: check_k2(torch, n_plane)),
-                        ("adam_flat", lambda: check_k3(torch, n_plane)),
-                        ("flash_attention", lambda: check_k7(torch)),
-                        ("flash_decode", lambda: check_k8(torch))):
+    checks = (("inner_update_plane", lambda: check_k1(torch, n_plane)),
+              ("weighted_aggregate", lambda: check_k2(torch, n_plane)),
+              ("adam_flat", lambda: check_k3(torch, n_plane)),
+              ("meta_update_flat", lambda: check_k4(torch, n_plane)),
+              ("int8_encode", lambda: check_k6(torch, n_plane)),
+              ("flash_attention", lambda: check_k7(torch)),
+              ("flash_decode", lambda: check_k8(torch)))
+    for name, check in checks:
         r, s = check()
         rows += r
         summaries[name] = s
@@ -606,6 +757,7 @@ def phase_serve(torch, cfg):
 KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
                  ("K2 weighted_aggregate", ("weighted_aggregate_kernel",)),
                  ("K3 adam", ("adam_kernel",)),
+                 ("K6 int8_encode", ("int8_encode_kernel",)),
                  ("K7 flash_attention", ("flash_attention_kernel",)),
                  ("K8 flash_decode", ("flash_decode_kernel",)),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
@@ -691,23 +843,31 @@ def phase_trace(torch, engine, mk, mp, new_tokens):
 FEMNIST_ROUND_BYTES = 14_772_160
 
 
-def _kernel_modules():
+def _kernel_counters():
+    """kernel name -> (module, name of its launch counter)."""
     from repro_torch.kernels.attention import flash_attention as k7
     from repro_torch.kernels.decode_attention import flash_decode as k8
     from repro_torch.kernels.meta_update import aggregate as k2
+    from repro_torch.kernels.meta_update import compress as k6
     from repro_torch.kernels.meta_update import fused as k1
     from repro_torch.optim import fused_adam as k3
-    return {"inner_update_plane": k1, "weighted_aggregate": k2,
-            "adam_flat": k3, "flash_attention": k7, "flash_decode": k8}
+    return {"inner_update_plane": (k1, "launches"),
+            "weighted_aggregate": (k2, "launches"),
+            "adam_flat": (k3, "launches"),
+            "meta_update_flat": (k1, "meta_update_launches"),
+            "int8_encode": (k6, "launches"),
+            "flash_attention": (k7, "launches"),
+            "flash_decode": (k8, "launches")}
 
 
 def reset_launches():
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in _kernel_counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _kernel_counters().items()}
 
 
 def phase_train_femnist(torch):
@@ -780,12 +940,13 @@ def phase_train_femnist(torch):
             errors.append(f"{name}: non-finite round")
     evals = [{k: rec[k] for k in ("round", "eval_acc", "eval_loss")}
              for rec in tr.history if "eval_acc" in rec]
+    bytes_per_round = tr.comm.total_bytes / ROUNDS
     # where a round's time goes: one more round of the kernel run, traced
     _, trace = _traced(torch, lambda: tr.run(state, 1))
     emit({"phase": "train_femnist", "ok": not errors, "rounds": ROUNDS,
           "clients_per_round": 4, "n_real": tr._plane.n_real,
           "phi_bytes": tr.comm.phi_bytes,
-          "bytes_per_round": tr.comm.total_bytes / ROUNDS,
+          "bytes_per_round": bytes_per_round,
           "wall_s": wall_s, "wall_s_plain_route": wall_t,
           "round_ms": wall_s / ROUNDS * 1e3, "launches": launches,
           "launches_per_round": {k: v / ROUNDS for k, v in launches.items()},
@@ -903,6 +1064,384 @@ def phase_train_lm(torch, cfg):
     return launches
 
 
+# ------------------------------------------------------------ train_comm
+
+# bytes of one FEMNIST round at m = 4 (download + upload) by upload
+# codec, and the upload leg alone: φ is 1,846,520 B (n_real 461,630);
+# int8 sends n_real + 4 B a client, top-5% 23,082 × (4 + 2) B
+# (results/experiments/compression_femnist.json, femnist_compare.json)
+COMM_ROUND_BYTES = {"f32": 14_772_160, "bf16": 11_079_120,
+                    "int8+ef": 9_232_616, "topk0.05+ef": 7_940_048}
+COMM_UPLOAD_BYTES = {"f32": 4 * 1_846_520, "bf16": 4 * 923_260,
+                     "int8+ef": 4 * 461_634, "topk0.05+ef": 4 * 23_082 * 6}
+METASGD_ROUND_BYTES = 29_544_320         # φ = {θ, α}: twice the bytes
+CHANCE = 1.0 / 62                       # 62 FEMNIST classes
+
+
+def _committed(name: str) -> dict:
+    with open(os.path.join(HERE, "results", "experiments", name)) as f:
+        return json.load(f)
+
+
+def _same_state(torch, a, b) -> bool:
+    """Two train states (nested dicts of tensors) equal bit for bit."""
+    if sorted(a) != sorted(b):
+        return False
+    return all(_same_state(torch, a[k], b[k]) if isinstance(a[k], dict)
+               else bool(torch.equal(a[k], b[k])) for k in a)
+
+
+def _hold_bytes(errors, tag, rec, round_bytes, upload_bytes, codec):
+    """Every history record's cumulative bytes and codec exactly."""
+    comm = rec["comm"]
+    if comm["comm_MB"] != comm["rounds"] * round_bytes / 1e6:
+        errors.append(f"{tag}: {comm['comm_MB']} MB after {comm['rounds']} "
+                      f"rounds, not {round_bytes} B a round")
+    for h in rec["history"]:
+        if (h["comm_MB"] != h["rounds"] * round_bytes / 1e6
+                or h["upload_MB"] != h["rounds"] * upload_bytes / 1e6
+                or h.get("codec") != codec):
+            errors.append(f"{tag} round {h['round']}: comm_MB "
+                          f"{h['comm_MB']}, upload_MB {h['upload_MB']}, "
+                          f"codec {h.get('codec')}")
+            break
+
+
+def _finite_run(torch, rec, state) -> bool:
+    """φ (FedMeta) or θ (FedAvg) and every float of the history finite."""
+    from repro_torch.utils.pytree import tree_leaves
+    params = state["phi"] if "phi" in state else state["theta"]
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(params)) \
+        and all(math.isfinite(v) for h in rec["history"] for v in h.values()
+                if isinstance(v, float))
+
+
+def comm_sweep(torch, errors, rounds=30, eval_every=2):
+    """(i) the compression sweep: FOMAML on FEMNIST, four upload codecs,
+    through `launch/compare.sweep_compression` on the client plane; then
+    int8+ef again on the all-plain route."""
+    from repro_torch.federated.experiment import (_shared_target,
+                                                 comm_to_target,
+                                                 run_comparison)
+    from repro_torch.launch.compare import (METHOD, compression_plan,
+                                            sweep_compression)
+    committed = _committed("compression_femnist.json")
+    states, paths, walls = {}, {}, {}
+
+    def around(label, run):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        paths[label] = read_launches()
+        states[label] = out["states"][METHOD]
+        return out
+
+    sweep = sweep_compression(rounds=rounds, eval_every=eval_every, seed=0,
+                              device="cuda", log=None, around=around)
+    runs = sweep["variants"]
+    for label, rec in runs.items():
+        codec = label if "+ef" in label else None
+        _hold_bytes(errors, f"sweep {label}", rec, COMM_ROUND_BYTES[label],
+                    COMM_UPLOAD_BYTES[label], codec)
+        n = paths[label]
+        want_k6 = rounds if label == "int8+ef" else 0
+        if not (n["int8_encode"] == want_k6 and
+                n["weighted_aggregate"] == rounds and
+                n["adam_flat"] == rounds and n["inner_update_plane"] > 0):
+            errors.append(f"sweep {label}: launches {n} (K6 {want_k6}, K2 "
+                          f"and K3 {rounds} expected)")
+        if not _finite_run(torch, rec, states[label]):
+            errors.append(f"sweep {label}: non-finite run")
+    plan = compression_plan("int8+ef", rounds=rounds, eval_every=eval_every)
+    t0 = time.perf_counter()
+    out_t = run_comparison(plan, device="cuda", impl="torch")
+    torch.cuda.synchronize()
+    walls["int8+ef plain route"] = time.perf_counter() - t0
+    same_history = out_t["methods"][METHOD]["history"] == \
+        runs["int8+ef"]["history"]
+    same_state = _same_state(torch, out_t["states"][METHOD],
+                             states["int8+ef"])
+    if not (same_history and same_state):
+        errors.append(f"int8+ef: kernel and plain routes differ (history "
+                      f"{same_history}, φ/Adam/EF {same_state})")
+    shared = _shared_target(runs, 2)
+    if shared is None or not shared > CHANCE:
+        errors.append(f"sweep: shared target {shared} not above chance")
+    table = {}
+    for label, rec in runs.items():
+        table[label] = {
+            "at_0.12": rec["comm_to_target"],
+            "at_shared": comm_to_target(rec["history"], shared, 2)
+            if shared is not None else None,
+            "committed_at_0.12": committed["variants"][label][
+                "comm_to_target"],
+            "bytes_per_round": round(rec["comm"]["comm_MB"] * 1e6 / rounds),
+            "upload_bytes_per_round": round(rec["comm"]["upload_MB"] * 1e6
+                                            / rounds),
+            "test_acc": rec["test_acc"],
+            "last_eval_acc": [h["eval_acc"] for h in rec["history"]
+                              if "eval_acc" in h][-1],
+            "wall_s": walls[label], "round_ms": walls[label] / rounds * 1e3,
+            "launches": paths[label]}
+    return {"rounds": rounds, "eval_every": eval_every,
+            "shared_target": shared, "variants": table,
+            "upload_ratio_vs_bf16_at_0.12":
+                sweep["upload_to_target_ratio_vs_bf16"],
+            "committed_upload_ratio_vs_bf16":
+                committed["upload_to_target_ratio_vs_bf16"],
+            "plain_route_wall_s": walls["int8+ef plain route"],
+            "bitwise_equal_plain_route": same_history and same_state}, \
+        {f"comm_sweep[{k}]": v for k, v in paths.items()}
+
+
+def comm_trace_round(torch):
+    """One int8+ef FEMNIST round through the trainer, traced, after two
+    untraced ones."""
+    from repro_torch.federated.experiment import (DATASETS, _build_views,
+                                                 make_trainer)
+    from repro_torch.launch.compare import compression_plan
+    plan = compression_plan("int8+ef", rounds=3, eval_every=0)
+    view, _ = _build_views(plan, DATASETS["femnist"], "cuda")
+    tr = make_trainer(plan, "fomaml", view.loss_fn, view.eval_fn, view.train,
+                      device="cuda")
+    state = tr.run(tr.init(plan.seed, view.model.init), 2)
+    _, trace = _traced(torch, lambda: tr.run(state, 1))
+    return trace
+
+
+def comm_dp(torch, errors, rounds=5):
+    """(ii) int8+ef with central DP (clip 0.5, noise 0.1): the kernel and
+    plain routes, one noise generator per round from (seed, round)."""
+    from repro_torch.federated.experiment import run_comparison
+    from repro_torch.federated.privacy import DPConfig
+    from repro_torch.launch.compare import METHOD, compression_plan
+    plan = dataclasses.replace(
+        compression_plan("int8+ef", rounds=rounds, eval_every=rounds),
+        dp=DPConfig(clip_norm=0.5, noise_multiplier=0.1))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_comparison(plan, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    out_t = run_comparison(plan, device="cuda", impl="torch")
+    rec, rec_t = out["methods"][METHOD], out_t["methods"][METHOD]
+    same = rec["history"] == rec_t["history"] and _same_state(
+        torch, out["states"][METHOD], out_t["states"][METHOD])
+    if not same:
+        errors.append("DP: kernel and plain routes differ")
+    if not _finite_run(torch, rec, out["states"][METHOD]):
+        errors.append("DP: non-finite run")
+    if launches["int8_encode"] != rounds:
+        errors.append(f"DP: K6 launched {launches['int8_encode']} times")
+    _hold_bytes(errors, "DP", rec, COMM_ROUND_BYTES["int8+ef"],
+                COMM_UPLOAD_BYTES["int8+ef"], "int8+ef")
+    return {"rounds": rounds, "dp": dataclasses.asdict(plan.dp),
+            "wall_s": wall, "launches": launches,
+            "bitwise_equal_plain_route": same,
+            "last": {k: rec["history"][-1][k]
+                     for k in ("query_loss", "accuracy", "eval_acc")}}, \
+        {"comm_dp": launches}
+
+
+def comm_compare(torch, errors, rounds=100, eval_every=2):
+    """(iii) the committed FEMNIST comparison plan on the client plane:
+    FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD."""
+    from repro_torch.federated.experiment import format_table, run_comparison
+    from repro_torch.launch.compare import femnist_plan
+    committed = _committed("femnist_compare.json")
+    plan = femnist_plan(rounds=rounds, eval_every=eval_every)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_comparison(plan, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for m, rec in out["methods"].items():
+        rb = METASGD_ROUND_BYTES if m == "meta-sgd" else FEMNIST_ROUND_BYTES
+        _hold_bytes(errors, f"compare {m}", rec, rb, rb // 2, None)
+        if not _finite_run(torch, rec, out["states"][m]):
+            errors.append(f"compare {m}: non-finite run")
+    for name in ("inner_update_plane", "weighted_aggregate", "adam_flat"):
+        if launches[name] <= 0:
+            errors.append(f"compare: {name} not launched")
+    table = {}
+    for m, rec in out["methods"].items():
+        row = out["comm_to_target"].get(m) or {}
+        ref = committed["comm_to_target"].get(m) or {}
+        table[m] = {k: row.get(k) for k in
+                    ("rounds", "comm_MB", "comm_reduction_vs_fedavg")}
+        table[m].update({f"committed_{k}": ref.get(k) for k in
+                         ("rounds", "comm_MB", "comm_reduction_vs_fedavg")})
+        table[m].update(test_acc=rec["test_acc"],
+                        committed_test_acc=committed["methods"][m]["test_acc"],
+                        seconds=rec["seconds"])
+    print(format_table(out), flush=True)
+    return {"rounds": rounds, "eval_every": eval_every,
+            "target_acc": out["target_acc"],
+            "committed_target_acc": committed["target_acc"],
+            "wall_s": wall, "launches": launches, "table": table}, \
+        {"comm_compare": launches}
+
+
+def comm_lm(torch, cfg, errors):
+    """(iv) 2 packed FOMAML rounds of SmolLM-360M at full width on the
+    client plane with int8 uploads, error feedback over 8 client rows
+    and DP (clip 1.0, noise 0.1); round 1 held against the all-plain
+    route, round 2 traced."""
+    import numpy as np
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.fedmeta import (init_packed_state,
+                                          make_packed_meta_train_step)
+    from repro_torch.core.losses import lm_loss
+    from repro_torch.federated.privacy import DPConfig, gaussian
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.meta_update.compress import CompressionConfig
+    from repro_torch.launch.steps import make_apply_fn
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adam
+    from repro_torch.utils.flat import plane_for
+    from repro_torch.utils.pytree import tree_map
+
+    M, S, Q, L, LR, CLIENTS = 4, 4, 4, 128, 1e-3, 8
+    comp = CompressionConfig("int8")
+    dp = DPConfig(clip_norm=1.0, noise_multiplier=0.1, seed=0)
+    algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
+    phi = {"theta": init_lm(0, cfg, device="cuda")}
+    plane = plane_for(phi)
+    opt = adam(LR)
+    state = init_packed_state(opt, plane, phi, compression=comp,
+                              num_clients=CLIENTS)
+    del phi
+    rng = np.random.RandomState(1)
+    batches = [tuple(torch.as_tensor(rng.randint(0, cfg.vocab_size, (M, n, L)),
+                                     dtype=torch.int32, device="cuda")
+                     for n in (S, Q)) for _ in range(2)]
+    picks = [torch.tensor(p, device="cuda") for p in ([0, 2, 5, 7],
+                                                      [1, 2, 4, 6])]
+    kw = dict(client_plane=True, compression=comp, dp=dp)
+    step = make_packed_meta_train_step(algo, opt, plane, impl="cuda", **kw)
+    plain_step = make_packed_meta_train_step(algo, opt, plane, impl="torch",
+                                             **kw)
+    # round 1 on the all-plain route, from a copy (K3 and the EF write
+    # update the state in place), with the same noise generator
+    st = {"phi": state["phi"].clone(),
+          "opt": tree_map(torch.clone, state["opt"]),
+          "ef": state["ef"].clone()}
+    with attn_ops.use_impl("torch"):
+        st, _ = plain_step(st, *batches[0], None, picks[0],
+                           dp.round_generator(1, "cuda"))
+    phi_plain, m_plain = st["phi"], st["opt"]["m"]
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, met = step(state, *batches[0], None, picks[0],
+                      dp.round_generator(1, "cuda"))
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    metrics = [{k: float(v) for k, v in met.items()}]
+    d_phi = float((state["phi"] - phi_plain).abs().max())
+    # Adam's m is (1 - b1)·meta-gradient after one step. Both routes add
+    # the same noise (one generator seed), σ = 0.025 an entry, which
+    # would set the scale of a relative gap; so the gap is taken
+    # against the largest entry of the noiseless meta-gradient
+    b1 = opt.hyper["b1"]
+    noise = gaussian((plane.n_padded,), dp.round_generator(1, "cuda"), "cuda")
+    noise[plane.n_real:] = 0
+    g_scale = float((m_plain / (1 - b1) - dp.sigma(M) * noise).abs().max())
+    d_g = float((state["opt"]["m"] - m_plain).abs().max()) / (1 - b1) \
+        / g_scale
+    del phi_plain, m_plain, noise
+    box = {}
+
+    def second():
+        box["state"], box["met"] = step(state, *batches[1], None, picks[1],
+                                        dp.round_generator(2, "cuda"))
+
+    wall2, trace = _traced(torch, second)
+    state = box["state"]
+    walls.append(wall2)
+    metrics.append({k: float(v) for k, v in box["met"].items()})
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if launches["int8_encode"] != 2:
+        errors.append(f"LM: K6 launched {launches['int8_encode']} times in "
+                      f"2 rounds")
+    for name in ("inner_update_plane", "weighted_aggregate", "adam_flat",
+                 "flash_attention"):
+        if launches[name] <= 0:
+            errors.append(f"LM: {name} not launched")
+    if not bool(torch.isfinite(state["phi"]).all()):
+        errors.append("LM: non-finite φ")
+    touched = torch.zeros(CLIENTS, dtype=torch.bool, device="cuda")
+    touched[torch.cat(picks)] = True
+    live = state["ef"][:, :plane.n_real].abs().amax(dim=1) > 0
+    if not (bool(torch.equal(live, touched))
+            and not state["ef"][:, plane.n_real:].any()):
+        errors.append(f"LM: EF rows written {live.tolist()}, picked "
+                      f"{touched.tolist()}")
+    # Adam's first step moves each entry of φ by at most lr, so |dφ| is
+    # reported only: no route can exceed 2·lr. The meta-gradient is held
+    # at train_lm's 1/8 of its largest noiseless entry (the kernel and
+    # plain attention round bf16 differently through 32 layers, and the
+    # int8 codes flip with it): the H100 reads 2.7e-2 here, 2.0e-2 in
+    # train_lm
+    g_tol = 0.125
+    if not d_g <= g_tol:
+        errors.append(f"LM round 1 vs the plain route: meta-gradient "
+                      f"{d_g} of its largest entry (limit {g_tol})")
+    out = {"arch": cfg.name, "n_plane": plane.n_padded, "clients": M,
+           "ef_rows": CLIENTS, "ef_gb": state["ef"].numel() * 4 / 1e9,
+           "support": S, "query": Q, "seq_len": L,
+           "compression": comp.label(), "dp": dataclasses.asdict(dp),
+           "round_wall_ms": [w * 1e3 for w in walls], "round2_traced": True,
+           "metrics": metrics, "peak_mem_gb": peak_gb, "launches": launches,
+           "plain_route_round1": {"max_abs_dphi": d_phi,
+                                  "meta_grad_rel": d_g,
+                                  "meta_grad_tol": g_tol},
+           "trace_round2": trace}
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, {"comm_lm": launches}
+
+
+def phase_train_comm(torch, cfg):
+    """The bytes-on-the-wire round and the experiment plane: one JSON
+    line per part, each part's kernel launches counted from 0."""
+    paths = {}
+    failed = []
+    for part in ("sweep", "dp", "compare", "lm"):
+        errors = []
+        t0 = time.perf_counter()
+        if part == "sweep":
+            res, p = comm_sweep(torch, errors)
+            res["trace_int8_round"] = comm_trace_round(torch)
+        elif part == "dp":
+            res, p = comm_dp(torch, errors)
+        elif part == "compare":
+            res, p = comm_compare(torch, errors)
+        else:
+            res, p = comm_lm(torch, cfg, errors)
+        paths.update(p)
+        emit({"phase": "train_comm", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0, **res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -927,6 +1466,8 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
 
     phase = "build"
+    t_start = time.perf_counter()
+    summaries, paths = {}, {}
     try:
         from repro_torch.configs import get_config
         # full-f32 matmuls and convolutions, deterministic cuDNN algorithms
@@ -939,35 +1480,46 @@ def main(argv=None) -> int:
         summaries = phase_kernels(torch, cfg)
         phase = "serve"
         launches, ctx = phase_serve(torch, cfg)
+        paths["serve"] = launches
         phase = "trace"
         phase_trace(torch, *ctx)
         del ctx                     # the engine's cache holds ~20 GB
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "train"
-        paths = {"serve": launches,
-                 "train_femnist": phase_train_femnist(torch),
-                 "train_lm": phase_train_lm(torch, cfg)}
+        phase = "train_femnist"
+        paths["train_femnist"] = phase_train_femnist(torch)
+        phase = "train_lm"
+        paths["train_lm"] = phase_train_lm(torch, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "train_comm"
+        paths.update(phase_train_comm(torch, cfg))
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})
         return 1
 
     # `launches`: on the first main path that runs the kernel (serving
-    # for K1, K7, K8; FEMNIST training for K2, K3), each path counted
-    # from 0; every path's count beside it
+    # for K1, K7, K8; FEMNIST training for K2, K3; the int8 upload sweep
+    # for K6), each path counted from 0; every path's count beside it.
+    # K4 is on no path: the reference calls it nowhere.
     kernels = []
     for name, s in summaries.items():
-        first = next(p for p in paths if paths[p].get(name, 0) > 0)
+        if name == "meta_update_flat":
+            first, launches = "no path", 0
+        else:
+            first = next(p for p in paths if paths[p].get(name, 0) > 0)
+            launches = paths[first][name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": paths[first][name],
+            "replaces": REPLACES[name], "launches": launches,
             "launches_path": first,
             "launches_by_path": {p: paths[p].get(name, 0) for p in paths},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "case": s["case"]})
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,6 +3,9 @@
 The JAX package's parameters arrive as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``); the port's are the same dict of
 torch tensors, so a reference φ loads with no remapping.
+`initial_params` carries one method's initial parameters of a reference
+comparison plan across (θ for FedAvg, φ for FedMeta); the
+error-feedback plane needs no conversion, since it starts at zero.
 
 bfloat16 needs care: ``np.asarray`` of a JAX bf16 array carries the
 ``ml_dtypes`` bfloat16 dtype, which ``torch.from_numpy`` refuses. Such
@@ -63,3 +66,21 @@ def from_numpy_tree(tree, device="cuda"):
 def to_numpy_tree(tree):
     """The port's tensors -> numpy leaves (for parity tests)."""
     return tree_map(tensor_to_numpy, tree)
+
+
+FEDAVG_METHODS = ("fedavg", "fedavg(meta)")
+
+
+def initial_params(method: str, tree, device="cuda"):
+    """A reference plan's initial parameters for ``method`` -> the
+    port's: the θ tree for the FedAvg methods, φ for the FedMeta ones —
+    ``{"theta"}``, or ``{"theta", "alpha"}`` for Meta-SGD (the reference
+    draws α with `jax.random`, which torch cannot reproduce)."""
+    if method not in FEDAVG_METHODS:
+        want = ({"theta", "alpha"} if method.startswith("meta-sgd")
+                else {"theta"})
+        if not isinstance(tree, dict) or set(tree) != want:
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{method}: initial φ must have keys "
+                             f"{sorted(want)}, got {got}")
+    return from_numpy_tree(tree, device)

@@ -24,9 +24,10 @@ Two parameter representations:
     ``client_plane=True`` the inner loop runs on the flat (C, N) plane
     through K1 as well.
 
-The knobs of later slices (staleness, faults, robust aggregators,
-compression, DP, the sharded axis) raise `NotImplementedError` naming
-their slice.
+The bytes-on-the-wire knobs (``compression``, ``dp``) run on the packed
+vmap axis. The knobs of later slices (staleness, faults, robust
+aggregators, the sharded axis) raise `NotImplementedError` naming their
+slice.
 """
 from __future__ import annotations
 
@@ -181,15 +182,26 @@ def make_meta_train_step(algo, optimizer, *, client_axis: str = "vmap",
 # ---- packed parameter plane pipeline ------------------------------------
 
 def init_packed_state(optimizer, plane: FlatPlane, phi, *, staleness=None,
-                      compression=None):
-    """φ tree -> {"phi": flat plane, "opt": flat optimizer state}."""
+                      compression=None, num_clients=None):
+    """φ tree -> {"phi": flat plane, "opt": flat optimizer state}.
+
+    With ``compression`` set and error feedback on, the state also
+    carries the per-client residual plane ``state["ef"]``: a
+    ``(num_clients, N)`` f32 buffer of quantization error not yet
+    uploaded, zero at the start (a first upload compresses the raw
+    gradient)."""
     from repro_torch.optim.optimizers import make_flat_optimizer
     if staleness is not None:
         raise _not_ported("staleness-aware aggregation", "async")
-    if compression is not None:
-        raise _not_ported("upload compression", "bytes-on-the-wire")
     flat = plane.pack(phi)
-    return {"phi": flat, "opt": make_flat_optimizer(optimizer).init(flat)}
+    state = {"phi": flat, "opt": make_flat_optimizer(optimizer).init(flat)}
+    if compression is not None and compression.error_feedback:
+        if num_clients is None:
+            raise ValueError("error feedback needs num_clients (total "
+                             "train clients) to size the residual plane")
+        state["ef"] = torch.zeros((num_clients, plane.n_padded),
+                                  dtype=torch.float32, device=flat.device)
+    return state
 
 
 def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
@@ -219,21 +231,57 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
     a NaN or inf, φ and the optimizer state (step count included) pass
     through unchanged and the metrics carry ``skipped=1``. K3 updates φ
     in place, so the guard keeps a copy of the state from before the
-    step."""
+    step.
+
+    The bytes-on-the-wire plane (vmap axis only), both knobs bitwise
+    no-ops when off:
+
+      * ``compression`` (`CompressionConfig`) encodes each row of the
+        (m, N) block — int8 through K6, or top-k — and aggregates the
+        encoded uploads through K2 (the int8 scale folds into the
+        weight; top-k scatters to a dense block first). With error
+        feedback the step takes ``ef_idx``, this round's client indices
+        into ``state["ef"]``: the residual rejoins the gradient before
+        encoding and the new residual is written back in place. A
+        client picked twice in one round keeps its LAST row's residual.
+      * ``dp`` (`DPConfig`) clips each row as a weight scale, with the
+        row norms taken in the codec domain (s·‖q‖, ‖top-k values‖,
+        ‖g‖), and adds N(0, σ²) with σ = z·S/m to the aggregated
+        meta-gradient on the n_real live entries only (the padding stays
+        zero). The step then takes ``dp_noise``: the round's
+        `torch.Generator` (`DPConfig.round_generator`) or an injected
+        (N,) standard-normal draw.
+
+    Order with both on: EF-correct → encode → clip → aggregate → noise.
+    The EF-corrected block is a temporary of the step, so K6 writes the
+    residual over it."""
+    from repro_torch.federated.privacy import dp_clip_factors, gaussian
+    from repro_torch.kernels.meta_update.compress import (int8_row_norms,
+                                                          topk_encode,
+                                                          topk_row_norms)
     from repro_torch.optim.optimizers import make_flat_optimizer
     _check_axis(client_axis)
+    if compression is not None or dp is not None:
+        if client_axis != "vmap":
+            raise ValueError("compression / DP need the full (m, N) "
+                             "gradient block before the reduce — "
+                             "client_axis='vmap' only")
+        if staleness is not None or faults is not None or \
+                aggregator != "mean":
+            raise ValueError("compression / DP compose with each other "
+                             "but not with staleness, faults, or robust "
+                             "aggregators — the codec/clip semantics of "
+                             "ring rows and corrupted rows are undefined")
     if staleness is not None:
         raise _not_ported("staleness-aware aggregation", "async")
     if aggregator != "mean" or faults is not None:
         raise _not_ported("robust aggregation / fault injection",
                           "failure-plane")
-    if compression is not None or dp is not None:
-        raise _not_ported("compression / DP", "bytes-on-the-wire")
     impl = mu_ops.resolve_impl(impl)
     flat_opt = make_flat_optimizer(optimizer, impl=impl)
     bd = block_dtype or torch.float32
 
-    def finish(state, meta_g, metrics):
+    def finish(state, meta_g, metrics, extra=None):
         """Outer optimizer step + optional non-finite guard."""
         if guard:
             ok = torch.all(torch.isfinite(meta_g))
@@ -247,9 +295,61 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                                old_opt)
             metrics = {**metrics,
                        "skipped": torch.logical_not(ok).float()}
-        return {"phi": new_flat, "opt": new_opt}, metrics
+        new_state = {"phi": new_flat, "opt": new_opt}
+        if extra is not None:
+            new_state.update(extra)
+        return new_state, metrics
 
-    def step(state, support, query, weights=None):
+    def wire(state, chunk_grads, support, query, w, ef_idx, dp_noise):
+        """The round's (m, N) block through the bytes-on-the-wire reduce
+        -> (meta-gradient, metrics, the state's new entries). The block
+        is this function's own temporary: the EF residual is added into
+        it and K6 writes the new residual over it."""
+        G, mets = chunk_grads(support, query)
+        metrics = _weighted_metrics(w, mets)
+        m = G.shape[0]
+        extra, w_agg = None, w
+        if compression is not None:
+            corrected = G.float()
+            del G
+            if compression.error_feedback:
+                corrected.add_(state["ef"][ef_idx])
+            if compression.codec == "int8":
+                q, scales, resid = mu_ops.int8_encode(corrected, impl=impl,
+                                                      inplace=True)
+                if dp is not None:
+                    w_agg = w * dp_clip_factors(int8_row_norms(q, scales),
+                                                dp.clip_norm)
+                meta_g = mu_ops.int8_aggregate(q, scales, w_agg, impl=impl)
+            else:
+                vals, idx, resid = topk_encode(
+                    corrected, compression.k_for(plane.n_real),
+                    val_dtype=bd)
+                if dp is not None:
+                    w_agg = w * dp_clip_factors(topk_row_norms(vals),
+                                                dp.clip_norm)
+                meta_g = mu_ops.topk_aggregate(vals, idx, w_agg,
+                                               plane.n_padded, impl=impl)
+            if compression.error_feedback:
+                # row by row, in order, so the last row of a client
+                # picked twice wins (one scatter would pick either)
+                ef = state["ef"]
+                for u in range(m):
+                    ef.index_copy_(0, ef_idx[u:u + 1], resid[u:u + 1])
+                extra = {"ef": ef}
+        else:
+            norms = torch.sqrt(torch.sum(torch.square(G.float()), dim=1))
+            w_agg = w * dp_clip_factors(norms, dp.clip_norm)
+            meta_g = mu_ops.weighted_aggregate(G, w_agg, impl=impl)
+        if dp is not None and dp.noise_multiplier > 0:
+            live = (torch.arange(plane.n_padded, device=meta_g.device)
+                    < plane.n_real).float()
+            noise = gaussian((plane.n_padded,), dp_noise, meta_g.device)
+            meta_g = meta_g + dp.sigma(m) * live * noise
+        return meta_g, metrics, extra
+
+    def step(state, support, query, weights=None, ef_idx=None,
+             dp_noise=None):
         phi = plane.unpack(state["phi"])
         m, device = _leading(support)
         w = _normalize_weights(weights, m, device)
@@ -280,6 +380,9 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
             return (mu_ops.weighted_aggregate(G, wc, impl=impl),
                     _weighted_metrics(wc, mets))
 
+        if compression is not None or dp is not None:
+            return finish(state, *wire(state, chunk_grads, support, query,
+                                       w, ef_idx, dp_noise))
         if client_axis == "vmap":
             meta_g, metrics = packed_chunk(support, query, w)
         elif client_axis == "scan":

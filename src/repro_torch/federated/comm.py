@@ -5,11 +5,13 @@
 
 g_u matches φ structurally for every algorithm of Algorithm 1; when the
 packed pipeline ships a reduced-precision gradient block (``block_dtype``
-bf16) the upload leg counts the block's dtype. Byte counts equal the
-reference's exactly. Client FLOPs are not counted in the port yet
-(``flops_per_client`` stays 0, so ``client_GFLOPs`` reads 0): the
-reference measures them with XLA cost analysis. The population plane's
-participation log and the codec label join with their slices.
+bf16) the upload leg counts the block's dtype, and under an upload codec
+the trainer sets the codec-true bytes (payload + side information) and
+the codec's label. Byte counts equal the reference's exactly. Client
+FLOPs are counted by `measure_client_flops` (PyTorch's
+`FlopCounterMode`: matmuls and convolutions only), where the reference
+uses XLA's cost analysis, so ``client_GFLOPs`` differs between the two.
+The population plane's participation log joins with its slice.
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ class CommTracker:
     rounds: int = 0
     # bytes of one client's uploaded gradient; None = same as φ
     grad_bytes: Optional[int] = None
+    # codec tag ("int8+ef", "topk0.05+ef") in summaries; None = a dense
+    # upload (the key is then left out)
+    codec: Optional[str] = None
 
     @classmethod
     def for_state(cls, phi, clients_per_round: int,
@@ -66,7 +71,7 @@ class CommTracker:
         function of the round index."""
         snap = self if rounds == self.rounds else dataclasses.replace(
             self, rounds=rounds)
-        return {
+        out = {
             "rounds": snap.rounds,
             "comm_MB": snap.total_bytes / 1e6,
             "upload_MB": snap.upload_bytes / 1e6,
@@ -74,6 +79,20 @@ class CommTracker:
             "client_GFLOPs": snap.total_flops / 1e9,
             "phi_MB": self.phi_bytes / 1e6,
         }
+        if self.codec is not None:
+            out["codec"] = self.codec
+        return out
 
     def summary(self) -> dict:
         return self.summary_at(self.rounds)
+
+
+def measure_client_flops(fn, *args) -> float:
+    """FLOPs of one call of ``fn`` as PyTorch's `FlopCounterMode` counts
+    them (matmuls and convolutions, forward and backward). The
+    reference counts with XLA's cost analysis, which also counts
+    elementwise work, so the two differ."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return float(counter.get_total_flops())

@@ -1,10 +1,10 @@
 """Federated training: the server round loop, client sampling,
-communication accounting and the paper's meta-evaluation. Counterpart
-of `repro/federated/server.py:49-107,126-350,548-629`.
+communication accounting and the paper's evaluation schemes.
+Counterpart of `repro/federated/server.py:49-122,126-405,548-629`.
 
 Evaluation (paper §4.1 + A.2): accuracy w.r.t. all data points on
-held-out clients; each adapts on its support set and is scored on its
-query set.
+held-out clients; each adapts on its support set (FedMeta, FedAvg(Meta))
+or not (FedAvg) and is scored on its query set.
 
 Task batches are drawn with numpy from the trainer's seeded
 `RandomState`, call for call as in the reference, and moved to the
@@ -23,10 +23,10 @@ from repro_torch.core.fedmeta import (init_packed_state,
                                       make_packed_meta_train_step)
 from repro_torch.data.federated import TaskStream, sample_task_batch
 from repro_torch.federated.async_engine import AsyncRoundEngine
-from repro_torch.federated.comm import CommTracker
+from repro_torch.federated.comm import CommTracker, measure_client_flops
 from repro_torch.optim import Optimizer
 from repro_torch.utils.flat import plane_for
-from repro_torch.utils.pytree import tree_flatten, tree_map
+from repro_torch.utils.pytree import tree_flatten, tree_map, tree_size
 
 
 def _batch_eval(eval_one, clients, m, support_frac, support_size, query_size,
@@ -76,6 +76,32 @@ def make_meta_evaluator(algo, adapt_steps=None):
     return eval_batch
 
 
+def make_global_evaluator(eval_fn, finetune: Optional[Callable] = None):
+    """-> eval_batch(theta, support, query) -> (accs (m,), losses (m,)):
+    each client scores the global θ on its query set, after fine-tuning
+    it on its support set when ``finetune`` is given (FedAvg(Meta))."""
+
+    def eval_batch(theta, support, query):
+        device = tree_flatten(theta)[0][0].device
+
+        def to_dev(x):
+            return torch.as_tensor(x, device=device)
+
+        support, query = tree_map(to_dev, (support, query))
+        accs, losses = [], []
+        for c in range(tree_flatten(support)[0][0].shape[0]):
+            s = tree_map(lambda x: x[c], support)
+            q = tree_map(lambda x: x[c], query)
+            th = theta if finetune is None else finetune(theta, s)
+            with torch.no_grad():
+                loss, met = eval_fn(th, q)
+            accs.append(met["accuracy"])
+            losses.append(loss)
+        return torch.stack(accs), torch.stack(losses)
+
+    return eval_batch
+
+
 def evaluate_meta(algo, phi, clients, *, support_frac, support_size,
                   query_size, seed=0, adapt_steps=None, evaluator=None):
     """Per-client adapted accuracy over all given clients; returns
@@ -85,6 +111,21 @@ def evaluate_meta(algo, phi, clients, *, support_frac, support_size,
     ev = evaluator or make_meta_evaluator(algo, adapt_steps)
     accs, losses, counts = _batch_eval(
         lambda s, q: ev(phi, s, q), clients, len(clients), support_frac,
+        support_size, query_size, rng)
+    acc, loss = _count_weighted(accs, losses, counts)
+    return acc, accs, loss
+
+
+def evaluate_global(eval_fn, theta, clients, *, support_frac, support_size,
+                    query_size, seed=0, finetune: Optional[Callable] = None,
+                    evaluator=None):
+    """FedAvg (finetune=None) / FedAvg(Meta) (finetune=trainer.finetune).
+    Returns (acc, per_client_accs, mean_loss), query-count weighted like
+    `evaluate_meta`."""
+    rng = np.random.RandomState(seed)
+    ev = evaluator or make_global_evaluator(eval_fn, finetune)
+    accs, losses, counts = _batch_eval(
+        lambda s, q: ev(theta, s, q), clients, len(clients), support_frac,
         support_size, query_size, rng)
     acc, loss = _count_weighted(accs, losses, counts)
     return acc, accs, loss
@@ -100,8 +141,6 @@ _PENDING = {
     "faults": (None, "failure-plane"),
     "checkpoint_every": (0, "failure-plane (checkpointing)"),
     "checkpoint_dir": (None, "failure-plane (checkpointing)"),
-    "compression": (None, "bytes-on-the-wire"),
-    "dp": (None, "bytes-on-the-wire"),
     "unreliability": (None, "population"), "over_select": (0.0, "population"),
     "round_deadline": (None, "population"), "pool_workers": (0, "population"),
 }
@@ -130,6 +169,9 @@ class FederatedTrainer:
     flush_every: int = 1        # drain deferred metrics every k rounds
     guard: Optional[bool] = None  # non-finite skip-round guard (packed)
     device: str = "cuda"        # where φ, the batches and the steps live
+    # ---- bytes-on-the-wire plane (packed + vmap axis only)
+    compression: Optional[object] = None  # CompressionConfig
+    dp: Optional[object] = None           # DPConfig: central clip + noise
     # ---- knobs of later slices: they raise unless left at the default
     mesh: Optional[object] = None
     mesh_axis: Optional[str] = None
@@ -141,14 +183,29 @@ class FederatedTrainer:
     faults: Optional[object] = None
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
-    compression: Optional[object] = None
-    dp: Optional[object] = None
     unreliability: Optional[object] = None
     over_select: float = 0.0
     round_deadline: Optional[float] = None
     pool_workers: int = 0
 
     def __post_init__(self):
+        if self.compression is not None or self.dp is not None:
+            if not self.packed or self.client_axis != "vmap":
+                raise ValueError("compression / DP need the full (m, N) "
+                                 "client block — packed=True and "
+                                 "client_axis='vmap'")
+            if (self.staleness is not None or self.faults is not None
+                    or self.aggregator != "mean"
+                    or self.unreliability is not None
+                    or self.over_select or self.round_deadline is not None):
+                raise ValueError("compression / DP compose with each "
+                                 "other but not with staleness, faults, "
+                                 "robust aggregators, or the population "
+                                 "plane")
+            if self.fuse_rounds > 1:
+                raise ValueError("compression / DP and fuse_rounds>1 are "
+                                 "mutually exclusive (EF indices and "
+                                 "noise keys are per-round inputs)")
         for name, (default, slice_name) in _PENDING.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -182,21 +239,37 @@ class FederatedTrainer:
         self.comm: Optional[CommTracker] = None
         self.history: list = []
 
-    def init(self, key, model_init):
-        phi = self.algo.init_state(key, model_init)
+    def init(self, key, model_init, phi=None):
+        """The initial train state. ``phi`` (a tree on ``device``) stands
+        in for ``algo.init_state(key, model_init)`` — how a run starts
+        from another package's initial parameters."""
+        if phi is None:
+            phi = self.algo.init_state(key, model_init)
         if self.packed:
             self._plane = plane_for(phi)
             self._step = make_packed_meta_train_step(
                 self.algo, self.optimizer, self._plane,
                 client_axis=self.client_axis, client_chunk=self.client_chunk,
                 impl=self.impl, block_dtype=self.block_dtype,
-                client_plane=self.client_plane, guard=self.guard)
-            state = init_packed_state(self.optimizer, self._plane, phi)
+                client_plane=self.client_plane, guard=self.guard,
+                compression=self.compression, dp=self.dp)
+            state = init_packed_state(self.optimizer, self._plane, phi,
+                                      compression=self.compression,
+                                      num_clients=len(self.train_clients))
         else:
             state = {"phi": phi, "opt": self.optimizer.init(phi)}
         self.comm = CommTracker.for_state(
             phi, self.clients_per_round,
             block_dtype=self.block_dtype if self.packed else None)
+        if self.packed and self.compression is not None:
+            # codec-true upload bytes: payload + side information over
+            # the REAL parameter count, top-k values at the block dtype's
+            # width; the download leg stays the dense φ
+            itemsize = torch.empty(
+                (), dtype=self.block_dtype or torch.float32).element_size()
+            self.comm.grad_bytes = self.compression.upload_bytes(
+                tree_size(phi), itemsize)
+            self.comm.codec = self.compression.label()
         return state
 
     def phi_tree(self, state):
@@ -209,16 +282,52 @@ class FederatedTrainer:
         """The trainer's meta-evaluator, for `evaluate_meta`."""
         return self._evaluator
 
-    def _stage(self, stream):
-        """Host half of one round: sample, then move to the device."""
+    def measure_flops(self, state):
+        """FLOPs of one client's procedure (`measure_client_flops`), on
+        one sampled client. It draws that client's task batch from the
+        trainer's stream, as the reference does, so the rounds that
+        follow see the reference's picks."""
+        tb = sample_task_batch(self.train_clients, 1, self.support_frac,
+                               self.support_size, self.query_size, self._rng)
+
+        def first(a):
+            return torch.as_tensor(a[0], device=self.device)
+
+        sup = (first(tb.support_x), first(tb.support_y))
+        qry = (first(tb.query_x), first(tb.query_y))
+        phi = self.phi_tree(state)
+        fl = measure_client_flops(
+            lambda s, q: self.algo.client_grad(phi, s, q), sup, qry)
+        if self.comm:
+            self.comm.flops_per_client = fl
+        return fl
+
+    def _stage(self, stream, round_):
+        """Host half of one round: sample, then move to the device.
+
+        The step's optional inputs follow the batch positionally —
+        ``(ef_idx, dp_noise)``, trailing ``None``s dropped: this round's
+        picks (the rows of the EF plane) and its noise generator, a pure
+        function of ``round_``."""
         tb = stream.next()
 
         def dp(a):
             return torch.as_tensor(a, device=self.device)
 
-        return ((dp(tb.support_x), dp(tb.support_y)),
+        args = ((dp(tb.support_x), dp(tb.support_y)),
                 (dp(tb.query_x), dp(tb.query_y)),
                 dp(tb.weight) if self.weighted else None)
+        ef_idx = None
+        if self.compression is not None and \
+                self.compression.error_feedback:
+            ef_idx = dp(np.asarray(tb.client_idx, np.int64))
+        noise = None
+        if self.dp is not None and self.dp.noise_multiplier > 0:
+            noise = self.dp.round_generator(round_, self.device)
+        tail = [ef_idx, noise]
+        while tail and tail[-1] is None:
+            tail.pop()
+        return args + tuple(tail)
 
     def run(self, state, rounds: int, eval_every: int = 0,
             eval_clients=None, log: Callable = None):
@@ -239,8 +348,14 @@ class FederatedTrainer:
                     evaluator=self._evaluator)
                 return {"eval_acc": acc, "eval_loss": loss}
 
+        produced = {"r": 0}
+
+        def stage():
+            produced["r"] += 1
+            return self._stage(stream, produced["r"])
+
         engine = AsyncRoundEngine(
-            stage=lambda: self._stage(stream),
+            stage=stage,
             step=lambda st, a: self._step(st, *a),
             comm=self.comm, history=self.history,
             flush_every=self.flush_every)

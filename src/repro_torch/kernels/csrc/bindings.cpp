@@ -37,6 +37,9 @@ cudaError_t launch_adam_flat(int state_dtype, float* p, const float* g,
                              long long N, float lr, float b1, float c1,
                              float b2, float c2, float eps, float wd,
                              cudaStream_t stream);
+cudaError_t launch_int8_encode(const float* G, const float* scales, int8_t* q,
+                               float* resid, int m, long long N,
+                               cudaStream_t stream);
 
 namespace {
 
@@ -256,6 +259,38 @@ void adam_flat(torch::Tensor p, torch::Tensor g, torch::Tensor m,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// G, resid: (m, N) f32 contiguous (resid may be G itself); scales: (m,)
+// f32; q: (m, N) int8.
+void int8_encode(torch::Tensor G, torch::Tensor scales, torch::Tensor q,
+                 torch::Tensor resid) {
+  for (const auto* t : {&G, &scales, &q, &resid}) check_cuda(*t, "int8_encode input");
+  TORCH_CHECK(G.dim() == 2 && G.is_contiguous() &&
+                  G.scalar_type() == torch::kFloat,
+              "G must be contiguous (m, N) float32");
+  const long long m = G.size(0), N = G.size(1);
+  TORCH_CHECK(m >= 1 && m <= 65535, "1 <= m <= 65535 client rows");
+  TORCH_CHECK(N % 4 == 0, "N must be a multiple of 4");
+  TORCH_CHECK(scales.scalar_type() == torch::kFloat && scales.dim() == 1 &&
+                  scales.size(0) == m && scales.is_contiguous(),
+              "scales must be contiguous (m,) float32");
+  TORCH_CHECK(q.scalar_type() == torch::kChar && q.sizes() == G.sizes() &&
+                  q.is_contiguous(),
+              "q must be contiguous (m, N) int8");
+  TORCH_CHECK(resid.scalar_type() == torch::kFloat &&
+                  resid.sizes() == G.sizes() && resid.is_contiguous(),
+              "resid must be contiguous (m, N) float32");
+  check_aligned16(G, "G");
+  check_aligned16(resid, "resid");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(q.data_ptr()) % 4 == 0,
+              "q must be 4-byte aligned");
+  const at::cuda::CUDAGuard guard(G.device());
+  launch_int8_encode(G.data_ptr<float>(), scales.data_ptr<float>(),
+                     reinterpret_cast<int8_t*>(q.data_ptr()),
+                     resid.data_ptr<float>(), static_cast<int>(m), N,
+                     at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -265,4 +300,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("weighted_aggregate", &weighted_aggregate,
         "K2: out = sum_u w[u] * G[u]");
   m.def("adam_flat", &adam_flat, "K3: one fused Adam step, in place");
+  m.def("int8_encode", &int8_encode,
+        "K6: int8 quantization with the residual in one pass");
 }

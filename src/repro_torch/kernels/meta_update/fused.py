@@ -13,8 +13,14 @@ an ``autograd.Function`` that carries the reference's VJP
 (``fused.py:150-195``) in plain torch: dθ = ḡ, dα = −g∘ḡ reduced to α's
 shape, dg = −α∘ḡ.
 
-On a CPU tensor the wrapper runs the plain version (`ref.py`); on a
-CUDA tensor it launches the kernel or raises.
+K4, `meta_update_flat` (the reference's `_meta_update_kernel`,
+`fused.py:51-80`), is the same kernel with C = 1 and a shared ``(N,)``
+α, out of place, with its own launch count. The reference calls it
+nowhere (its `ops.meta_update` routes through K1); it ships for
+completeness of the kernel set.
+
+On a CPU tensor the wrappers run the plain version (`ref.py`); on a
+CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels.meta_update import ref
 
-launches = 0   # kernel launches; only `_launch` adds to it
+launches = 0   # K1 launches; only `_launch` adds to it
+meta_update_launches = 0   # K4 launches; only `meta_update_flat` adds to it
 
 
 def _launch(theta, alpha, g, out):
@@ -87,3 +94,25 @@ def inner_update_plane(theta, alpha, g):
         return _InnerUpdatePlane.apply(theta, None if scalar else alpha, g,
                                        float(alpha) if scalar else 0.0)
     return _launch(theta, alpha, g, out=theta)
+
+
+def meta_update_flat(theta, alpha, g):
+    """K4: θ − α∘g on flat (N,) buffers, one client, a full (N,) α; a
+    new tensor. θ must be float32 (a bf16 θ raises ``TypeError``, on
+    every device). On the card: K1's kernel at C = 1 with α read as
+    shared rates, 16 bytes an element (θ, α, g read, out written)."""
+    global meta_update_launches
+    if theta.dtype != torch.float32:
+        raise TypeError(f"meta_update_flat takes a float32 theta, got "
+                        f"{theta.dtype}")
+    if theta.ndim != 1 or alpha.shape != theta.shape or \
+            g.shape != theta.shape:
+        raise ValueError("theta, alpha and g must be (N,) of one shape")
+    if not theta.is_cuda:
+        return ref.meta_update_flat_ref(theta, alpha, g)
+    out = torch.empty_like(theta, memory_format=torch.contiguous_format)
+    get_ext().inner_update(theta.contiguous()[None], out[None],
+                           alpha.float().contiguous(), 0.0,
+                           g.float().contiguous()[None])
+    meta_update_launches += 1
+    return out

@@ -1,11 +1,12 @@
-"""Dispatchers for the fused meta-step ops: the inner update (K1) and
-the weighted aggregation (K2).
+"""Dispatchers for the fused meta-step ops: the inner update (K1), the
+weighted aggregation (K2) and the upload codecs (int8 encode K6, whose
+dequantization folds into K2; top-k decode into K2).
 
 impl: "cuda" (default; the kernels for CUDA tensors, their plain
 versions for CPU tensors) or "torch" (the plain version everywhere),
 selected per call — the port's counterpart of the reference's
 xla/pallas switch (`repro/kernels/meta_update/ops.py:43-60`).
-The robust reductions (K5) and compression (K6) join with their slices.
+The robust reductions (K5) join with the failure-plane slice.
 """
 from __future__ import annotations
 
@@ -13,6 +14,12 @@ import torch
 
 from repro_torch.kernels.meta_update import ref
 from repro_torch.kernels.meta_update.aggregate import weighted_aggregate_flat
+from repro_torch.kernels.meta_update.compress import (int8_aggregate_flat,
+                                                      int8_aggregate_ref,
+                                                      int8_encode_flat,
+                                                      int8_encode_ref,
+                                                      topk_aggregate_flat,
+                                                      topk_aggregate_ref)
 from repro_torch.kernels.meta_update.fused import inner_update_plane
 from repro_torch.utils.flat import plane_for
 
@@ -69,3 +76,32 @@ def weighted_aggregate(gs, w, *, impl: str | None = None):
     if impl == "torch":
         return ref.weighted_aggregate_ref(gs, w)
     return weighted_aggregate_flat(gs, w)
+
+
+def int8_encode(G, *, impl: str | None = None, inplace: bool = False):
+    """(m, N) block -> (q int8, (m,) f32 scales, (m, N) f32 residual):
+    per-row-scaled int8 quantization with the error-feedback residual.
+    "torch" runs the plain version; "cuda" K6 (``inplace``: the residual
+    may overwrite an f32 block the caller owns)."""
+    impl = resolve_impl(impl)
+    if impl == "torch":
+        return int8_encode_ref(G)
+    return int8_encode_flat(G, inplace=inplace)
+
+
+def int8_aggregate(q, scales, w, *, impl: str | None = None):
+    """Dequantize-and-aggregate Σ_u w_u·s_u·q_u -> (N,) f32 (K2 with the
+    scale folded into the weight)."""
+    impl = resolve_impl(impl)
+    if impl == "torch":
+        return int8_aggregate_ref(q, scales, w)
+    return int8_aggregate_flat(q, scales, w)
+
+
+def topk_aggregate(vals, idx, w, n: int, *, impl: str | None = None):
+    """Decode-and-aggregate (m, k) top-k uploads -> (n,) f32 weighted
+    sum. (Encoding is ``compress.topk_encode`` on every impl.)"""
+    impl = resolve_impl(impl)
+    if impl == "torch":
+        return topk_aggregate_ref(vals, idx, w, n)
+    return topk_aggregate_flat(vals, idx, w, n)

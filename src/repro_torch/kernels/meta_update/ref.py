@@ -22,6 +22,12 @@ def inner_update_plane_ref(theta, alpha, grads):
     return (theta.float() - _f32(alpha) * grads.float()).to(theta.dtype)
 
 
+def meta_update_flat_ref(theta, alpha, grads):
+    """Plain version of K4: flat single-client θ − α∘g with a full (N,)
+    α (the plane form at C = 1)."""
+    return inner_update_plane_ref(theta, alpha, grads)
+
+
 def meta_update_ref(theta, alpha, grads):
     if isinstance(alpha, (int, float)):
         return tree_map(

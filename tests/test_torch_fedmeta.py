@@ -240,8 +240,7 @@ def test_later_slice_knobs_raise(cnn):
     _, ta = _algos(cnn, "fomaml")
     tp = plane_for(_t(_phi(cnn, "fomaml")))
     for kw in ({"client_axis": "sharded"}, {"staleness": object()},
-               {"aggregator": "trimmed"}, {"faults": object()},
-               {"compression": object()}, {"dp": object()}):
+               {"aggregator": "trimmed"}, {"faults": object()}):
         with pytest.raises(NotImplementedError, match="slice"):
             tfm.make_packed_meta_train_step(ta, adam(1e-2), tp, **kw)
 
