@@ -7,15 +7,16 @@ Phases, each printing one JSON line:
 
   device   fails (nonzero exit, no result) without a CUDA card or outside
            a checkout; prints `nvidia-smi --query-gpu=name,power.limit`.
-  build    builds the port's kernels (K1–K4, K6, K7, K8) from
-           kernels/csrc/ for sm_90a into build/torch_ext/ and prints the
-           build time.
+  build    builds the port's kernels (K1–K8) from kernels/csrc/ for
+           sm_90a into build/torch_ext/ and prints the build time.
   kernels  holds each kernel against its plain PyTorch version on the
-           card at the main paths' shapes: K1, K2, K3, K4 and K6 bitwise
-           (K2, K3, K4 and K6 at the full SmolLM-360M plane; K6 also on a
-           FEMNIST block with a zero row and exact .5 products; K2 on the
-           int8 block with the folded weights w·s), K7 and K8 within a
-           stated bf16 tolerance. Times kernel, plain version and one
+           card at the main paths' shapes: K1–K6 bitwise (K2–K6 at the
+           full SmolLM-360M plane; K6 also on a FEMNIST block with a zero
+           row and exact .5 products; K2 on the int8 block with the
+           folded weights w·s; K5 in f32 and bf16 with a NaN row made
+           dead, on the FEMNIST block with adversarial rows and ties, on
+           the degenerate rounds with their NaN and ±inf in place, and
+           at m > 16), K7 and K8 within a stated bf16 tolerance. Times kernel, plain version and one
            PyTorch library call (a yardstick the port never calls) with
            CUDA events: median of 20 runs after warm-up.
   serve    drives the port's serving path at full SmolLM-360M width —
@@ -48,6 +49,20 @@ Phases, each printing one JSON line:
            exactly; (iv) 2 FOMAML rounds of SmolLM-360M at full width
            with int8 uploads, error feedback over 8 client rows and DP,
            round 1 held against the all-plain route.
+  train_faults  the failure plane: (i) the committed FEMNIST robustness
+           sweep through `launch/compare.sweep_robustness` (FOMAML, 60
+           clients, 8 a round, 40 rounds, five fault scenarios × mean /
+           screen / trimmed on the packed pipeline): skipped rounds
+           exactly the artifact's in all 15 cells, the all-skipped cell
+           bitwise at its initial state, K5 40 times in each trimmed cell
+           and K2 once a round in the others; the byzantine 0.25 /
+           trimmed cell again on impl="torch" (the sort), its round-1
+           aggregate held against K5's at a bound derived from the
+           cancellation in (total − top) − bot; (ii) SmolLM-360M at full
+           width on the client plane with faults: trimmed (one
+           sign-flipped row of 4) for 2 rounds, screen and mean with a
+           NaN row for one round each, the mean's round skipped with φ
+           and the Adam state bitwise unchanged.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and last `{"ok": true, "device": {...}}`. Any failed
@@ -83,6 +98,7 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/decode_attention/flash_decode.py:85",
     "int8_encode": "src/repro/kernels/meta_update/compress.py:157",
     "meta_update_flat": "src/repro/kernels/meta_update/fused.py:70",
+    "trimmed_mean": "src/repro/kernels/meta_update/aggregate.py:271",
 }
 SOURCES = {
     "inner_update_plane": "src/repro_torch/kernels/csrc/inner_update.cu",
@@ -92,6 +108,7 @@ SOURCES = {
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "int8_encode": "src/repro_torch/kernels/csrc/int8_encode.cu",
     "meta_update_flat": "src/repro_torch/kernels/csrc/inner_update.cu",
+    "trimmed_mean": "src/repro_torch/kernels/csrc/trimmed_mean.cu",
 }
 
 
@@ -472,6 +489,115 @@ def check_k4(torch, n_plane: int):
     return [row], row
 
 
+def same_bits_or_nonfinite(torch, a, b) -> bool:
+    """Bitwise equal where finite (−0 and +0 told apart), with NaN and
+    ±inf at the same positions."""
+    fa = torch.isfinite(a)
+    return (torch.equal(fa, torch.isfinite(b))
+            and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.where(torch.isinf(a), a, 0.0),
+                            torch.where(torch.isinf(b), b, 0.0))
+            and torch.equal(a[fa].view(torch.int32),
+                            b[fa].view(torch.int32)))
+
+
+def adversarial_block(torch, m, N, gen):
+    """(m, N) f32, m >= 8: rows ×−1000 (1) and ×1000 (6), a NaN row (4)
+    and row 7 a copy of row 3, for the first-index tie-break (the rows
+    of the reference's tests/test_faults.py:176-200, plus the tie)."""
+    G = torch.randn((m, N), device="cuda", generator=gen)
+    G[1] *= -1000.0
+    G[6] *= 1000.0
+    G[4] = float("nan")
+    G[7] = G[3]
+    return G
+
+
+# (m, live, trim) of the degenerate rounds: what the reference's kernel
+# gives there (ROADMAP Queue 3) — the middle value, NaN and ±inf (x/0),
+# the live row itself, zeros, NaN (sentinels overflow)
+K5_DEGENERATE = (("one_dead", 4, (1, 1, 1, 0), 1),
+                 ("two_live", 4, (1, 1, 0, 0), 1),
+                 ("one_live", 4, (1, 0, 0, 0), 1),
+                 ("none_live", 4, (0, 0, 0, 0), 1),
+                 ("none_live_trim2", 8, (0,) * 8, 2))
+
+
+def check_k5(torch, n_plane: int):
+    """K5 against its plain version (`trimmed_mean_plain`), bitwise: at
+    the full SmolLM-360M plane (m = 4, trim 1, a NaN row made dead by
+    `row_liveness`) in f32 and bf16; on the FEMNIST block (8, 461,824),
+    trim 2, with adversarial rows and a tie; on the degenerate rounds
+    (bitwise where finite, NaN and ±inf in place); and at m = 20 and 17
+    (the generic loop). `plain_ms` is the "torch" route, the sort-based
+    `trimmed_mean_ref`; `plain_literal_ms` the plain version K5 equals."""
+    from repro_torch.kernels.meta_update import aggregate as k5
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    small = 1 << 20
+    rows, summary = [], None
+    cases = [("lm", 4, n_plane, "float32", 1), ("lm", 4, n_plane,
+                                                "bfloat16", 1),
+             ("femnist", 8, 461_824, "float32", 2),
+             ("generic", 20, small, "float32", 3),
+             ("generic", 17, small, "bfloat16", 4)]
+    cases += [(f"degenerate {name}", m, 8192, "float32", trim)
+              for name, m, _, trim in K5_DEGENERATE]
+    degenerate = {f"degenerate {name}": live
+                  for name, _, live, _ in K5_DEGENERATE}
+    for case, m, N, dt, trim in cases:
+        if case == "femnist":
+            G = adversarial_block(torch, m, N, gen)
+        else:
+            G = torch.randn((m, N), device="cuda", generator=gen)
+        if case == "lm":
+            G[2] = float("nan")
+        elif case == "generic":
+            G[5] = float("nan")
+            G[m - 2] = G[2]
+        w = torch.ones((m,), device="cuda")
+        if case in degenerate:
+            live = torch.tensor(degenerate[case], dtype=torch.float32,
+                                device="cuda")
+            G[live == 0] = float("nan")
+        else:
+            live = k5.row_liveness(G, w)
+        G = G.to(getattr(torch, dt))
+        out = k5.trimmed_mean_flat(G, live, trim=trim)
+        plain = k5.trimmed_mean_plain(G, live, trim=trim)
+        torch.cuda.synchronize()
+        same = same_bits_or_nonfinite(torch, out, plain)
+        fin = torch.isfinite(plain)
+        err = float((out[fin] - plain[fin]).abs().max()) if fin.any() else 0.0
+        row = {"name": "trimmed_mean", "case": f"{case} m={m} N={N} {dt} "
+               f"trim={trim} live={[int(x) for x in live.tolist()]}",
+               "bitwise_equal": same, "max_abs_err": err, "tol": 0.0,
+               "nonfinite_share": float((~fin).float().mean()),
+               "library_ms": None,
+               "library": "none (no single PyTorch call computes a "
+                          "coordinate-wise trimmed mean)"}
+        del out, plain
+        if case in ("lm", "femnist", "generic"):
+            row["ms"] = time_ms(lambda: k5.trimmed_mean_flat(
+                G, live, trim=trim), torch)
+            row["plain_ms"] = time_ms(lambda: k5.trimmed_mean_ref(
+                G, live, trim=trim), torch)
+            row["plain_route"] = "torch.sort + masked sum (impl='torch')"
+            if case != "generic":
+                row["plain_literal_ms"] = time_ms(lambda: k5.trimmed_mean_plain(
+                    G, live, trim=trim), torch)
+            flops = N * (m + 2.0 * trim * (m + 1) + 3)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes(G, live) + 4 * N, flops, "float32")
+        rows.append(row)
+        if summary is None:
+            summary = row
+        del G, w, live
+        torch.cuda.empty_cache()
+        if not same:
+            raise PhaseFailed(f"K5 disagrees with plain: {row}")
+    return rows, summary
+
+
 def attention_pairs(Lq, Lk, causal, window, q_offset):
     qpos = [i + q_offset for i in range(Lq)]
     n = 0
@@ -625,6 +751,7 @@ def phase_kernels(torch, cfg):
               ("weighted_aggregate", lambda: check_k2(torch, n_plane)),
               ("adam_flat", lambda: check_k3(torch, n_plane)),
               ("meta_update_flat", lambda: check_k4(torch, n_plane)),
+              ("trimmed_mean", lambda: check_k5(torch, n_plane)),
               ("int8_encode", lambda: check_k6(torch, n_plane)),
               ("flash_attention", lambda: check_k7(torch)),
               ("flash_decode", lambda: check_k8(torch)))
@@ -757,6 +884,7 @@ def phase_serve(torch, cfg):
 KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
                  ("K2 weighted_aggregate", ("weighted_aggregate_kernel",)),
                  ("K3 adam", ("adam_kernel",)),
+                 ("K5 trimmed_mean", ("trimmed_mean",)),
                  ("K6 int8_encode", ("int8_encode_kernel",)),
                  ("K7 flash_attention", ("flash_attention_kernel",)),
                  ("K8 flash_decode", ("flash_decode_kernel",)),
@@ -855,6 +983,7 @@ def _kernel_counters():
             "weighted_aggregate": (k2, "launches"),
             "adam_flat": (k3, "launches"),
             "meta_update_flat": (k1, "meta_update_launches"),
+            "trimmed_mean": (k2, "trimmed_launches"),
             "int8_encode": (k6, "launches"),
             "flash_attention": (k7, "launches"),
             "flash_decode": (k8, "launches")}
@@ -1442,6 +1571,332 @@ def phase_train_comm(torch, cfg):
     return paths
 
 
+# ----------------------------------------------------------- train_faults
+
+U32 = 2.0 ** -24               # unit roundoff of float32
+
+
+def k5_cancellation_bound(torch, G, live, trim):
+    """Per-coordinate bound on |K5 − sort route| for one block of finite
+    live rows. K5 forms ((total − top) − bot) / d with d = n_live − 2·trim:
+    the m ordered adds of total, the 2·(trim − 1) rounded adds of the
+    extracted values (the selection itself is exact), two subtractions on
+    partial results no larger than 2·S, S = Σ_u live·|g_u|, and the
+    division: at most (m + 2·trim + 5)·u·S/d from the exact value. The
+    sort route sums m masked values (≤ (m − 1)·u·S) and divides: at most
+    m·u·S/d. Together: (2m + 2·trim + 5)·u·S/d."""
+    m = G.shape[0]
+    alive = live > 0
+    S = torch.zeros((G.shape[1],), dtype=torch.float32, device=G.device)
+    for u in range(m):
+        S += torch.where(alive[u], G[u].float().abs(), 0.0)
+    d = float(alive.sum()) - 2 * trim
+    return (2 * m + 2 * trim + 5) * U32 * S / d
+
+
+def faults_sweep(torch, errors):
+    """(i) The committed robustness sweep, all 15 cells, through
+    `launch/compare.sweep_robustness` from the port's own initial φ; then
+    the byzantine 0.25 / trimmed cell on impl="torch"."""
+    from repro_torch.federated.experiment import DATASETS
+    from repro_torch.federated.server import FederatedTrainer
+    from repro_torch.kernels.meta_update import aggregate as k5
+    from repro_torch.kernels.meta_update import ops as mu_ops
+    from repro_torch.launch import compare
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.optim import adam
+    committed = _committed("robustness_femnist.json")
+    want = {(c["kind"], c["fraction"], c["aggregator"]): c
+            for c in committed["cells"]}
+    cfg = compare.ROBUSTNESS
+    rounds = cfg["rounds"]
+    walls, counts, states, hists = {}, {}, {}, {}
+
+    def around(tag, run):
+        before = read_launches()
+        t0 = time.perf_counter()
+        tr, state = run()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        after = read_launches()
+        counts[tag] = {k: after[k] - before[k] for k in after}
+        states[tag], hists[tag] = state, tr.history
+        return tr, state
+
+    reset_launches()
+    t0 = time.perf_counter()
+    sweep = compare.sweep_robustness(device="cuda", around=around, log=None)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    path = read_launches()
+
+    # the initial train state every cell starts from, made anew
+    model = DATASETS["femnist"]["model"]("cuda")
+    algo = make_algorithm("fomaml", *classification_loss(model.apply),
+                          cfg["inner_lr"])
+    st0 = FederatedTrainer(algo, adam(cfg["outer_lr"]), [],
+                           cfg["clients_per_round"],
+                           support_frac=cfg["support_frac"],
+                           support_size=cfg["support_size"],
+                           query_size=cfg["query_size"], packed=True,
+                           device="cuda").init(cfg["seed"], model.init)
+    table = {}
+    for cell in sweep["cells"]:
+        key = (cell["kind"], cell["fraction"], cell["aggregator"])
+        tag = " ".join(str(x) for x in key)
+        n = counts[tag]
+        ref = want[key]
+        if cell["skipped_rounds"] != ref["skipped_rounds"]:
+            errors.append(f"{tag}: skipped {cell['skipped_rounds']}, the "
+                          f"artifact {ref['skipped_rounds']}")
+        trimmed = cell["aggregator"] == "trimmed"
+        want_k5, want_k2 = (rounds, 0) if trimmed else (0, rounds)
+        if not (n["trimmed_mean"] == want_k5 and
+                n["weighted_aggregate"] == want_k2 and
+                n["adam_flat"] == rounds and n["inner_update_plane"] > 0):
+            errors.append(f"{tag}: launches {n} (K5 {want_k5}, K2 "
+                          f"{want_k2}, K3 {rounds} expected)")
+        if ref["skipped_rounds"] == rounds and not _same_state(
+                torch, states[tag], st0):
+            errors.append(f"{tag}: every round skipped, but φ or the Adam "
+                          f"state moved")
+        if ref["skipped_rounds"] < rounds and not bool(
+                torch.isfinite(states[tag]["phi"]).all()):
+            errors.append(f"{tag}: non-finite φ")
+        table[tag] = {"final_test_acc": cell["final_test_acc"],
+                      "artifact_test_acc": ref["final_test_acc"],
+                      "best_val_acc": cell["best_val_acc"],
+                      "skipped_rounds": cell["skipped_rounds"],
+                      "wall_s": walls[tag],
+                      "round_ms": walls[tag] / rounds * 1e3,
+                      "launches": n}
+    byz = sweep["headline"]["byzantine_0.25"]
+    art = committed["headline"]["byzantine_0.25"]
+    headline = {"byzantine_0.25": byz, "artifact_byzantine_0.25": art,
+                "trimmed_ge_2x_mean": byz["trimmed"] >= 2 * byz["mean"],
+                "screen_ge_2x_mean": byz["screen"] >= 2 * byz["mean"],
+                "artifact_trimmed_ge_2x_mean":
+                    art["trimmed"] >= 2 * art["mean"],
+                "artifact_screen_ge_2x_mean": art["screen"] >= 2 * art["mean"]}
+
+    # the byzantine 0.25 / trimmed cell on the plain route (the sort),
+    # its round-1 block captured on the way to the reduce
+    captured = {}
+    reduce = mu_ops.robust_aggregate
+
+    def capture(gs, w, **kw):
+        if not captured:
+            captured["G"], captured["w"] = gs.clone(), w.clone()
+        return reduce(gs, w, **kw)
+
+    hist_t = {}
+
+    def around_t(tag, run):
+        tr, state = run()
+        hist_t["h"] = tr.history
+        return tr, state
+
+    mu_ops.robust_aggregate = capture
+    try:
+        t0 = time.perf_counter()
+        plain = compare.sweep_robustness(
+            device="cuda", impl="torch", around=around_t, log=None,
+            cells=[("byzantine", 0.25, "trimmed")])["cells"][0]
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        mu_ops.robust_aggregate = reduce
+    kern = hists["byzantine 0.25 trimmed"]
+    ht = hist_t["h"]
+
+    def train_fields(rec):
+        return {k: v for k, v in rec.items() if not k.startswith("eval")}
+
+    round1_equal = train_fields(ht[0]) == train_fields(kern[0])
+    if not round1_equal:
+        errors.append(f"byzantine 0.25 trimmed, round 1 (before any "
+                      f"update): plain route {ht[0]}, kernel {kern[0]}")
+    if plain["skipped_rounds"] != 0:
+        errors.append(f"plain route: {plain['skipped_rounds']} skipped")
+    G, w = captured["G"], captured["w"]
+    live = k5.row_liveness(G, w)
+    agg_k = k5.trimmed_mean_flat(G, live, trim=cfg["trim"])
+    agg_s = k5.trimmed_mean_ref(G, live, trim=cfg["trim"])
+    bound = k5_cancellation_bound(torch, G, live, cfg["trim"])
+    gap = (agg_k - agg_s).abs()
+    within = bool((gap <= bound).all())
+    worst = float((gap / bound.clamp_min(1e-30)).max())
+    if not within:
+        errors.append(f"round-1 aggregate: K5 and the sort differ by up to "
+                      f"{worst} of the derived bound")
+    rel = [abs(a["query_loss"] - b["query_loss"]) / abs(b["query_loss"])
+           for a, b in zip(ht, kern)]
+    del G, w, live, agg_k, agg_s, bound, gap, captured
+    return {"rounds": rounds, "cells": table, "headline": headline,
+            "sweep_wall_s": sweep_wall, "path_launches": path,
+            "plain_route": {
+                "cell": "byzantine 0.25 trimmed", "wall_s": plain_wall,
+                "round1_equal": round1_equal,
+                "round1_aggregate_within_bound": within,
+                "round1_aggregate_worst_of_bound": worst,
+                "bound": "(2m + 2 trim + 5) u S / d",
+                "final_test_acc": plain["final_test_acc"],
+                "kernel_final_test_acc": table["byzantine 0.25 trimmed"][
+                    "final_test_acc"],
+                "max_rel_query_loss_gap": max(rel),
+                "round_of_max_gap": int(rel.index(max(rel))) + 1}}, \
+        {"train_faults": path}
+
+
+def faults_trace_round(torch):
+    """One byzantine 0.25 / trimmed FEMNIST round through the trainer,
+    traced, after two untraced ones."""
+    from repro_torch.launch import compare
+    box = {}
+
+    def around(tag, run):
+        tr, state = run()
+        box["tr"], box["state"] = tr, state
+        return tr, state
+
+    cfg = compare.ROBUSTNESS
+    compare.sweep_robustness(device="cuda", around=around, log=None,
+                             cells=[("byzantine", 0.25, "trimmed")],
+                             rounds=2, eval_every=0)
+    tr, state = box["tr"], box["state"]
+    _, trace = _traced(torch, lambda: tr.run(state, 1))
+    return {"clients_per_round": cfg["clients_per_round"], **trace}
+
+
+def faults_lm(torch, cfg, errors):
+    """(ii) SmolLM-360M at full width on the packed client plane, m = 4,
+    4 + 4 sequences of 128 tokens, FOMAML, Adam(1e-3), with faults:
+    trimmed (trim 1) with one sign-flipped row for 2 rounds (round 2
+    traced), screen with one NaN row for a round (not skipped), mean with
+    one NaN row for a round (skipped, the state bitwise unchanged)."""
+    import numpy as np
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.fedmeta import (init_packed_state,
+                                          make_packed_meta_train_step)
+    from repro_torch.core.losses import lm_loss
+    from repro_torch.federated.faults import FaultConfig
+    from repro_torch.launch.steps import make_apply_fn
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adam
+    from repro_torch.utils.flat import plane_for
+    from repro_torch.utils.pytree import tree_map
+
+    M, S, Q, L, LR = 4, 4, 4, 128, 1e-3
+    algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
+    phi = {"theta": init_lm(0, cfg, device="cuda")}
+    plane = plane_for(phi)
+    opt = adam(LR)
+    rng = np.random.RandomState(2)
+    batches = [tuple(torch.as_tensor(rng.randint(0, cfg.vocab_size, (M, n, L)),
+                                     dtype=torch.int32, device="cuda")
+                     for n in (S, Q)) for _ in range(4)]
+    runs = (("trimmed", FaultConfig(byzantine=0.25), 2),
+            ("screen", FaultConfig(nonfinite=0.25), 1),
+            ("mean", FaultConfig(nonfinite=0.25), 1))
+    out, paths, b = {}, {}, 0
+    for aggregator, faults, rounds in runs:
+        step = make_packed_meta_train_step(
+            algo, opt, plane, client_plane=True, impl="cuda",
+            aggregator=aggregator, trim=1, faults=faults, guard=True)
+        state = init_packed_state(opt, plane, phi)
+        frng = np.random.RandomState(faults.seed)
+        before = {"phi": state["phi"].clone(),
+                  "opt": tree_map(torch.clone, state["opt"])}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        walls, metrics, trace = [], [], None
+        for r in range(rounds):
+            pick = faults.pick(M, frng)
+            box = {}
+
+            def one():
+                box["s"], box["m"] = step(state, *batches[b], fault=pick)
+
+            if r == 1:
+                wall, trace = _traced(torch, one)
+                walls.append(wall)
+            else:
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            state = box["s"]
+            metrics.append({k: float(v) for k, v in box["m"].items()})
+            b = (b + 1) % len(batches)
+        launches = read_launches()
+        paths[f"train_faults_lm[{aggregator}]"] = launches
+        skipped = [m_["skipped"] for m_ in metrics]
+        tag = f"LM {aggregator} ({faults.counts(M)} dropped/NaN/byzantine)"
+        if aggregator == "mean":
+            frozen = _same_state(torch, state, before)
+            if skipped != [1.0] or not frozen:
+                errors.append(f"{tag}: skipped {skipped}, state unchanged "
+                              f"{frozen}")
+        else:
+            frozen = None
+            if skipped != [0.0] * rounds:
+                errors.append(f"{tag}: skipped {skipped}")
+            if not bool(torch.isfinite(state["phi"]).all()):
+                errors.append(f"{tag}: non-finite φ")
+        want_k5 = rounds if aggregator == "trimmed" else 0
+        want_k2 = 0 if aggregator == "trimmed" else rounds
+        if not (launches["trimmed_mean"] == want_k5 and
+                launches["weighted_aggregate"] == want_k2 and
+                launches["adam_flat"] == rounds and
+                launches["inner_update_plane"] > 0 and
+                launches["flash_attention"] > 0):
+            errors.append(f"{tag}: launches {launches}")
+        out[aggregator] = {
+            "faults": dataclasses.asdict(faults), "rounds": rounds,
+            "round_wall_ms": [w_ * 1e3 for w_ in walls],
+            "metrics": metrics, "state_unchanged": frozen,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+        if trace is not None:
+            out[aggregator]["trace_round2"] = trace
+        del state, before, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del phi, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_plane": plane.n_padded, "clients": M,
+            "support": S, "query": Q, "seq_len": L, "runs": out}, paths
+
+
+def phase_train_faults(torch, cfg):
+    """The failure plane: one JSON line per part, each part's kernel
+    launches counted from 0."""
+    paths = {}
+    failed = []
+    for part in ("sweep", "lm"):
+        errors = []
+        t0 = time.perf_counter()
+        if part == "sweep":
+            res, p = faults_sweep(torch, errors)
+            res["trace_trimmed_round"] = faults_trace_round(torch)
+        else:
+            res, p = faults_lm(torch, cfg, errors)
+        paths.update(p)
+        emit({"phase": "train_faults", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0, **res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -1494,6 +1949,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = "train_comm"
         paths.update(phase_train_comm(torch, cfg))
+        phase = "train_faults"
+        paths.update(phase_train_faults(torch, cfg))
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})
@@ -1501,7 +1958,8 @@ def main(argv=None) -> int:
 
     # `launches`: on the first main path that runs the kernel (serving
     # for K1, K7, K8; FEMNIST training for K2, K3; the int8 upload sweep
-    # for K6), each path counted from 0; every path's count beside it.
+    # for K6; the robustness sweep for K5), each path counted from 0;
+    # every path's count beside it.
     # K4 is on no path: the reference calls it nowhere.
     kernels = []
     for name, s in summaries.items():

@@ -24,10 +24,10 @@ Two parameter representations:
     ``client_plane=True`` the inner loop runs on the flat (C, N) plane
     through K1 as well.
 
-The bytes-on-the-wire knobs (``compression``, ``dp``) run on the packed
-vmap axis. The knobs of later slices (staleness, faults, robust
-aggregators, the sharded axis) raise `NotImplementedError` naming their
-slice.
+The bytes-on-the-wire knobs (``compression``, ``dp``) and the failure
+plane (``faults``, robust ``aggregator``s, the non-finite ``guard``) run
+on the packed vmap axis. The knobs of later slices (staleness, the
+sharded axis) raise `NotImplementedError` naming their slice.
 """
 from __future__ import annotations
 
@@ -212,6 +212,8 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                                 client_plane: bool = False,
                                 staleness=None,
                                 aggregator: str = "mean",
+                                screen_factor: float = 3.0,
+                                trim: int = 1,
                                 faults=None,
                                 guard: bool = False,
                                 compression=None,
@@ -227,11 +229,26 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
     traffic, K2 still sums in f32). ``client_plane=True`` runs the inner
     loop on the flat (C, N) plane too (`client_grad_chunk_packed`).
 
-    ``guard`` turns on the non-finite check: if the meta-gradient holds
-    a NaN or inf, φ and the optimizer state (step count included) pass
-    through unchanged and the metrics carry ``skipped=1``. K3 updates φ
-    in place, so the guard keeps a copy of the state from before the
-    step.
+    The failure plane (vmap axis only; ``client_plane=True`` allowed):
+
+      * ``aggregator`` picks the (m, N) → (N,) reduce, "mean" (K2, the
+        plain round), "masked_mean", "screen" (``screen_factor``) or
+        "trimmed" (``trim``, K5) — see `ops.robust_aggregate`;
+      * ``faults`` (`FaultConfig`) makes the step take ``fault=``, a
+        keyword: the round's ``FaultConfig.pick`` tuple of host arrays
+        (its last entry the noise seed, or an injected (m, N) draw).
+        The block is corrupted in place before the reduce — dropped rows
+        zero their weight, non-finite rows turn NaN, Byzantine rows are
+        rewritten — and the metrics are weighted over the arrived
+        clients;
+      * ``guard`` turns on the non-finite check: if the meta-gradient
+        holds a NaN or inf, φ and the optimizer state (step count
+        included) pass through unchanged and the metrics carry
+        ``skipped=1``. K3 updates φ in place, so the guard keeps a copy
+        of the state from before the step.
+
+    With every failure knob off the step runs the default reduce, the
+    same graph as without the knobs.
 
     The bytes-on-the-wire plane (vmap axis only), both knobs bitwise
     no-ops when off:
@@ -260,23 +277,28 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                                                           topk_encode,
                                                           topk_row_norms)
     from repro_torch.optim.optimizers import make_flat_optimizer
+    from repro_torch.federated.faults import apply_faults
     _check_axis(client_axis)
+    if aggregator not in mu_ops.AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; expected "
+                         f"one of {mu_ops.AGGREGATORS}")
+    failure = faults is not None or aggregator != "mean"
+    if failure and client_axis != "vmap":
+        raise ValueError("fault injection / robust aggregation need the "
+                         "full (m, N) gradient block before the reduce — "
+                         "client_axis='vmap' only")
     if compression is not None or dp is not None:
         if client_axis != "vmap":
             raise ValueError("compression / DP need the full (m, N) "
                              "gradient block before the reduce — "
                              "client_axis='vmap' only")
-        if staleness is not None or faults is not None or \
-                aggregator != "mean":
+        if staleness is not None or failure:
             raise ValueError("compression / DP compose with each other "
                              "but not with staleness, faults, or robust "
                              "aggregators — the codec/clip semantics of "
                              "ring rows and corrupted rows are undefined")
     if staleness is not None:
         raise _not_ported("staleness-aware aggregation", "async")
-    if aggregator != "mean" or faults is not None:
-        raise _not_ported("robust aggregation / fault injection",
-                          "failure-plane")
     impl = mu_ops.resolve_impl(impl)
     flat_opt = make_flat_optimizer(optimizer, impl=impl)
     bd = block_dtype or torch.float32
@@ -348,8 +370,21 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
             meta_g = meta_g + dp.sigma(m) * live * noise
         return meta_g, metrics, extra
 
+    def failure_plane(chunk_grads, support, query, w, fault):
+        """The round's (m, N) block, corrupted by ``fault`` (in place),
+        through the robust reduce -> (meta-gradient, metrics)."""
+        G, mets = chunk_grads(support, query)
+        w_agg = w_rep = w
+        if faults is not None:
+            G, w_agg, w_rep = apply_faults(faults, G, w, fault)
+        return (mu_ops.robust_aggregate(G, w_agg, aggregator=aggregator,
+                                        impl=impl,
+                                        screen_factor=screen_factor,
+                                        trim=trim),
+                _weighted_metrics(w_rep, mets))
+
     def step(state, support, query, weights=None, ef_idx=None,
-             dp_noise=None):
+             dp_noise=None, *, fault=None):
         phi = plane.unpack(state["phi"])
         m, device = _leading(support)
         w = _normalize_weights(weights, m, device)
@@ -383,6 +418,9 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
         if compression is not None or dp is not None:
             return finish(state, *wire(state, chunk_grads, support, query,
                                        w, ef_idx, dp_noise))
+        if failure:
+            return finish(state, *failure_plane(chunk_grads, support, query,
+                                                w, fault))
         if client_axis == "vmap":
             meta_g, metrics = packed_chunk(support, query, w)
         elif client_axis == "scan":

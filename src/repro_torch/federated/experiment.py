@@ -15,11 +15,12 @@ accounting. `run_comparison(plan)` enforces that:
   * the paper's comm-to-target metric (`comm_to_target`) against one
     shared target, and per-method fairness statistics.
 
-This slice ports the FEMNIST scenario. The other datasets and the knobs
-of later slices (faults and robust aggregators, the population plane,
-prefetching and fused rounds) raise, naming their slice. The plan's
-``compression``, ``dp``, ``block_dtype`` and ``opt_state_dtype`` run
-the bytes-on-the-wire round.
+The port has the FEMNIST scenario. The other datasets and the knobs of
+later slices (the population plane, prefetching and fused rounds)
+raise, naming their slice. The plan's ``compression``, ``dp``,
+``block_dtype`` and ``opt_state_dtype`` run the bytes-on-the-wire
+round; its ``faults``, ``aggregator``, ``screen_factor`` and ``trim``
+the failure plane (packed pipelines only).
 
 Injection: `run_comparison` takes the reference's initial parameters
 (``init_params``) and FedAvg(Meta)'s fine-tune indices
@@ -114,10 +115,10 @@ class ExperimentPlan:
     prefetch_depth: int = 0              # async slice
     flush_every: int = 1
     fuse_rounds: int = 1                 # async slice
-    aggregator: str = "mean"             # failure-plane slice
+    aggregator: str = "mean"             # failure plane (packed only)
     screen_factor: float = 3.0
     trim: int = 1
-    faults: Optional[object] = None      # failure-plane slice
+    faults: Optional[object] = None      # FaultConfig (packed only)
     lazy_population: bool = False        # population slice
     independent_population: bool = False
     cache_clients: Optional[int] = None
@@ -247,7 +248,8 @@ def make_trainer(plan: ExperimentPlan, method: str, loss_fn, eval_fn,
                      else None),
         impl=impl, compression=plan.compression, dp=plan.dp,
         fuse_rounds=plan.fuse_rounds if packed else 1,
-        aggregator=plan.aggregator, faults=plan.faults, **pop, **common)
+        aggregator=plan.aggregator, screen_factor=plan.screen_factor,
+        trim=plan.trim, faults=plan.faults, **pop, **common)
 
 
 @dataclasses.dataclass

@@ -24,6 +24,7 @@ from repro_torch.core.fedmeta import (init_packed_state,
 from repro_torch.data.federated import TaskStream, sample_task_batch
 from repro_torch.federated.async_engine import AsyncRoundEngine
 from repro_torch.federated.comm import CommTracker, measure_client_flops
+from repro_torch.kernels.meta_update import ops as mu_ops
 from repro_torch.optim import Optimizer
 from repro_torch.utils.flat import plane_for
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_size
@@ -137,10 +138,8 @@ _PENDING = {
     "mesh": (None, "multi-device"), "mesh_axis": (None, "multi-device"),
     "prefetch_depth": (0, "async"), "fuse_rounds": (1, "async"),
     "staleness": (None, "async"), "prefetch_retries": (0, "async"),
-    "aggregator": ("mean", "failure-plane"),
-    "faults": (None, "failure-plane"),
-    "checkpoint_every": (0, "failure-plane (checkpointing)"),
-    "checkpoint_dir": (None, "failure-plane (checkpointing)"),
+    "checkpoint_every": (0, "async (checkpointing)"),
+    "checkpoint_dir": (None, "async (checkpointing)"),
     "unreliability": (None, "population"), "over_select": (0.0, "population"),
     "round_deadline": (None, "population"), "pool_workers": (0, "population"),
 }
@@ -167,8 +166,14 @@ class FederatedTrainer:
     block_dtype: Optional[object] = None  # client-grad block dtype (packed)
     client_plane: bool = False  # fused flat inner loop (packed only)
     flush_every: int = 1        # drain deferred metrics every k rounds
-    guard: Optional[bool] = None  # non-finite skip-round guard (packed)
     device: str = "cuda"        # where φ, the batches and the steps live
+    # ---- failure plane (packed + vmap axis only)
+    aggregator: str = "mean"    # mean | masked_mean | screen | trimmed
+    screen_factor: float = 3.0  # screen: clip rows > factor × median ‖g‖
+    trim: int = 1               # trimmed: per-coordinate trim count
+    faults: Optional[object] = None  # FaultConfig
+    guard: Optional[bool] = None  # non-finite skip-round guard; None =
+                                  # auto (on iff faults or robust agg)
     # ---- bytes-on-the-wire plane (packed + vmap axis only)
     compression: Optional[object] = None  # CompressionConfig
     dp: Optional[object] = None           # DPConfig: central clip + noise
@@ -179,8 +184,6 @@ class FederatedTrainer:
     fuse_rounds: int = 1
     staleness: Optional[object] = None
     prefetch_retries: int = 0
-    aggregator: str = "mean"
-    faults: Optional[object] = None
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
     unreliability: Optional[object] = None
@@ -189,6 +192,22 @@ class FederatedTrainer:
     pool_workers: int = 0
 
     def __post_init__(self):
+        if self.aggregator not in mu_ops.AGGREGATORS:
+            raise ValueError(f"unknown aggregator {self.aggregator!r}; "
+                             f"expected one of {mu_ops.AGGREGATORS}")
+        if self.faults is not None or self.aggregator != "mean":
+            if not self.packed or self.client_axis != "vmap":
+                raise ValueError("fault injection / robust aggregation "
+                                 "need the full (m, N) client block — "
+                                 "packed=True and client_axis='vmap'")
+        if self.faults is not None and self.fuse_rounds > 1:
+            raise ValueError("faults and fuse_rounds>1 are mutually "
+                             "exclusive (failures need per-round picks)")
+        if self.aggregator == "trimmed" and \
+                2 * self.trim >= self.clients_per_round:
+            raise ValueError(f"trimmed mean needs 2·trim < clients_per_"
+                             f"round ({self.trim} vs "
+                             f"{self.clients_per_round})")
         if self.compression is not None or self.dp is not None:
             if not self.packed or self.client_axis != "vmap":
                 raise ValueError("compression / DP need the full (m, N) "
@@ -217,7 +236,10 @@ class FederatedTrainer:
                 "with the multi-device slice")
         if self.client_plane and not self.packed:
             raise ValueError("client_plane=True requires packed=True")
-        self.guard = bool(self.guard)
+        if self.guard is None:
+            # auto: any failure-plane knob needs skip-round semantics
+            self.guard = (self.faults is not None or
+                          self.aggregator != "mean")
         if torch.device(self.device).type == "cuda":
             # float32 convolutions and matmuls in full f32 (cuDNN would
             # take TF32 by default) and deterministic cuDNN algorithms,
@@ -235,6 +257,10 @@ class FederatedTrainer:
             client_chunk=self.client_chunk)
         self._plane = None
         self._rng = np.random.RandomState(self.seed)
+        # the fault picks draw from their own stream, so turning faults
+        # on never perturbs the task stream
+        self._fault_rng = (np.random.RandomState(self.faults.seed)
+                           if self.faults is not None else None)
         self._evaluator = make_meta_evaluator(self.algo)
         self.comm: Optional[CommTracker] = None
         self.history: list = []
@@ -251,7 +277,9 @@ class FederatedTrainer:
                 self.algo, self.optimizer, self._plane,
                 client_axis=self.client_axis, client_chunk=self.client_chunk,
                 impl=self.impl, block_dtype=self.block_dtype,
-                client_plane=self.client_plane, guard=self.guard,
+                client_plane=self.client_plane, aggregator=self.aggregator,
+                screen_factor=self.screen_factor, trim=self.trim,
+                faults=self.faults, guard=bool(self.guard),
                 compression=self.compression, dp=self.dp)
             state = init_packed_state(self.optimizer, self._plane, phi,
                                       compression=self.compression,
@@ -303,12 +331,15 @@ class FederatedTrainer:
         return fl
 
     def _stage(self, stream, round_):
-        """Host half of one round: sample, then move to the device.
+        """Host half of one round: sample, then move to the device ->
+        (positional inputs, keyword inputs) of the step.
 
         The step's optional inputs follow the batch positionally —
         ``(ef_idx, dp_noise)``, trailing ``None``s dropped: this round's
         picks (the rows of the EF plane) and its noise generator, a pure
-        function of ``round_``."""
+        function of ``round_``. With faults on, the round's failure pick
+        (host arrays, from the trainer's own fault stream) goes as the
+        keyword ``fault``."""
         tb = stream.next()
 
         def dp(a):
@@ -327,7 +358,11 @@ class FederatedTrainer:
         tail = [ef_idx, noise]
         while tail and tail[-1] is None:
             tail.pop()
-        return args + tuple(tail)
+        kw = {}
+        if self.faults is not None:
+            kw["fault"] = self.faults.pick(self.clients_per_round,
+                                           self._fault_rng)
+        return args + tuple(tail), kw
 
     def run(self, state, rounds: int, eval_every: int = 0,
             eval_clients=None, log: Callable = None):
@@ -356,7 +391,7 @@ class FederatedTrainer:
 
         engine = AsyncRoundEngine(
             stage=stage,
-            step=lambda st, a: self._step(st, *a),
+            step=lambda st, a: self._step(st, *a[0], **a[1]),
             comm=self.comm, history=self.history,
             flush_every=self.flush_every)
         return engine.run(state, rounds, eval_every=eval_every,

@@ -40,6 +40,9 @@ cudaError_t launch_adam_flat(int state_dtype, float* p, const float* g,
 cudaError_t launch_int8_encode(const float* G, const float* scales, int8_t* q,
                                float* resid, int m, long long N,
                                cudaStream_t stream);
+cudaError_t launch_trimmed_mean(int dtype, const void* G, const float* live,
+                                float* out, int m, int trim, long long N,
+                                cudaStream_t stream);
 
 namespace {
 
@@ -291,6 +294,34 @@ void int8_encode(torch::Tensor G, torch::Tensor scales, torch::Tensor q,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// G: (m, N) f32 or bf16, contiguous; live: (m,) f32; out: (N,) f32;
+// 0 <= 2 trim < m.
+void trimmed_mean(torch::Tensor G, torch::Tensor live, torch::Tensor out,
+                  int64_t trim) {
+  for (const auto* t : {&G, &live, &out}) check_cuda(*t, "trimmed_mean input");
+  TORCH_CHECK(G.dim() == 2 && G.is_contiguous(), "G must be contiguous (m, N)");
+  const int dt = dtype_code(G);
+  const long long m = G.size(0), N = G.size(1);
+  TORCH_CHECK(m >= 1 && m <= 49152, "1 <= m <= 49152 client rows");
+  TORCH_CHECK(trim >= 0 && 2 * trim < m, "0 <= 2 trim < m, got trim ", trim,
+              " and m ", m);
+  TORCH_CHECK(N % 4 == 0, "N must be a multiple of 4");
+  TORCH_CHECK(live.scalar_type() == torch::kFloat && live.is_contiguous() &&
+                  live.dim() == 1 && live.size(0) == m,
+              "live must be contiguous (m,) float32");
+  TORCH_CHECK(out.scalar_type() == torch::kFloat && out.is_contiguous() &&
+                  out.dim() == 1 && out.size(0) == N,
+              "out must be contiguous (N,) float32");
+  check_aligned16(G, "G");
+  check_aligned16(out, "out");
+  const at::cuda::CUDAGuard guard(G.device());
+  launch_trimmed_mean(dt, G.data_ptr(), live.data_ptr<float>(),
+                      out.data_ptr<float>(), static_cast<int>(m),
+                      static_cast<int>(trim), N,
+                      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -302,4 +333,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("adam_flat", &adam_flat, "K3: one fused Adam step, in place");
   m.def("int8_encode", &int8_encode,
         "K6: int8 quantization with the residual in one pass");
+  m.def("trimmed_mean", &trimmed_mean,
+        "K5: coordinate-wise trimmed mean over the live rows");
 }

@@ -1,19 +1,27 @@
 """Dispatchers for the fused meta-step ops: the inner update (K1), the
-weighted aggregation (K2) and the upload codecs (int8 encode K6, whose
-dequantization folds into K2; top-k decode into K2).
+weighted aggregation (K2), the upload codecs (int8 encode K6, whose
+dequantization folds into K2; top-k decode into K2) and the failure
+plane's robust reductions (`robust_aggregate`: masked mean and screen on
+K2, the trimmed mean on K5).
 
 impl: "cuda" (default; the kernels for CUDA tensors, their plain
 versions for CPU tensors) or "torch" (the plain version everywhere),
 selected per call — the port's counterpart of the reference's
 xla/pallas switch (`repro/kernels/meta_update/ops.py:43-60`).
-The robust reductions (K5) join with the failure-plane slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.meta_update import ref
-from repro_torch.kernels.meta_update.aggregate import weighted_aggregate_flat
+from repro_torch.kernels.meta_update.aggregate import (masked_mean_flat,
+                                                       masked_mean_ref,
+                                                       row_liveness,
+                                                       screened_aggregate_flat,
+                                                       screened_aggregate_ref,
+                                                       trimmed_mean_flat,
+                                                       trimmed_mean_ref,
+                                                       weighted_aggregate_flat)
 from repro_torch.kernels.meta_update.compress import (int8_aggregate_flat,
                                                       int8_aggregate_ref,
                                                       int8_encode_flat,
@@ -105,3 +113,47 @@ def topk_aggregate(vals, idx, w, n: int, *, impl: str | None = None):
     if impl == "torch":
         return topk_aggregate_ref(vals, idx, w, n)
     return topk_aggregate_flat(vals, idx, w, n)
+
+
+AGGREGATORS = ("mean", "masked_mean", "screen", "trimmed")
+
+
+def robust_aggregate(gs, w, *, aggregator: str = "mean",
+                     impl: str | None = None, screen_factor: float = 3.0,
+                     trim: int = 1):
+    """The failure plane's reduce of the (m, N) client block.
+
+      mean         Σ w·g through K2, caller-normalized weights — the
+                   plain round's reduce.
+      masked_mean  Σ w·g / Σ w — renormalizes over arrived (w > 0) rows.
+      screen       rejects non-finite and dropped rows, clips rows with
+                   ‖g‖ > screen_factor × median(live ‖g‖), renormalizes.
+      trimmed      coordinate-wise trimmed mean over the live rows
+                   (arrived and finite), dropping the ``trim`` largest
+                   and smallest values per coordinate, unweighted.
+
+    "torch" runs the plain versions, the sort-based `trimmed_mean_ref`
+    for the trimmed mean (the reference's xla route); "cuda" runs K2 and
+    K5 on CUDA tensors, their plain versions on CPU tensors. Degenerate
+    rounds (every row dead, or n_live ≤ 2·trim) may give a non-finite
+    result, which the step's guard turns into a skipped round — except
+    where the reference's own kernel gives a finite one (see
+    `aggregate.trimmed_mean_plain`)."""
+    impl = resolve_impl(impl)
+    if aggregator == "mean":
+        return weighted_aggregate(gs, w, impl=impl)
+    if aggregator == "masked_mean":
+        if impl == "torch":
+            return masked_mean_ref(gs, w)
+        return masked_mean_flat(gs, w)
+    if aggregator == "screen":
+        if impl == "torch":
+            return screened_aggregate_ref(gs, w, factor=screen_factor)
+        return screened_aggregate_flat(gs, w, factor=screen_factor)
+    if aggregator == "trimmed":
+        live = row_liveness(gs, w)
+        if impl == "torch":
+            return trimmed_mean_ref(gs, live, trim=trim)
+        return trimmed_mean_flat(gs, live, trim=trim)
+    raise ValueError(f"unknown aggregator {aggregator!r}; "
+                     f"expected one of {AGGREGATORS}")

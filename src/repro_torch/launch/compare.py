@@ -1,11 +1,13 @@
 """Experiment-plane launcher of the port: the counterpart of
-`examples/compression_femnist.py` (``--sweep compression``) and of the
+`examples/compression_femnist.py` (``--sweep compression``), of the
 FEMNIST comparison plan behind `examples/femnist_fedmeta.py` and
-``results/experiments/femnist_compare.json`` (``--sweep femnist``).
+``results/experiments/femnist_compare.json`` (``--sweep femnist``), and
+of `examples/robustness_femnist.py` (``--sweep robustness``).
 
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep compression
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep femnist \\
         --device cpu --pipeline tree --init-from init.npz --outdir /tmp/f
+    PYTHONPATH=src python -m repro_torch.launch.compare --sweep robustness
 
 ``compression``: FOMAML on FEMNIST under four upload codecs — dense f32,
 a bf16 block, int8 with error feedback and top-5% with error feedback
@@ -13,6 +15,13 @@ a bf16 block, int8 with error feedback and top-5% with error feedback
 prints each variant's bytes and the upload-bytes-to-target ratio against
 bf16. ``femnist``: FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD on
 the committed comparison plan; it prints the comm-to-target table.
+``robustness``: FOMAML on FEMNIST (60 clients, 8 a round, 40 rounds,
+eval every 5) under five failure scenarios — clean, dropout 0.25,
+sign-flip ×10 Byzantine at 0.125 and 0.25, non-finite 0.125 — each with
+the mean, screened and trimmed (trim 2) aggregators on the packed
+pipeline, the committed `results/experiments/robustness_femnist.json`'s
+settings; it writes that file's JSON shape (``--rounds``,
+``--eval-every`` and ``--clients`` cut it down).
 JSON is written only where ``--outdir`` says. Runs on the card unless
 ``--device cpu``. ``--init-from`` starts every method from the initial
 parameters in an ``.npz`` (keys ``method|path|to|leaf``, plus
@@ -119,13 +128,131 @@ def sweep_compression(*, rounds, eval_every, seed, device,
             "upload_to_target_ratio_vs_bf16": upload_ratios(variants)}
 
 
+# the committed robustness sweep (`examples/robustness_femnist.py`):
+# one failure mode per scenario, as a fraction of clients per round
+ROBUSTNESS_SCENARIOS = (("clean", 0.0), ("dropout", 0.25),
+                        ("byzantine", 0.125), ("byzantine", 0.25),
+                        ("nonfinite", 0.125))
+ROBUSTNESS_AGGREGATORS = ("mean", "screen", "trimmed")
+ROBUSTNESS = dict(rounds=40, eval_every=5, clients=60, clients_per_round=8,
+                  support_frac=0.2, support_size=16, query_size=16,
+                  inner_lr=0.05, outer_lr=1e-3, trim=2, screen_factor=3.0,
+                  byzantine_scale=10.0, seed=0)
+
+
+def robustness_faults(kind: str, fraction: float, scale: float):
+    """The scenario's `FaultConfig` (None for the clean one)."""
+    from repro_torch.federated.faults import FaultConfig
+    if kind == "clean" or fraction == 0.0:
+        return None
+    return FaultConfig(**{kind: fraction}, byzantine_scale=scale)
+
+
+def robustness_cell(kind, fraction, aggregator, *, data, model, cfg,
+                    device="cuda", impl=None, init_phi=None, around=None):
+    """One cell of the robustness sweep, as the reference's `run_cell`:
+    a packed `FederatedTrainer` with the cell's aggregator and faults
+    (the guard on by default), its eval curve on the validation clients
+    and its test accuracy. ``init_phi``, a numpy φ tree, replaces the
+    port's own initial parameters; ``around(tag, run)``, where given, is
+    called in place of ``run()`` (which returns (trainer, final state))."""
+    from repro_torch.convert import initial_params
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.federated.server import FederatedTrainer, evaluate_meta
+    from repro_torch.optim import adam
+    train, val, test = data
+    loss_fn, eval_fn = classification_loss(model.apply)
+    algo = make_algorithm("fomaml", loss_fn, eval_fn,
+                          inner_lr=cfg["inner_lr"])
+    tr = FederatedTrainer(
+        algo, adam(cfg["outer_lr"]), train, cfg["clients_per_round"],
+        support_frac=cfg["support_frac"], support_size=cfg["support_size"],
+        query_size=cfg["query_size"], seed=cfg["seed"], packed=True,
+        aggregator=aggregator, trim=cfg["trim"],
+        screen_factor=cfg["screen_factor"], impl=impl, device=device,
+        faults=robustness_faults(kind, fraction, cfg["byzantine_scale"]))
+
+    def run():
+        phi = (None if init_phi is None
+               else initial_params("fomaml", init_phi, device))
+        state = tr.init(cfg["seed"], model.init, phi=phi)
+        return tr, tr.run(state, cfg["rounds"],
+                          eval_every=cfg["eval_every"], eval_clients=val)
+
+    _, state = (around(f"{kind} {fraction} {aggregator}", run) if around
+                else run())
+    test_acc, _, test_loss = evaluate_meta(
+        algo, tr.phi_tree(state), test, support_frac=cfg["support_frac"],
+        support_size=cfg["support_size"], query_size=cfg["query_size"],
+        seed=cfg["seed"], evaluator=tr.evaluator())
+    curve = [[r["round"], r["eval_acc"]] for r in tr.history
+             if "eval_acc" in r]
+    return {
+        "kind": kind, "fraction": fraction, "aggregator": aggregator,
+        "final_test_acc": test_acc, "final_test_loss": test_loss,
+        "best_val_acc": max((a for _, a in curve), default=None),
+        "skipped_rounds": int(sum(r.get("skipped", 0.0)
+                                  for r in tr.history)),
+        "rounds": cfg["rounds"],
+        "eval_curve": curve,
+    }
+
+
+def sweep_robustness(*, device="cuda", impl=None, init=(None, None),
+                     log=print, around=None, cells=None, **overrides):
+    """Every (scenario, aggregator) cell of the robustness sweep on one
+    shared split and task stream -> the committed artifact's JSON shape
+    (``config``, ``headline``, ``cells``). ``overrides`` replace
+    `ROBUSTNESS` settings; ``cells``, a list of (kind, fraction,
+    aggregator), runs those cells only; ``init`` is `load_init`'s pair
+    (the FOMAML φ is used)."""
+    from repro_torch.federated.experiment import DATASETS
+    cfg = {**ROBUSTNESS, **overrides}
+    su = DATASETS["femnist"]
+    data = su["data"](cfg["clients"], cfg["seed"]).split_clients(
+        seed=cfg["seed"])
+    model = su["model"](device)
+    init_phi = init[0]["fomaml"] if init[0] is not None else None
+    todo = cells or [(k, f, a) for k, f in ROBUSTNESS_SCENARIOS
+                     for a in ROBUSTNESS_AGGREGATORS]
+    out_cells = []
+    for kind, fraction, aggregator in todo:
+        cell = robustness_cell(kind, fraction, aggregator, data=data,
+                               model=model, cfg=cfg, device=device,
+                               impl=impl, init_phi=init_phi, around=around)
+        out_cells.append(cell)
+        if log:
+            log(f"[{kind} {fraction:.3f}] {aggregator:8s} "
+                f"test_acc={cell['final_test_acc']:.4f} "
+                f"skipped={cell['skipped_rounds']}/{cfg['rounds']}")
+    headline = {}
+    for kind, fraction in dict.fromkeys((c["kind"], c["fraction"])
+                                        for c in out_cells):
+        key = f"{kind}_{fraction}" if fraction else "clean"
+        headline[key] = {c["aggregator"]: c["final_test_acc"]
+                         for c in out_cells
+                         if (c["kind"], c["fraction"]) == (kind, fraction)}
+    config = {"dataset": "femnist", "method": "fomaml", **cfg,
+              "byzantine_mode": "sign_flip",
+              "regen": "PYTHONPATH=src python -m repro_torch.launch.compare "
+                       "--sweep robustness"}
+    return {"config": config, "headline": headline, "cells": out_cells}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sweep", choices=("compression", "femnist"),
+    ap.add_argument("--sweep", choices=("compression", "femnist",
+                                        "robustness"),
                     default="compression")
     ap.add_argument("--rounds", type=int, default=None,
-                    help="default: 30 (compression), 100 (femnist)")
-    ap.add_argument("--eval-every", type=int, default=2)
+                    help="default: 30 (compression), 100 (femnist), 40 "
+                         "(robustness)")
+    ap.add_argument("--eval-every", type=int, default=None,
+                    help="default: 2 (compression, femnist), 5 "
+                         "(robustness)")
+    ap.add_argument("--clients", type=int, default=None,
+                    help="robustness: the client population (default 60)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--outdir", default=None,
                     help="write the JSON record here (default: none)")
@@ -136,9 +263,19 @@ def main(argv=None):
                     help=".npz of initial parameters (see load_init)")
     args = ap.parse_args(argv)
     init = load_init(args.init_from) if args.init_from else (None, None)
-    if args.sweep == "compression":
+    if args.sweep == "robustness":
+        over = {k: v for k, v in (("rounds", args.rounds),
+                                  ("eval_every", args.eval_every),
+                                  ("clients", args.clients))
+                if v is not None}
+        out = sweep_robustness(device=args.device, init=init,
+                               seed=args.seed, **over)
+        print(json.dumps(out["headline"], indent=1))
+        name = "robustness_femnist.json"
+    elif args.sweep == "compression":
         out = sweep_compression(rounds=args.rounds or 30,
-                                eval_every=args.eval_every, seed=args.seed,
+                                eval_every=args.eval_every or 2,
+                                seed=args.seed,
                                 device=args.device, pipeline=args.pipeline,
                                 init=init)
         for label, v in out["variants"].items():
@@ -150,7 +287,7 @@ def main(argv=None):
         name = "compression_femnist.json"
     else:
         plan = femnist_plan(rounds=args.rounds or 100,
-                            eval_every=args.eval_every, seed=args.seed,
+                            eval_every=args.eval_every or 2, seed=args.seed,
                             pipeline=args.pipeline)
         out = run_comparison(plan, print, device=args.device,
                              init_params=init[0], finetune_idx=init[1])

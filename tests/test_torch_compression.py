@@ -373,13 +373,88 @@ def _flat(x):
                       else x, np.float32)
 
 
+def _bf16_flip_sizes(rows):
+    """(m, N) f32 block -> (m, N) sizes of the bf16 flips it admits: an
+    entry that lies within NET's rtol of a bf16 rounding boundary (the
+    midpoint to a bf16 neighbour in magnitude) may round to either side
+    in the two packages, a move of exactly the gap to that neighbour;
+    elsewhere the size is 0 (no flip admitted)."""
+    g = np.abs(np.asarray(rows, np.float32))
+    bits = torch.from_numpy(np.ascontiguousarray(g)).bfloat16().view(
+        torch.int16).numpy().astype(np.uint32)
+
+    def f32(b):
+        return (b << 16).astype(np.uint32).view(np.float32)
+
+    a = f32(bits)
+    gap_up = f32(bits + 1) - a
+    gap_dn = np.where(bits > 0, a - f32(np.maximum(bits, 1) - 1), gap_up)
+    at_up = np.abs(g - (a + gap_up / 2)) <= NET["rtol"] * g
+    at_dn = np.abs(g - (a - gap_dn / 2)) <= NET["rtol"] * g
+    return np.where(at_up, gap_up, np.where(at_dn, gap_dn, 0.0)).astype(
+        np.float32)
+
+
+def _topk_bf16_flips(te, je, rows, corrected, idx, w, k):
+    """The top-k codec with a bf16 block. The two packages' f32 gradient
+    rows differ in their last bits, so the bf16 cast of the block may
+    round an entry that sits on a rounding boundary to neighbouring bf16
+    values (`_bf16_flip_sizes`). Each far EF entry must be such a flip,
+    exactly one gap in size, or one of a pair whose top-k selection the
+    flip swapped, and then the two magnitudes at the k-th boundary were
+    a tie or one gap apart in the reference's corrected block. Returns
+    (flips counted, the meta-gradient slack per coordinate): a flip at a
+    coordinate the row uploads moves the meta-gradient by w_u·gap there,
+    a swap by the uploaded values, and nowhere else."""
+    size = _bf16_flip_sizes(rows)
+    far = ~np.isclose(te, je, **NET)
+    slack = np.zeros(te.shape[1], np.float32)
+    picked = []
+    for u in range(rows.shape[0]):
+        order = np.argsort(-np.abs(corrected[u]), kind="stable")
+        picked.append(np.zeros(te.shape[1], bool))
+        picked[u][order[:k]] = True
+        slack += np.where(picked[u], w[u] * size[u] * 1.001, 0.0)
+    flips = 0
+    last = {int(c): u for u, c in enumerate(idx)}
+    for c, u in last.items():
+        cols = np.flatnonzero(far[c])
+        d = np.abs(te[c] - je[c])[cols]
+        one = (size[u, cols] > 0) & np.isclose(d, size[u, cols], rtol=1e-3)
+        flips += int(one.sum())
+        swapped = cols[~one]
+        if swapped.size:
+            into = swapped[picked[u][swapped]]      # the reference's picks
+            out = swapped[~picked[u][swapped]]      # the port's instead
+            assert into.size == out.size, (c, swapped)
+            mag = np.abs(corrected[u])
+            gap = size[u, swapped].max()
+            assert gap > 0, (c, swapped)            # a flip made the swap
+            assert mag[into].max() - mag[out].min() <= gap * 1.001, (
+                c, mag[into], mag[out], gap)
+            # the reference kept its residual below a bf16 cast error at
+            # its picks and the raw entry at the others; the port the
+            # other way round
+            assert np.all(np.abs(te[c, into] - corrected[u, into])
+                          <= gap * 1.001 + NET["atol"])
+            assert np.all(np.abs(je[c, out] - corrected[u, out])
+                          <= NET["atol"] + NET["rtol"] * mag[out])
+            slack[swapped] += w[u] * (mag[swapped] + 2 * gap) * 1.001
+            flips += int(swapped.size)
+    return flips, slack
+
+
 def _hold_codec_step(t_new, j_new, t_met, j_met, corrected, idx, w, codec,
-                     n_real):
-    """Metrics at NET; EF rows at NET except int8 rounding flips, each
-    exactly one step s_u; the meta-gradient (m/(1−b1)) at NET except at
-    flipped coordinates, where it may move by w_u·s_u; φ within 2·lr."""
-    for k in j_met:
-        np.testing.assert_allclose(float(t_met[k]), float(j_met[k]), **NET)
+                     n_real, ef0=None, rows=None, k=None):
+    """Metrics at NET; EF rows of clients not picked this round exactly
+    as they were; picked EF rows at NET except int8 rounding flips, each
+    exactly one step s_u, and (top-k over a bf16 block, where ``rows``,
+    the reference's f32 block, is given) bf16 rounding flips at rounding
+    boundaries (`_topk_bf16_flips`); the meta-gradient (m/(1−b1)) at NET
+    except at flipped coordinates, within the slack each flip admits; φ
+    within 2·lr."""
+    for k_ in j_met:
+        np.testing.assert_allclose(float(t_met[k_]), float(j_met[k_]), **NET)
     b1 = 0.9
     tg = _flat(t_new["opt"]["m"]) / (1 - b1)
     jg = _flat(j_new["opt"]["m"]) / (1 - b1)
@@ -388,25 +463,33 @@ def _hold_codec_step(t_new, j_new, t_met, j_met, corrected, idx, w, codec,
     if "ef" in j_new:
         te, je = _flat(t_new["ef"]), _flat(j_new["ef"])
         far = ~np.isclose(te, je, **NET)
+        last = {int(c): u for u, c in enumerate(idx)}
+        others = [c for c in range(te.shape[0]) if c not in last]
+        np.testing.assert_array_equal(te[others], ef0[others])
+        np.testing.assert_array_equal(je[others], ef0[others])
         if codec == "int8":
             s = np.abs(corrected).max(axis=1) / 127
-            last = {int(c): u for u, c in enumerate(idx)}
             for c, u in last.items():
                 d = np.abs(te[c] - je[c])[far[c]]
                 np.testing.assert_allclose(d, s[u], rtol=1e-3)
                 slack[far[c]] += w[u] * s[u] * 1.001
                 flips += int(far[c].sum())
-            others = [c for c in range(te.shape[0]) if c not in last]
-            assert not far[others].any()       # rows not picked stay put
-            assert flips <= 1e-3 * far.size
+        elif rows is not None:
+            flips, slack = _topk_bf16_flips(te, je, rows, corrected, idx, w,
+                                            k)
         else:
             assert not far.any()
-    ok = np.abs(tg - jg) <= NET["atol"] + NET["rtol"] * np.abs(jg) + slack
-    assert ok.all(), np.abs(tg - jg)[~ok][:5]
+        assert flips <= 1e-3 * far.size
+    _hold_meta_grad(tg, jg, slack)
     tp_, jp_ = _flat(t_new["phi"]), _flat(j_new["phi"])
     assert np.all(np.abs(tp_ - jp_) <= 2 * LR * (1 + 1e-5))
     assert not tp_[n_real:].any()
     return flips
+
+
+def _hold_meta_grad(tg, jg, slack):
+    ok = np.abs(tg - jg) <= NET["atol"] + NET["rtol"] * np.abs(jg) + slack
+    assert ok.all(), np.abs(tg - jg)[~ok][:5]
 
 
 CASES = {"int8+ef": (dict(codec="int8"), None, None),
@@ -450,8 +533,106 @@ def test_packed_step_matches_reference(cnn, case):
                               getattr(torch, bd) if bd else None, sup, qry,
                               w, idx, ef0, noise=noise)
     assert ("ef" in t_new) == ("ef" in j_new)
-    _hold_codec_step(t_new, j_new, t_met, j_met, corrected, idx, w,
-                     ckw["codec"] if ckw else None, tp.n_real)
+    codec = ckw["codec"] if ckw else None
+    rows = k = None
+    if codec == "topk" and bd == "bfloat16":
+        rows = np.asarray(_reference_rows(cnn, sup, qry), np.float32)
+        k = tc_cfg.k_for(tp.n_real)
+    _hold_codec_step(t_new, j_new, t_met, j_met, corrected, idx, w, codec,
+                     tp.n_real, ef0=ef0, rows=rows, k=k)
+
+
+def _bf16_neighbour(x, step):
+    """The bf16 value ``step`` ulps from bf16 ``x`` in magnitude."""
+    b = torch.tensor([x], dtype=torch.float32).bfloat16().view(torch.int16)
+    return float((b + step).view(torch.bfloat16).float())
+
+
+def _synthetic_topk_round(rows, port_block, k=4):
+    """A top-k round over a bf16 block, EF plane zero, clients [2, 0, 1]:
+    the reference encodes bf16(rows), the port ``port_block`` -> (port
+    EF, reference EF, port meta-gradient, reference meta-gradient,
+    reference corrected block, picks, weights)."""
+    idx = np.array([2, 0, 1])
+    w = np.array([0.5, 0.3, 0.2], np.float32)
+
+    def run(block):
+        vals, ix, resid = tc.topk_encode(torch.from_numpy(block), k,
+                                         val_dtype=torch.bfloat16)
+        ef = np.zeros_like(block)
+        ef[idx] = resid.numpy()
+        g = tc.topk_aggregate_ref(vals, ix, torch.from_numpy(w),
+                                  block.shape[1]).numpy()
+        return ef, g
+
+    ref_block = torch.from_numpy(rows).bfloat16().float().numpy()
+    je, jg = run(ref_block)
+    te, tg = run(port_block)
+    return te, je, tg, jg, ref_block, idx, w
+
+
+def _tie_rows():
+    """(3, 64) f32: small Gaussian rows; row 0 holds 1.0, 0.9, 0.8 at
+    columns 0-2 and 0.5 at columns 5 and 9 (a tie at the k = 4 boundary,
+    the lower index picked), with column 5's f32 entry exactly on the
+    rounding boundary below 0.5."""
+    rows = (np.random.RandomState(4).normal(0, 0.01, (3, 64))
+            .astype(np.float32))
+    rows[0, :3] = (1.0, 0.9, 0.8)
+    rows[0, 9] = 0.5
+    rows[0, 5] = (0.5 + _bf16_neighbour(0.5, -1)) / 2
+    return rows
+
+
+@pytest.mark.parametrize("case", ["boundary", "off_boundary"])
+def test_topk_bf16_flip_check_tells_drift_from_fault(case):
+    """A one-ulp bf16 flip of an unpicked entry is admitted where the
+    reference's f32 entry sits on the rounding boundary, and refused
+    where it does not: the packed-step check tells the two packages'
+    last-bit drift from a real fault."""
+    rows = _tie_rows()
+    a = _bf16_neighbour(0.003, 0)       # well below the row's top 4
+    gap = _bf16_neighbour(a, 1) - a
+    rows[1, 20] = a + gap / 2 if case == "boundary" else a + gap / 4
+    ref_block = torch.from_numpy(rows).bfloat16().float().numpy()
+    port = ref_block.copy()
+    port[1, 20] = a + gap if ref_block[1, 20] == a else a
+    te, je, tg, jg, corrected, idx, w = _synthetic_topk_round(rows, port)
+    assert not np.isclose(te[0, 20], je[0, 20], **NET)   # far in EF
+    if case == "boundary":
+        flips, slack = _topk_bf16_flips(te, je, rows, corrected, idx, w, 4)
+        assert flips == 1
+        _hold_meta_grad(tg, jg, slack)
+    else:
+        with pytest.raises(AssertionError):
+            _topk_bf16_flips(te, je, rows, corrected, idx, w, 4)
+
+
+@pytest.mark.parametrize("case", ["tie", "apart"])
+def test_topk_bf16_selection_swap_needs_a_tie(case):
+    """A flip at the k-th boundary may swap the top-k selection: admitted
+    when the two magnitudes were a tie (or one bf16 ulp apart) in the
+    reference's block, refused when a swap comes with magnitudes that
+    far apart."""
+    rows = _tie_rows()
+    ref_block = torch.from_numpy(rows).bfloat16().float().numpy()
+    assert ref_block[0, 5] == 0.5 == ref_block[0, 9]
+    port = ref_block.copy()
+    if case == "tie":
+        port[0, 5] = _bf16_neighbour(0.5, -1)     # rounds the other way
+    else:
+        rows[0, 9] = port[0, 9] = 0.25
+        port[0, 5] = 0.125                        # not a one-ulp move
+    te, je, tg, jg, corrected, idx, w = _synthetic_topk_round(rows, port)
+    far_cols = np.flatnonzero(~np.isclose(te[2], je[2], **NET))
+    assert set(far_cols) == {5, 9}                 # the selection swapped
+    if case == "tie":
+        flips, slack = _topk_bf16_flips(te, je, rows, corrected, idx, w, 4)
+        assert flips == 2
+        _hold_meta_grad(tg, jg, slack)
+    else:
+        with pytest.raises(AssertionError):
+            _topk_bf16_flips(te, je, rows, corrected, idx, w, 4)
 
 
 def test_codec_knobs_off_are_bitwise_noops(cnn):

@@ -27,6 +27,7 @@ from repro.federated import experiment as jx
 from repro.kernels.meta_update.compress import \
     CompressionConfig as JaxCompression
 from repro_torch.federated import experiment as tx
+from repro_torch.federated.faults import FaultConfig
 from repro_torch.kernels.meta_update.compress import CompressionConfig
 
 NET = dict(rtol=1e-4, atol=1e-5)
@@ -111,12 +112,23 @@ def test_method_overrides_and_trainer_knobs():
     tree = dataclasses.replace(plan, pipeline="tree")
     with pytest.raises(ValueError, match="packed"):
         tx.make_trainer(tree, "fomaml", lf, ef, [], device="cpu")
-    for knob in (dict(fuse_rounds=2), dict(aggregator="trimmed"),
-                 dict(prefetch_depth=2), dict(over_select=0.5)):
+    for knob in (dict(fuse_rounds=2), dict(prefetch_depth=2),
+                 dict(over_select=0.5)):
         bad = dataclasses.replace(plan, compression=None, block_dtype=None,
                                   **knob)
         with pytest.raises(NotImplementedError, match="slice"):
             tx.make_trainer(bad, "fomaml", lf, ef, [], device="cpu")
+    # the failure plane's knobs reach the trainer (packed pipelines only)
+    robust = dataclasses.replace(plan, compression=None, block_dtype=None,
+                                 aggregator="trimmed", trim=1,
+                                 screen_factor=2.5,
+                                 faults=FaultConfig(byzantine=0.25))
+    fo = tx.make_trainer(robust, "fomaml", lf, ef, [], device="cpu")
+    assert (fo.aggregator, fo.trim, fo.screen_factor) == ("trimmed", 1, 2.5)
+    assert fo.faults == FaultConfig(byzantine=0.25) and fo.guard is True
+    with pytest.raises(ValueError, match="packed"):
+        tx.make_trainer(dataclasses.replace(robust, pipeline="tree"),
+                        "fomaml", lf, ef, [], device="cpu")
     with pytest.raises(NotImplementedError, match="population slice"):
         tx.run_comparison(tx.default_plan("femnist", lazy_population=True),
                           device="cpu")

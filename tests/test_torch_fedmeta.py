@@ -237,11 +237,18 @@ def test_guard_is_a_bitwise_noop_on_a_clean_round(cnn):
 
 
 def test_later_slice_knobs_raise(cnn):
+    """The knobs of later slices raise, naming their slice; the failure
+    plane's are refused off the vmap axis and for an unknown
+    aggregator, as in the reference."""
     _, ta = _algos(cnn, "fomaml")
     tp = plane_for(_t(_phi(cnn, "fomaml")))
-    for kw in ({"client_axis": "sharded"}, {"staleness": object()},
-               {"aggregator": "trimmed"}, {"faults": object()}):
+    for kw in ({"client_axis": "sharded"}, {"staleness": object()}):
         with pytest.raises(NotImplementedError, match="slice"):
+            tfm.make_packed_meta_train_step(ta, adam(1e-2), tp, **kw)
+    for kw in ({"aggregator": "median"},
+               {"aggregator": "trimmed", "client_axis": "scan"},
+               {"faults": object(), "client_axis": "chunked"}):
+        with pytest.raises(ValueError):
             tfm.make_packed_meta_train_step(ta, adam(1e-2), tp, **kw)
 
 

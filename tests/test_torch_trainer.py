@@ -133,7 +133,7 @@ def test_plan_blocks_match_reference_and_async_classes_raise():
 
 
 @pytest.mark.parametrize("kw", [{"prefetch_depth": 2}, {"fuse_rounds": 2},
-                                {"aggregator": "trimmed"},
+                                {"checkpoint_dir": "ckpt"},
                                 {"checkpoint_every": 5}, {"over_select": 0.5},
                                 {"client_axis": "sharded"}])
 def test_trainer_knobs_of_later_slices_raise(kw):
