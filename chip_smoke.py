@@ -7,7 +7,7 @@ Phases, each printing one JSON line:
 
   device   fails (nonzero exit, no result) without a CUDA card or outside
            a checkout; prints `nvidia-smi --query-gpu=name,power.limit`.
-  build    builds the port's kernels (K1–K8) from kernels/csrc/ for
+  build    builds the port's kernels (K1–K9) from kernels/csrc/ for
            sm_90a into build/torch_ext/ and prints the build time.
   kernels  holds each kernel against its plain PyTorch version on the
            card at the main paths' shapes: K1–K6 bitwise (K2–K6 at the
@@ -16,9 +16,15 @@ Phases, each printing one JSON line:
            folded weights w·s; K5 in f32 and bf16 with a NaN row made
            dead, on the FEMNIST block with adversarial rows and ties, on
            the degenerate rounds with their NaN and ±inf in place, and
-           at m > 16), K7 and K8 within a stated bf16 tolerance. Times kernel, plain version and one
-           PyTorch library call (a yardstick the port never calls) with
-           CUDA events: median of 20 runs after warm-up.
+           at m > 16), K7 and K8 within a stated bf16 tolerance, K9
+           and its plain version each within a bound derived from f32
+           accumulation against a float64 evaluation (Mamba2-370M's
+           prefill and adaptation shapes, an odd chunk, and an input
+           whose above-diagonal decay overflows, where the chunked
+           oracle gives NaN and K9 stays finite). Times kernel, plain
+           version and one PyTorch library call (a yardstick the port
+           never calls) with CUDA events: median of 20 runs after
+           warm-up.
   serve    drives the port's serving path at full SmolLM-360M width —
            `build_engine` + `ServingEngine.serve` over 16 seeded
            requests (adapt -> prefill -> decode) — with every kernel's
@@ -63,6 +69,23 @@ Phases, each printing one JSON line:
            sign-flipped row of 4) for 2 rounds, screen and mean with a
            NaN row for one round each, the mean's round skipped with φ
            and the Adam state bitwise unchanged.
+  serve_ssm  the serving path of Mamba2-370M at full width (bf16, random
+           weights, seed 0): 16 requests of the serve phase's traffic,
+           supports of 128-token sequences, prompts of 200 tokens (two
+           chunks after padding), 8 new tokens; K1 and K9 launched, K7
+           and K8 not; the serve phase's row and plain-route checks; the
+           prefill -> decode handoff of one adapted row over 2 decode
+           steps against `lm_apply`, in f32 and in bf16.
+  trace_ssm  the trace phase over the Mamba2 engine.
+  train_ssm  2 packed FOMAML rounds of Mamba2-370M at full width on the
+           client plane (train_lm's settings), round 1 held against the
+           all-plain route (K1, K2, K3 plain, the SSD on its chunked
+           oracle) in bf16, and again in float32 (both routes then
+           compute one function: meta-gradients within 1e-3 of the
+           largest), K9 counted under the gradient, round 2 traced.
+  decode_launcher  `repro_torch.launch.serve.main(["--arch",
+           "mamba2-370m", "--steps", "4"])`: decode_32k's batch of 128
+           at full width; finite logits, ms per step, peak memory.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and last `{"ok": true, "device": {...}}`. Any failed
@@ -99,6 +122,7 @@ REPLACES = {
     "int8_encode": "src/repro/kernels/meta_update/compress.py:157",
     "meta_update_flat": "src/repro/kernels/meta_update/fused.py:70",
     "trimmed_mean": "src/repro/kernels/meta_update/aggregate.py:271",
+    "ssd_chunk": "src/repro/kernels/ssd/ssd_scan.py:62",
 }
 SOURCES = {
     "inner_update_plane": "src/repro_torch/kernels/csrc/inner_update.cu",
@@ -109,6 +133,7 @@ SOURCES = {
     "int8_encode": "src/repro_torch/kernels/csrc/int8_encode.cu",
     "meta_update_flat": "src/repro_torch/kernels/csrc/inner_update.cu",
     "trimmed_mean": "src/repro_torch/kernels/csrc/trimmed_mean.cu",
+    "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
 }
 
 
@@ -738,6 +763,170 @@ def check_k8(torch):
     return rows, summary
 
 
+U32 = 2.0 ** -24                 # f32 unit roundoff
+
+
+def ssd_inputs(torch, gen, B, nh, L, hp, N, dt_scale=1.0):
+    """Mamba2-like SSD inputs (the reference test's draws,
+    `tests/test_kernels_ssd.py:11-18`) in the models' (B, L, nh, ·)
+    layout: x, dt (softplus), A < 0, Bm, Cm."""
+    dev = dict(device="cuda", generator=gen)
+    x = torch.randn((B, L, nh, hp), **dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, L, nh), **dev) * 0.5 - 1.0) * dt_scale
+    A = -torch.exp(torch.randn((nh,), **dev) * 0.3)
+    Bm = torch.randn((B, L, N), **dev)
+    Cm = torch.randn((B, L, N), **dev)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_f64_oracle(torch, xdt, a, Bm, Cm, chunk):
+    """K9's function in float64 on the same f32 inputs, and the
+    per-element bounds a float32 evaluation must meet (u = 2^-24):
+
+      |y - y64| <= ((Q + N + 2) u + eps_D) ((|C| |B|^T ⊙ D) @ |xdt|)
+      |S - S64| <= ((Q + 2) u + eps_D) ((|B| ⊙ sd)^T @ |xdt|)
+
+    Q + N + 2: the N-term dot C·B, the product with the decay D, the
+    product with xdt and the Q-term sum over j (sd's product with B is
+    the second rounding of S). eps_D = expm1(((2Q + 1) |cum_last| + 2) u)
+    bounds the relative error of each computed decay exp(cum_i - cum_j):
+    each f32 cumsum is off by at most Q u |cum_last| in any summation
+    order (every a <= 0, so no partial sum exceeds |cum_last|), the
+    difference rounds once more and exp adds at most 2 ulp. The two
+    relative errors compound: the limit's factor is (1 + γ)(1 + eps_D) − 1
+    with γ the rounding count times u."""
+    B, nh, L, hp = xdt.shape
+    N = Bm.shape[-1]
+    Q, nc = chunk, L // chunk
+    x = xdt.double().reshape(B, nh, nc, Q, hp)
+    cum = torch.cumsum(a.double().reshape(B, nh, nc, Q), dim=-1)
+    Bc = Bm.double().reshape(B, 1, nc, Q, N)
+    Cc = Cm.double().reshape(B, 1, nc, Q, N)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xdt.device).tril()
+    D = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                              float("-inf")))
+    sd = torch.exp(cum[..., -1:] - cum)
+    y = torch.matmul(torch.matmul(Cc, Bc.transpose(-1, -2)) * D, x)
+    S = torch.matmul((Bc * sd[..., None]).transpose(-1, -2), x)
+    ymag = torch.matmul(torch.matmul(Cc.abs(), Bc.abs().transpose(-1, -2)) * D,
+                        x.abs())
+    Smag = torch.matmul((Bc.abs() * sd[..., None]).transpose(-1, -2), x.abs())
+    eps_d = torch.expm1(((2 * Q + 1) * cum[..., -1].abs() + 2) * U32
+                        )[..., None, None]                 # (B, nh, nc, 1, 1)
+    y_lim = ((1 + (Q + N + 2) * U32) * (1 + eps_d) - 1) * ymag
+    S_lim = ((1 + (Q + 2) * U32) * (1 + eps_d) - 1) * Smag
+    return (y.reshape(B, nh, L, hp), S, y_lim.reshape(B, nh, L, hp), S_lim)
+
+
+def ssd_library_chain(torch, Bm, Cm, xdt, chunk):
+    """The yardstick: the plain version's batched matmuls alone (C Bᵀ
+    once per (b, c), then the (Q, Q) @ (Q, hp) and (N, Q) @ (Q, hp)
+    products per head), no cumsum, decay or mask. The port never calls
+    it."""
+    B, nh, L, hp = xdt.shape
+    N, nc = Bm.shape[-1], L // chunk
+    Bc = Bm.reshape(B, 1, nc, chunk, N)
+    Cc = Cm.reshape(B, 1, nc, chunk, N)
+    x = xdt.reshape(B, nh, nc, chunk, hp)
+
+    def run():
+        cb = torch.matmul(Cc, Bc.transpose(-1, -2))
+        return torch.matmul(cb, x), torch.matmul(Bc.transpose(-1, -2), x)
+    return run
+
+
+# (name, B, nh, L, hp, N, chunk, dt_scale): Mamba2-370M's prefill at full
+# width (8 chunks), the adaptation's shape, an odd chunk, and an input
+# whose above-diagonal decay overflows f32 exp (dt·|A| ≈ 9 a step)
+K9_CASES = (("prefill", 4, 32, 1024, 64, 128, 128, 1.0),
+            ("adapt", 2, 32, 128, 64, 128, 128, 1.0),
+            ("odd chunk", 2, 32, 200, 64, 128, 100, 1.0),
+            ("overflow", 1, 32, 256, 64, 128, 128, 30.0))
+
+
+def check_k9(torch):
+    """K9 and its plain version (`ssd_intra_chunk_plain`), each held
+    against the float64 oracle at the derived per-element bound
+    (`ssd_f64_oracle`), at the paths' shapes, in the layout
+    `ops.ssd_chunked` hands the kernel (transposed views of (B, L, nh, ·)
+    buffers). On the overflow input the chunked oracle
+    (`ssd_chunked_ref`, a product with a 0/1 mask) must give NaN and K9
+    stay finite. Bound: the larger of the bytes (each operand once) over
+    3.35 TB/s and the function's least work — C Bᵀ once per (b, c),
+    2Q²N, plus 2Q²hp + 2QN·hp per (b, h, c) — over 67 TFLOP/s (f32);
+    `bound_ms_kernel_work` counts C Bᵀ per head, as the TPU kernel and
+    K9 compute it."""
+    from repro_torch.kernels.ssd import ref, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, summary = [], None
+    for name, B, nh, L, hp, N, Q, dt_scale in K9_CASES:
+        x, dt, A, Bm, Cm = ssd_inputs(torch, gen, B, nh, L, hp, N, dt_scale)
+        xdt = (x * dt[..., None]).transpose(1, 2)        # (B, nh, L, hp)
+        a = (dt * A[None, None, :]).transpose(1, 2)      # (B, nh, L)
+        with torch.no_grad():
+            y, S = ssd_scan.ssd_intra_chunk(xdt, a, Bm, Cm, chunk=Q)
+            yp, Sp = ref.ssd_intra_chunk_plain(xdt, a, Bm, Cm, chunk=Q)
+            y64, S64, y_lim, S_lim = ssd_f64_oracle(torch, xdt, a, Bm, Cm, Q)
+        torch.cuda.synchronize()
+
+        def worst(out):
+            dy = (out[0].double() - y64).abs()
+            dS = (out[1].double() - S64).abs()
+            return (max(float(dy.max()), float(dS.max())),
+                    max(float((dy / y_lim).max()), float((dS / S_lim).max())))
+        err, share = worst((y, S))
+        err_p, share_p = worst((yp, Sp))
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(S).all())
+        row = {"name": "ssd_chunk",
+               "case": f"{name} B={B} nh={nh} L={L} hp={hp} N={N} Q={Q}",
+               "max_abs_err": err, "worst_of_limit": share,
+               "plain_max_abs_err": err_p, "plain_worst_of_limit": share_p,
+               "kernel_minus_plain_max": float(torch.maximum(
+                   (y - yp).abs().max(), (S - Sp).abs().max())),
+               "tol": "per element vs float64: ((1+(Q+N+2)u)(1+eps_D)-1)"
+                      "·((|C||B|ᵀ⊙D)@|xdt|) for y, ((1+(Q+2)u)(1+eps_D)-1)"
+                      "·((|B|⊙sd)ᵀ@|xdt|) for S; u = 2^-24, eps_D = "
+                      "expm1(((2Q+1)|cum_last| + 2)u)",
+               "finite": finite}
+        del yp, Sp, y64, S64, y_lim, S_lim
+        if name == "overflow":
+            oracle = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q)
+            row["chunked_oracle_nan"] = bool(torch.isnan(oracle).any())
+            del oracle
+        else:
+            with torch.no_grad():
+                row["ms"] = time_ms(lambda: ssd_scan.ssd_intra_chunk(
+                    xdt, a, Bm, Cm, chunk=Q), torch)
+                row["plain_ms"] = time_ms(lambda: ref.ssd_intra_chunk_plain(
+                    xdt, a, Bm, Cm, chunk=Q), torch)
+                row["library_ms"] = library_time_ms(
+                    ssd_library_chain(torch, Bm, Cm, xdt.contiguous(), Q),
+                    torch)
+            row["library"] = ("torch.matmul chain: C Bᵀ, (C Bᵀ) @ xdt, Bᵀ @ "
+                              "xdt, batched over (b, h, c), f32, no decay")
+            nc = L // Q
+            per_head = 2.0 * Q * Q * hp + 2.0 * Q * N * hp
+            least = B * nc * 2.0 * Q * Q * N + B * nh * nc * per_head
+            kernel_work = B * nh * nc * (2.0 * Q * Q * N + per_head)
+            moved = nbytes(xdt, a, Bm, Cm, y, S)
+            row["bound_ms"], row["bound_by"] = bound_ms(moved, least,
+                                                        "float32")
+            row["bound_ms_kernel_work"] = bound_ms(moved, kernel_work,
+                                                   "float32")[0]
+            row["gflop_least"], row["mbytes"] = least / 1e9, moved / 1e6
+        rows.append(row)
+        if summary is None:
+            summary = row
+        del x, dt, A, Bm, Cm, xdt, a, y, S
+        torch.cuda.empty_cache()
+        bad = [k for k in ("worst_of_limit", "plain_worst_of_limit")
+               if not row[k] <= 1.0]
+        if bad or not finite or not row.get("chunked_oracle_nan", True):
+            raise PhaseFailed(f"K9 check failed ({bad}): {row}")
+    return rows, summary
+
+
 def phase_kernels(torch, cfg):
     from repro_torch.models import init_lm
     from repro_torch.utils.flat import plane_for
@@ -754,7 +943,8 @@ def phase_kernels(torch, cfg):
               ("trimmed_mean", lambda: check_k5(torch, n_plane)),
               ("int8_encode", lambda: check_k6(torch, n_plane)),
               ("flash_attention", lambda: check_k7(torch)),
-              ("flash_decode", lambda: check_k8(torch)))
+              ("flash_decode", lambda: check_k8(torch)),
+              ("ssd_chunk", lambda: check_k9(torch)))
     for name, check in checks:
         r, s = check()
         rows += r
@@ -764,26 +954,31 @@ def phase_kernels(torch, cfg):
     return summaries
 
 
-def phase_serve(torch, cfg):
+def drive_serve(torch, cfg, *, sup_len, prompt_len, new_tokens, launched,
+                idle, plain_route):
+    """The serving path at full width: `build_engine` + `ServingEngine.
+    serve` over 16 seeded requests (adapt -> prefill -> decode), every
+    kernel's count set to 0 just before and read just after. Checks:
+    the kernels in `launched` ran and those in `idle` did not, finite
+    rows and tokens, cache hits, a served row bitwise equal to the solo
+    adaptation, and the gap to the all-plain route (K1 plain, and the
+    model's kernels plain inside `plain_route()`). Returns (result,
+    errors, launches, (engine, mk, mp, new_tokens))."""
     from repro_torch.federated.serving import TrafficModel
-    from repro_torch.kernels.attention import flash_attention as k7
-    from repro_torch.kernels.attention import ops as attn_ops
-    from repro_torch.kernels.decode_attention import flash_decode as k8
-    from repro_torch.kernels.meta_update import fused as k1
     from repro_torch.launch.serve import build_engine
     from repro_torch.utils.pytree import tree_leaves
 
-    L_SUP, L_PROMPT, NEW = 64, 64, 8
     engine = build_engine(cfg, algo_name="fomaml", inner_lr=0.05,
                           inner_steps=1, adapt_batch=4, cache_capacity=16,
                           device="cuda")
 
     def mk(rng, size):
-        return torch.as_tensor(rng.randint(0, cfg.vocab_size, (size, L_SUP)),
+        return torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                           (size, sup_len)),
                                dtype=torch.int32)
 
     def mp(rng):
-        return torch.as_tensor(rng.randint(0, cfg.vocab_size, (L_PROMPT,)),
+        return torch.as_tensor(rng.randint(0, cfg.vocab_size, (prompt_len,)),
                                dtype=torch.int32)
 
     traffic = TrafficModel(num_clients=8, rate=32.0, support_sizes=(2, 4),
@@ -798,10 +993,9 @@ def phase_serve(torch, cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    k1.launches = k7.launches = k8.launches = 0
-    report = engine.serve(reqs, max_new_tokens=NEW)
-    launches = {"inner_update_plane": k1.launches,
-                "flash_attention": k7.launches, "flash_decode": k8.launches}
+    reset_launches()
+    report = engine.serve(reqs, max_new_tokens=new_tokens)
+    launches = read_launches()
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # summary() takes its adapt percentiles over every request, a hit
@@ -812,14 +1006,18 @@ def phase_serve(torch, cfg):
                                   if not rec["hit"]))
 
     errors = []
-    for name, n in launches.items():
-        if n <= 0:
+    for name in launched:
+        if launches[name] <= 0:
             errors.append(f"{name} was not launched on the serving path")
+    for name in idle:
+        if launches[name] != 0:
+            errors.append(f"{name} launched {launches[name]} times on a "
+                          f"path that does not run it")
     for rec in report.records:
         if not bool(torch.isfinite(rec["row"]).all()):
             errors.append(f"request {rec['rid']}: non-finite adapted row")
         toks = rec.get("tokens")
-        if toks is None or toks.shape != (NEW,) or not (
+        if toks is None or toks.shape != (new_tokens,) or not (
                 (toks >= 0).all() and (toks < cfg.vocab_size).all()):
             errors.append(f"request {rec['rid']}: bad tokens {toks}")
     if summary["hits"] <= 0:
@@ -827,7 +1025,7 @@ def phase_serve(torch, cfg):
 
     # a served row equals the solo adaptation of that request, bit for
     # bit: as the f32 plane row (adapt_packed_batch with C = 1) and as the
-    # bf16 parameter tree (adapt_packed, which unpacks that row)
+    # parameter tree (adapt_packed, which unpacks that row)
     by_rid = {r.rid: r for r in reqs}
     misses = [rec for rec in report.records if not rec["hit"]]
     first = misses[0]
@@ -842,13 +1040,13 @@ def phase_serve(torch, cfg):
         errors.append("served row differs from the solo adaptation")
     del solo_row, solo_tree, served_tree
 
-    # distance to the all-plain route (K1, K7 plain) on two requests,
-    # compared as f32 plane rows
+    # distance to the all-plain route on two requests, compared as f32
+    # plane rows
     theta0 = engine.plane.pack(engine._phi["theta"])
     plain_cmp = []
     for rec in misses[:2]:
         sup = by_rid[rec["rid"]].support.to("cuda")
-        with attn_ops.use_impl("torch"):
+        with plain_route():
             row_t = engine.algo.adapt_packed_batch(engine._phi, sup[None],
                                                    impl="torch")[0]
         diff = float((row_t - rec["row"]).abs().max())
@@ -856,9 +1054,10 @@ def phase_serve(torch, cfg):
         plain_cmp.append({"rid": rec["rid"], "max_abs_diff": diff,
                           "max_abs_step": step, "ratio": diff / step})
         del row_t
-    # The two routes differ only in how attention's bf16 output is rounded
-    # (kernel vs plain order of summation: at most one bf16 ulp, 2^-8
-    # relative). Through 32 bf16 layers forward and back that moves
+    # The two routes differ only in how the mixer's bf16 output is
+    # rounded (attention: kernel vs plain order of summation; the SSD: K9
+    # vs the chunked oracle, both f32 inside): at most one bf16 ulp, 2^-8
+    # relative. Through the bf16 layers forward and back that moves
     # gradient entries by a few percent of the largest one, and the row
     # moves by inner_lr * g: hold the gap under 1/8 of the largest step.
     plain_tol_ratio = 0.125
@@ -866,19 +1065,29 @@ def phase_serve(torch, cfg):
         if not c["ratio"] <= plain_tol_ratio:
             errors.append(f"plain-route gap {c} above {plain_tol_ratio}")
 
-    emit({"phase": "serve", "ok": not errors, "arch": cfg.name,
-          "n_plane": engine.plane.n_padded, "requests": len(reqs),
-          "support_len": L_SUP, "prompt_len": L_PROMPT,
-          "max_new_tokens": NEW, "summary": summary,
-          "adapt_ms_by_flush": flush_ms, "launches": launches,
-          "launches_per_request": {k: v / len(reqs)
-                                   for k, v in launches.items()},
-          "peak_mem_gb": peak_gb, "solo_bitwise_equal": solo_equal,
-          "plain_route": plain_cmp, "plain_tol_ratio": plain_tol_ratio,
-          "errors": errors})
+    res = {"arch": cfg.name, "n_plane": engine.plane.n_padded,
+           "requests": len(reqs), "support_len": sup_len,
+           "prompt_len": prompt_len, "max_new_tokens": new_tokens,
+           "summary": summary, "adapt_ms_by_flush": flush_ms,
+           "launches": launches,
+           "launches_per_request": {k: v / len(reqs)
+                                    for k, v in launches.items()},
+           "peak_mem_gb": peak_gb, "solo_bitwise_equal": solo_equal,
+           "plain_route": plain_cmp, "plain_tol_ratio": plain_tol_ratio}
+    return res, errors, launches, (engine, mk, mp, new_tokens), misses
+
+
+def phase_serve(torch, cfg):
+    """SmolLM-360M: supports and prompts of 64 tokens; K1, K7 and K8."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    res, errors, launches, ctx, _ = drive_serve(
+        torch, cfg, sup_len=64, prompt_len=64, new_tokens=8,
+        launched=("inner_update_plane", "flash_attention", "flash_decode"),
+        idle=(), plain_route=lambda: attn_ops.use_impl("torch"))
+    emit({"phase": "serve", "ok": not errors, **res, "errors": errors})
     if errors:
         raise PhaseFailed("; ".join(errors))
-    return launches, (engine, mk, mp, NEW)
+    return launches, ctx
 
 
 KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
@@ -888,17 +1097,20 @@ KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
                  ("K6 int8_encode", ("int8_encode_kernel",)),
                  ("K7 flash_attention", ("flash_attention_kernel",)),
                  ("K8 flash_decode", ("flash_decode_kernel",)),
+                 ("K9 ssd_chunk", ("ssd_chunk",)),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
                            "splitk")),
                  ("copy/cast/fill", ("copy", "memcpy", "memset", "fill")))
 
 
 def _traced(torch, fn):
-    """(host wall s, device summary) of one traced run of fn."""
+    """(host wall s, device summary) of one traced run of fn. Only the
+    device's activity is recorded: the summary reads no host events,
+    and recording them too gives the same device times and counts but
+    makes reading the trace several times slower."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -942,7 +1154,7 @@ def _device_profile(torch, fn):
     return {"wall_ms_untraced": plain_s * 1e3, **summary}
 
 
-def phase_trace(torch, engine, mk, mp, new_tokens):
+def phase_trace(torch, engine, mk, mp, new_tokens, name="trace"):
     """Where the serving time goes: torch.profiler over the adaptation of
     4 fresh requests (cache cleared, no decode), then over their decode
     alone (all cache hits). Each is run once untraced and once traced, so
@@ -959,7 +1171,7 @@ def phase_trace(torch, engine, mk, mp, new_tokens):
     decode = _device_profile(
         torch, lambda: engine.serve(reqs, max_new_tokens=new_tokens))
     visible = adapt["device_events"] > 0 and decode["device_events"] > 0
-    emit({"phase": "trace", "ok": True, "requests": len(reqs),
+    emit({"phase": name, "ok": True, "requests": len(reqs),
           "device_time_visible": visible, "adapt": adapt, "decode": decode})
 
 
@@ -978,6 +1190,7 @@ def _kernel_counters():
     from repro_torch.kernels.meta_update import aggregate as k2
     from repro_torch.kernels.meta_update import compress as k6
     from repro_torch.kernels.meta_update import fused as k1
+    from repro_torch.kernels.ssd import ssd_scan as k9
     from repro_torch.optim import fused_adam as k3
     return {"inner_update_plane": (k1, "launches"),
             "weighted_aggregate": (k2, "launches"),
@@ -986,7 +1199,8 @@ def _kernel_counters():
             "trimmed_mean": (k2, "trimmed_launches"),
             "int8_encode": (k6, "launches"),
             "flash_attention": (k7, "launches"),
-            "flash_decode": (k8, "launches")}
+            "flash_decode": (k8, "launches"),
+            "ssd_chunk": (k9, "launches")}
 
 
 def reset_launches():
@@ -1089,35 +1303,49 @@ def phase_train_femnist(torch):
     return launches
 
 
-def phase_train_lm(torch, cfg):
-    """Three packed FOMAML rounds of SmolLM-360M at full width on the
-    client plane: m = 4 clients, 4 support and 4 query sequences of 128
-    tokens each, Adam(1e-3). Round 1 is held against the same round on
-    the all-plain route (K1, K2, K3 and attention plain); round 3 is
-    traced."""
+LM_ROUND = dict(M=4, S=4, Q=4, L=128, LR=1e-3)
+
+
+def lm_round_setup(torch, cfg, rounds):
+    """The LM round's pieces: FOMAML (inner lr 0.05) over `lm_loss`, φ
+    from seed 0 on the card, Adam, the packed state, and `rounds` seeded
+    batches of M clients × (S support, Q query) sequences of L tokens."""
     import numpy as np
     from repro_torch.core import make_algorithm
-    from repro_torch.core.fedmeta import (init_packed_state,
-                                          make_packed_meta_train_step)
+    from repro_torch.core.fedmeta import init_packed_state
     from repro_torch.core.losses import lm_loss
-    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.launch.steps import make_apply_fn
     from repro_torch.models import init_lm
     from repro_torch.optim import adam
     from repro_torch.utils.flat import plane_for
-    from repro_torch.utils.pytree import tree_map
 
-    M, S, Q, L, LR = 4, 4, 4, 128, 1e-3
+    M, S, Q, L = (LM_ROUND[k] for k in "MSQL")
     algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
     phi = {"theta": init_lm(0, cfg, device="cuda")}
     plane = plane_for(phi)
-    opt = adam(LR)
+    opt = adam(LM_ROUND["LR"])
     state = init_packed_state(opt, plane, phi)
-    del phi
     rng = np.random.RandomState(0)
     batches = [tuple(torch.as_tensor(rng.randint(0, cfg.vocab_size, (M, n, L)),
                                      dtype=torch.int32, device="cuda")
-                     for n in (S, Q)) for _ in range(3)]
+                     for n in (S, Q)) for _ in range(rounds)]
+    return algo, opt, plane, state, batches
+
+
+def drive_train_lm(torch, cfg, *, rounds, phase, plain_route, launched,
+                   extra=None, extra_errors=()):
+    """Packed FOMAML rounds of an LM at full width on the client plane:
+    m = 4 clients, 4 support and 4 query sequences of 128 tokens each,
+    Adam(1e-3). Round 1 is held against the same round on the all-plain
+    route (K1, K2, K3 plain, and the model's kernels plain inside
+    `plain_route()`); the last round is traced. Every kernel's count
+    starts at 0 before round 1 of the kernel route. `extra` and
+    `extra_errors` join the phase's line."""
+    from repro_torch.core.fedmeta import make_packed_meta_train_step
+    from repro_torch.utils.pytree import tree_map
+
+    M, S, Q, L, LR = (LM_ROUND[k] for k in ("M", "S", "Q", "L", "LR"))
+    algo, opt, plane, state, batches = lm_round_setup(torch, cfg, rounds)
     step = make_packed_meta_train_step(algo, opt, plane, client_plane=True,
                                        impl="cuda")
 
@@ -1126,7 +1354,7 @@ def phase_train_lm(torch, cfg):
                                              client_plane=True, impl="torch")
     st = {"phi": state["phi"].clone(), "opt": tree_map(torch.clone,
                                                        state["opt"])}
-    with attn_ops.use_impl("torch"):
+    with plain_route():
         st, _ = plain_step(st, *batches[0])
     phi_plain, m_plain = st["phi"], st["opt"]["m"]
     del st
@@ -1136,7 +1364,7 @@ def phase_train_lm(torch, cfg):
 
     reset_launches()
     walls, metrics = [], []
-    for r in range(2):
+    for r in range(rounds - 1):
         t0 = time.perf_counter()
         state, met = step(state, *batches[r])
         torch.cuda.synchronize()
@@ -1147,8 +1375,8 @@ def phase_train_lm(torch, cfg):
             # most lr, so any gradient difference moves φ by at most
             # 2·lr; the meta-gradient itself (m / (1 - b1)) is held at
             # 1/8 of its largest entry, the serve phase's tolerance for
-            # the same kernel-vs-plain attention rounding through 32
-            # bf16 layers
+            # the same kernel-vs-plain rounding of the mixer's bf16
+            # output through the bf16 layers
             d_phi = float((state["phi"] - phi_plain).abs().max())
             moved = float(((state["phi"] - phi_plain).abs() > 1e-6)
                           .float().mean())
@@ -1157,19 +1385,18 @@ def phase_train_lm(torch, cfg):
             del phi_plain, m_plain
     box = {}
 
-    def third():
-        box["state"], box["met"] = step(state, *batches[2])
+    def last():
+        box["state"], box["met"] = step(state, *batches[rounds - 1])
 
-    wall3, trace = _traced(torch, third)
+    wall_last, trace = _traced(torch, last)
     state = box["state"]
-    walls.append(wall3)
+    walls.append(wall_last)
     metrics.append({k: float(v) for k, v in box["met"].items()})
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    errors = []
-    for name in ("inner_update_plane", "weighted_aggregate", "adam_flat",
-                 "flash_attention"):
+    errors = list(extra_errors)
+    for name in launched:
         if launches[name] <= 0:
             errors.append(f"{name} was not launched on the LM training path")
     if not bool(torch.isfinite(state["phi"]).all()):
@@ -1179,15 +1406,180 @@ def phase_train_lm(torch, cfg):
     if not (d_phi <= phi_tol and d_g <= g_tol):
         errors.append(f"round 1 vs the plain route: |dφ| {d_phi} (limit "
                       f"{phi_tol}), meta-gradient {d_g} (limit {g_tol})")
-    emit({"phase": "train_lm", "ok": not errors, "arch": cfg.name,
+    emit({"phase": phase, "ok": not errors, "arch": cfg.name,
           "n_plane": plane.n_padded, "clients": M, "support": S, "query": Q,
           "seq_len": L, "round_wall_ms": [w * 1e3 for w in walls],
-          "round3_traced": True, "metrics": metrics, "peak_mem_gb": peak_gb,
-          "launches": launches,
+          f"round{rounds}_traced": True, "metrics": metrics,
+          "peak_mem_gb": peak_gb, "launches": launches,
           "plain_route_round1": {"max_abs_dphi": d_phi, "phi_tol": phi_tol,
                                  "share_moved_1e-6": moved,
                                  "meta_grad_rel": d_g, "meta_grad_tol": g_tol},
-          "trace_round3": trace, "errors": errors})
+          f"trace_round{rounds}": trace, **(extra or {}), "errors": errors})
+    if errors:
+        raise PhaseFailed("; ".join(errors))
+    return launches
+
+
+def plain_route_gap_f32(torch, cfg, plain_route):
+    """One packed FOMAML round of `cfg` in float32 (drive_train_lm's
+    settings and first batch) on the kernel route and on the all-plain
+    route, from one state: the meta-gradients' largest gap over their
+    largest entry. In f32 the two routes compute the same function and
+    differ only in summation order, so the gap is held at 1e-3 (NET's
+    1e-4 for two layers, ten times over for 48); in bf16 that gap is
+    amplified by rounding flips, which `drive_train_lm` holds at 1/8."""
+    from repro_torch.core.fedmeta import make_packed_meta_train_step
+    from repro_torch.utils.pytree import tree_map
+
+    algo, opt, plane, state, (batch,) = lm_round_setup(
+        torch, dataclasses.replace(cfg, dtype="float32"), 1)
+    ms = []
+    for impl in ("cuda", "torch"):
+        st = {"phi": state["phi"].clone(),
+              "opt": tree_map(torch.clone, state["opt"])}
+        step = make_packed_meta_train_step(algo, opt, plane, client_plane=True,
+                                           impl=impl)
+        if impl == "torch":
+            with plain_route():
+                st, _ = step(st, *batch)
+        else:
+            st, _ = step(st, *batch)
+        ms.append(st["opt"]["m"])
+        del st
+    rel = float((ms[0] - ms[1]).abs().max() / ms[1].abs().max())
+    del ms, state, step
+    gc.collect()                # the steps' closures hold f32 planes
+    torch.cuda.empty_cache()
+    return {"meta_grad_rel": rel, "meta_grad_tol": 1e-3}
+
+
+def phase_train_lm(torch, cfg):
+    """Three packed FOMAML rounds of SmolLM-360M; attention plain on the
+    plain route; K1, K2, K3 and K7 launched; round 3 traced."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    return drive_train_lm(
+        torch, cfg, rounds=3, phase="train_lm",
+        plain_route=lambda: attn_ops.use_impl("torch"),
+        launched=("inner_update_plane", "weighted_aggregate", "adam_flat",
+                  "flash_attention"))
+
+
+# ------------------------------------------------------------ SSM slice
+
+def ssd_torch_route():
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return ssd_ops.use_impl("torch")
+
+
+def handoff_gaps(torch, cfg, params, prompt, extra):
+    """Prefill `prompt`, then decode the `extra` tokens one at a time:
+    max |logits − lm_apply's| over the extended prompt at each step
+    (the prefill's last position first), and that forward's logits."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm_apply
+    toks = torch.cat([prompt, extra])[None].to("cuda")
+    L = prompt.numel()
+    with torch.no_grad():
+        full, _ = lm_apply(params, cfg, toks)
+        logits, cache = make_prefill_step(cfg)(params, toks[:, :L])
+        gaps = [float((logits[0] - full[0, L - 1]).abs().max())]
+        decode = make_decode_step(cfg)
+        for t in range(L, L + extra.numel()):
+            logits, cache = decode(params, cache, toks[:, t:t + 1])
+            gaps.append(float((logits[0] - full[0, t]).abs().max()))
+    return gaps, full[0, L - 1:]
+
+
+def serve_handoff(torch, cfg, engine, row, prompt, errors):
+    """The prefill -> decode handoff at full width for one adapted row:
+    prefill the request's prompt, decode 2 more tokens, each step's
+    logits against `lm_apply` over the extended prompt. In float32 (the
+    row's bf16 weights cast up, so both paths compute the same function
+    in f32) the gap is held at the reference's own 2e-3
+    (`tests/test_arch_smoke.py:107-119`), as 2e-3 + 2e-3·max|logits|. In bf16 the decode path
+    rounds at other places than the chunked forward (the conv in f32,
+    the state update one token at a time): its gap is held within twice
+    the distance by which bf16 rounding alone moves the full forward
+    from the same forward in f32."""
+    from repro_torch.utils.pytree import tree_map
+    gen = torch.Generator().manual_seed(5)
+    extra = torch.randint(0, cfg.vocab_size, (2,), generator=gen,
+                          dtype=torch.int32)
+    params = engine.unpack_row(row)
+    params32 = tree_map(lambda x: x.float(), params)
+    gaps_bf16, full_bf16 = handoff_gaps(torch, cfg, params, prompt, extra)
+    gaps_f32, full_f32 = handoff_gaps(torch, cfg, params32, prompt, extra)
+    spread = float((full_bf16 - full_f32).abs().max())
+    scale = float(full_f32.abs().max())
+    f32_tol = 2e-3 + 2e-3 * scale
+    bf16_tol = 2.0 * spread
+    del params32, full_bf16, full_f32
+    if not max(gaps_f32) <= f32_tol:
+        errors.append(f"f32 handoff gaps {gaps_f32} above {f32_tol}")
+    if not max(gaps_bf16) <= bf16_tol:
+        errors.append(f"bf16 handoff gaps {gaps_bf16} above {bf16_tol}")
+    return {"prompt_len": prompt.numel(), "decoded": extra.numel(),
+            "gaps_f32": gaps_f32, "f32_tol": f32_tol,
+            "gaps_bf16": gaps_bf16, "bf16_rounding_spread": spread,
+            "bf16_tol": bf16_tol, "max_abs_logit": scale}
+
+
+def phase_serve_ssm(torch, mcfg):
+    """Mamba2-370M at full width: supports of 128-token sequences (one
+    chunk), prompts of 200 tokens (padded to 256: two chunks, the
+    inter-chunk recurrence and the dt = 0 padding), 8 new tokens; K1 and
+    K9 launched, K7 and K8 not; then the handoff at full width."""
+    res, errors, launches, ctx, misses = drive_serve(
+        torch, mcfg, sup_len=128, prompt_len=200, new_tokens=8,
+        launched=("inner_update_plane", "ssd_chunk"),
+        idle=("flash_attention", "flash_decode"), plain_route=ssd_torch_route)
+    import numpy as np
+    engine, mk, mp, _ = ctx
+    prompt = mp(np.random.RandomState(3))
+    res["handoff"] = serve_handoff(torch, mcfg, engine, misses[0]["row"],
+                                   prompt, errors)
+    emit({"phase": "serve_ssm", "ok": not errors, **res, "errors": errors})
+    if errors:
+        raise PhaseFailed("; ".join(errors))
+    return launches, ctx
+
+
+def phase_train_ssm(torch, mcfg):
+    """Two packed FOMAML rounds of Mamba2-370M; the SSD on its chunked
+    oracle on the plain route; K1, K2, K3 and K9 (under the gradient:
+    forward by K9, backward by recomputation) launched; round 2
+    traced. First, the same round 1 in float32 on both routes
+    (`plain_route_gap_f32`)."""
+    f32 = plain_route_gap_f32(torch, mcfg, ssd_torch_route)
+    bad = ([] if f32["meta_grad_rel"] <= f32["meta_grad_tol"] else
+           [f"f32 round 1 vs the plain route: {f32}"])
+    return drive_train_lm(
+        torch, mcfg, rounds=2, phase="train_ssm", plain_route=ssd_torch_route,
+        launched=("inner_update_plane", "weighted_aggregate", "adam_flat",
+                  "ssd_chunk"),
+        extra={"plain_route_round1_f32": f32}, extra_errors=bad)
+
+
+def phase_decode_launcher(torch):
+    """`python -m repro_torch.launch.serve --arch mamba2-370m --steps 4`
+    in process: full width, decode_32k's batch of 128 against the fixed
+    SSM state (48 layers × 128 × (3 × 2304 bf16 + 32 × 64 × 128 f32) ≈
+    6.5 GB)."""
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = serve.main(["--arch", "mamba2-370m", "--steps", "4"])
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    errors = []
+    if not res["logits_finite"]:
+        errors.append("non-finite decode logits")
+    if res["logits_shape"] != (128, 50280):
+        errors.append(f"logits shape {res['logits_shape']}")
+    emit({"phase": "decode_launcher", "ok": not errors, **res,
+          "ms_per_step": [t * 1e3 for t in res["step_s"]],
+          "peak_mem_gb": peak_gb, "launches": launches, "errors": errors})
     if errors:
         raise PhaseFailed("; ".join(errors))
     return launches
@@ -1920,8 +2312,14 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    phase = "build"
     t_start = time.perf_counter()
+    starts = {}
+
+    def mark(name):
+        starts[name] = time.perf_counter()
+        return name
+
+    phase = mark("build")
     summaries, paths = {}, {}
     try:
         from repro_torch.configs import get_config
@@ -1931,26 +2329,43 @@ def main(argv=None) -> int:
         torch.backends.cudnn.deterministic = True
         cfg = get_config("smollm-360m")
         phase_build(torch)
-        phase = "kernels"
+        phase = mark("kernels")
         summaries = phase_kernels(torch, cfg)
-        phase = "serve"
+        phase = mark("serve")
         launches, ctx = phase_serve(torch, cfg)
         paths["serve"] = launches
-        phase = "trace"
+        phase = mark("trace")
         phase_trace(torch, *ctx)
         del ctx                     # the engine's cache holds ~20 GB
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "train_femnist"
+        phase = mark("train_femnist")
         paths["train_femnist"] = phase_train_femnist(torch)
-        phase = "train_lm"
+        phase = mark("train_lm")
         paths["train_lm"] = phase_train_lm(torch, cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "train_comm"
+        phase = mark("train_comm")
         paths.update(phase_train_comm(torch, cfg))
-        phase = "train_faults"
+        phase = mark("train_faults")
         paths.update(phase_train_faults(torch, cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mcfg = get_config("mamba2-370m")
+        phase = mark("serve_ssm")
+        launches, ctx = phase_serve_ssm(torch, mcfg)
+        paths["serve_ssm"] = launches
+        phase = mark("trace_ssm")
+        phase_trace(torch, *ctx, name="trace_ssm")
+        del ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("train_ssm")
+        paths["train_ssm"] = phase_train_ssm(torch, mcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("decode_launcher")
+        paths["decode_launcher"] = phase_decode_launcher(torch)
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})
@@ -1958,8 +2373,8 @@ def main(argv=None) -> int:
 
     # `launches`: on the first main path that runs the kernel (serving
     # for K1, K7, K8; FEMNIST training for K2, K3; the int8 upload sweep
-    # for K6; the robustness sweep for K5), each path counted from 0;
-    # every path's count beside it.
+    # for K6; the robustness sweep for K5; the Mamba2 serve for K9), each
+    # path counted from 0; every path's count beside it.
     # K4 is on no path: the reference calls it nowhere.
     kernels = []
     for name, s in summaries.items():
@@ -1977,7 +2392,11 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "case": s["case"]})
-    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+    t_done = time.perf_counter()
+    ends = list(starts.values())[1:] + [t_done]
+    emit({"phase": "done", "wall_s": t_done - t_start,
+          "phase_wall_s": {name: end - t0 for (name, t0), end
+                           in zip(starts.items(), ends)}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

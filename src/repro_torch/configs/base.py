@@ -98,6 +98,7 @@ class ModelConfig:
 
 
 _ARCH_MODULES = {
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "smollm-360m": "repro_torch.configs.smollm_360m",
 }
 

@@ -8,6 +8,7 @@
   K6  meta_update/compress.py          int8_encode_flat (csrc/int8_encode.cu)
   K7  attention/flash_attention.py     flash_attention_bhld (csrc/flash_attention.cu)
   K8  decode_attention/flash_decode.py flash_decode (csrc/flash_decode.cu)
+  K9  ssd/ssd_scan.py                  ssd_intra_chunk (csrc/ssd_chunk.cu)
 
 Each wrapper keeps a module-level ``launches`` count (K4's is
 ``fused.meta_update_launches``, K5's ``aggregate.trimmed_launches``),

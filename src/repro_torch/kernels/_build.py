@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1–K8) at first use.
+"""Build and load the port's CUDA kernels (K1–K9) at first use.
 
 One `torch.utils.cpp_extension.load` call compiles every source under
 ``kernels/csrc/`` for Hopper (``sm_90a``) into ``build/torch_ext/`` at

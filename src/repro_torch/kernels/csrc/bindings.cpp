@@ -3,8 +3,10 @@
 // launchers over raw pointers, so nvcc compiles them in seconds.
 //
 // Each binding checks device, dtype, shape and layout, launches on
-// PyTorch's current stream, and raises through
-// C10_CUDA_KERNEL_LAUNCH_CHECK() if the launch was refused. Outputs are
+// PyTorch's current stream, and raises if the launch was refused: each
+// launcher returns its own cudaGetLastError(), which also clears the
+// error, so the binding checks that code (C10_CUDA_CHECK) before
+// C10_CUDA_KERNEL_LAUNCH_CHECK(). Outputs are
 // allocated by the Python wrappers (`kernels/*/*.py`).
 #include <torch/extension.h>
 #include <c10/cuda/CUDAException.h>
@@ -43,6 +45,10 @@ cudaError_t launch_int8_encode(const float* G, const float* scales, int8_t* q,
 cudaError_t launch_trimmed_mean(int dtype, const void* G, const float* live,
                                 float* out, int m, int trim, long long N,
                                 cudaStream_t stream);
+cudaError_t launch_ssd_chunk(const float* xdt, const float* a, const float* Bm,
+                             const float* Cm, float* y, float* S,
+                             const long long* strides, int B, int nh, int L,
+                             int Q, int N, int hp, cudaStream_t stream);
 
 namespace {
 
@@ -101,9 +107,9 @@ void inner_update(torch::Tensor theta, torch::Tensor out, torch::Tensor alpha,
     a = alpha.data_ptr<float>();
   }
   const at::cuda::CUDAGuard guard(theta.device());
-  launch_inner_update(theta.data_ptr<float>(), out.data_ptr<float>(), a,
-                      static_cast<float>(alpha_s), mode, g.data_ptr<float>(),
-                      C, N, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_inner_update(theta.data_ptr<float>(), out.data_ptr<float>(), a,
+                                     static_cast<float>(alpha_s), mode, g.data_ptr<float>(),
+                                     C, N, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -138,11 +144,11 @@ void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   for (const auto* t : {&q, &k, &v, &o})
     for (int d = 0; d < 4; ++d) st.push_back(t->stride(d));
   const at::cuda::CUDAGuard guard(q.device());
-  launch_flash_attention(dt, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), st.data(), B, H, Kv, Lq, Lk, hd, hdv,
-                         static_cast<float>(scale), causal ? 1 : 0,
-                         static_cast<int>(window), static_cast<int>(q_offset),
-                         at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_flash_attention(dt, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        o.data_ptr(), st.data(), B, H, Kv, Lq, Lk, hd, hdv,
+                                        static_cast<float>(scale), causal ? 1 : 0,
+                                        static_cast<int>(window), static_cast<int>(q_offset),
+                                        at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -189,10 +195,10 @@ void flash_decode(torch::Tensor q, torch::Tensor k_cache,
   }
   TORCH_CHECK(B <= 65535, "B up to 65535");
   const at::cuda::CUDAGuard guard(q.device());
-  launch_flash_decode(dt, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                      kv_length.data_ptr<int>(), o.data_ptr(), st.data(), B, C,
-                      Kv, G, hd, static_cast<float>(scale),
-                      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_flash_decode(dt, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                     kv_length.data_ptr<int>(), o.data_ptr(), st.data(), B, C,
+                                     Kv, G, hd, static_cast<float>(scale),
+                                     at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -223,9 +229,9 @@ void weighted_aggregate(torch::Tensor G, torch::Tensor w, torch::Tensor out) {
   check_aligned16(G, "G");
   check_aligned16(out, "out");
   const at::cuda::CUDAGuard guard(G.device());
-  launch_weighted_aggregate(dt, G.data_ptr(), w.data_ptr<float>(),
-                            out.data_ptr<float>(), static_cast<int>(m), N,
-                            at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_weighted_aggregate(dt, G.data_ptr(), w.data_ptr<float>(),
+                                           out.data_ptr<float>(), static_cast<int>(m), N,
+                                           at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -252,13 +258,13 @@ void adam_flat(torch::Tensor p, torch::Tensor g, torch::Tensor m,
                   scales.is_contiguous(),
               "scales must be contiguous (2,) float32");
   const at::cuda::CUDAGuard guard(p.device());
-  launch_adam_flat(m.scalar_type() == torch::kFloat ? 0 : 1,
-                   p.data_ptr<float>(), g.data_ptr<float>(), m.data_ptr(),
-                   v.data_ptr(), scales.data_ptr<float>(), N,
-                   static_cast<float>(lr), static_cast<float>(b1),
-                   static_cast<float>(c1), static_cast<float>(b2),
-                   static_cast<float>(c2), static_cast<float>(eps),
-                   static_cast<float>(wd), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_adam_flat(m.scalar_type() == torch::kFloat ? 0 : 1,
+                                  p.data_ptr<float>(), g.data_ptr<float>(), m.data_ptr(),
+                                  v.data_ptr(), scales.data_ptr<float>(), N,
+                                  static_cast<float>(lr), static_cast<float>(b1),
+                                  static_cast<float>(c1), static_cast<float>(b2),
+                                  static_cast<float>(c2), static_cast<float>(eps),
+                                  static_cast<float>(wd), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -287,10 +293,10 @@ void int8_encode(torch::Tensor G, torch::Tensor scales, torch::Tensor q,
   TORCH_CHECK(reinterpret_cast<uintptr_t>(q.data_ptr()) % 4 == 0,
               "q must be 4-byte aligned");
   const at::cuda::CUDAGuard guard(G.device());
-  launch_int8_encode(G.data_ptr<float>(), scales.data_ptr<float>(),
-                     reinterpret_cast<int8_t*>(q.data_ptr()),
-                     resid.data_ptr<float>(), static_cast<int>(m), N,
-                     at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_int8_encode(G.data_ptr<float>(), scales.data_ptr<float>(),
+                                    reinterpret_cast<int8_t*>(q.data_ptr()),
+                                    resid.data_ptr<float>(), static_cast<int>(m), N,
+                                    at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -315,10 +321,54 @@ void trimmed_mean(torch::Tensor G, torch::Tensor live, torch::Tensor out,
   check_aligned16(G, "G");
   check_aligned16(out, "out");
   const at::cuda::CUDAGuard guard(G.device());
-  launch_trimmed_mean(dt, G.data_ptr(), live.data_ptr<float>(),
-                      out.data_ptr<float>(), static_cast<int>(m),
-                      static_cast<int>(trim), N,
-                      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_CHECK(launch_trimmed_mean(dt, G.data_ptr(), live.data_ptr<float>(),
+                                     out.data_ptr<float>(), static_cast<int>(m),
+                                     static_cast<int>(trim), N,
+                                     at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// xdt, y: (B, nh, L, hp); a: (B, nh, L); Bm, Cm: (B, L, N); all float32,
+// any strides. S: contiguous (B, nh, L / chunk, N, hp) float32.
+void ssd_chunk(torch::Tensor xdt, torch::Tensor a, torch::Tensor Bm,
+               torch::Tensor Cm, torch::Tensor y, torch::Tensor S,
+               int64_t chunk) {
+  for (const auto* t : {&xdt, &a, &Bm, &Cm, &y, &S}) {
+    check_cuda(*t, "ssd_chunk operand");
+    TORCH_CHECK(t->scalar_type() == torch::kFloat,
+                "ssd_chunk operands must be float32, got ", t->scalar_type());
+  }
+  TORCH_CHECK(xdt.dim() == 4 && a.dim() == 3 && Bm.dim() == 3 &&
+                  Cm.dim() == 3 && y.dim() == 4 && S.dim() == 5,
+              "xdt, y (B, nh, L, hp); a (B, nh, L); Bm, Cm (B, L, N); S 5-D");
+  const long long B = xdt.size(0), nh = xdt.size(1), L = xdt.size(2),
+                  hp = xdt.size(3), N = Bm.size(2);
+  TORCH_CHECK(chunk >= 1 && chunk <= 128, "chunk must be in [1, 128], got ",
+              chunk);
+  TORCH_CHECK(N >= 1 && N <= 128 && hp >= 1 && hp <= 128,
+              "state N and head dim hp must be in [1, 128], got ", N, " and ",
+              hp);
+  TORCH_CHECK(L % chunk == 0, "L (", L, ") must be a multiple of chunk (",
+              chunk, ")");
+  TORCH_CHECK(a.size(0) == B && a.size(1) == nh && a.size(2) == L,
+              "a must be (B, nh, L)");
+  TORCH_CHECK(Bm.size(0) == B && Bm.size(1) == L && Cm.sizes() == Bm.sizes(),
+              "Bm and Cm must be (B, L, N)");
+  TORCH_CHECK(y.sizes() == xdt.sizes(), "y must be (B, nh, L, hp)");
+  TORCH_CHECK(S.is_contiguous() && S.size(0) == B && S.size(1) == nh &&
+                  S.size(2) == L / chunk && S.size(3) == N && S.size(4) == hp,
+              "S must be contiguous (B, nh, L / chunk, N, hp)");
+  TORCH_CHECK(B <= 65535 && nh <= 65535, "B and nh up to 65535");
+  std::vector<long long> st;
+  for (const auto* t : {&xdt, &a, &Bm, &Cm, &y})
+    for (int d = 0; d < t->dim(); ++d) st.push_back(t->stride(d));
+  const at::cuda::CUDAGuard guard(xdt.device());
+  C10_CUDA_CHECK(launch_ssd_chunk(
+      xdt.data_ptr<float>(), a.data_ptr<float>(), Bm.data_ptr<float>(),
+      Cm.data_ptr<float>(), y.data_ptr<float>(), S.data_ptr<float>(),
+      st.data(), static_cast<int>(B), static_cast<int>(nh),
+      static_cast<int>(L), static_cast<int>(chunk), static_cast<int>(N),
+      static_cast<int>(hp), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -335,4 +385,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K6: int8 quantization with the residual in one pass");
   m.def("trimmed_mean", &trimmed_mean,
         "K5: coordinate-wise trimmed mean over the live rows");
+  m.def("ssd_chunk", &ssd_chunk,
+        "K9: Mamba2 SSD intra-chunk outputs and chunk states");
 }

@@ -1,0 +1,93 @@
+"""Dispatcher for the Mamba2 SSD scan: the K9 intra-chunk kernel plus the
+inter-chunk recurrence in PyTorch, with the chunked oracle as the plain
+route. Counterpart of `repro/kernels/ssd/ops.py`.
+
+impl:
+  "cuda"  — K9 for CUDA tensors, its plain version for CPU tensors
+            (default); the reference's "pallas" route
+  "torch" — `ref.ssd_chunked_ref` everywhere; the reference's "xla"
+            route
+per call, or scoped with `use_impl`.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.kernels.ssd import ref
+from repro_torch.kernels.ssd.ssd_scan import ssd_intra_chunk
+
+_IMPLS = ("torch", "cuda")
+_DEFAULT_IMPL = "cuda"
+
+
+@contextlib.contextmanager
+def use_impl(impl: str):
+    """Scoped default-impl override (restores on exit)."""
+    global _DEFAULT_IMPL
+    assert impl in _IMPLS, impl
+    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
+    try:
+        yield
+    finally:
+        _DEFAULT_IMPL = prev
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
+                return_final_state: bool = False):
+    """SSD over (B, L, nh, hp) inputs; see `ref.py` for shapes.
+
+    With return_final_state, also returns the (B, nh, hp, N) state after
+    the last token (for prefill -> decode handoff)."""
+    impl = impl or _DEFAULT_IMPL
+    assert impl in _IMPLS, impl
+    if impl == "torch":
+        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk,
+                                   return_final_state=return_final_state)
+
+    B, L, nh, hp = x.shape
+    N = Bm.shape[-1]
+    nc = L // chunk
+    dtf = dt.float()
+    a = dtf * A.float()[None, None, :]                        # (B,L,nh)
+    xdt = x.float() * dtf[..., None]                          # (B,L,nh,hp)
+    Cf = Cm.float()
+
+    # the kernel's layout, (B, nh, L, ·), as views
+    a_t = a.transpose(1, 2)                                   # (B,nh,L)
+    y_intra, S = ssd_intra_chunk(xdt.transpose(1, 2), a_t, Bm.float(), Cf,
+                                 chunk=chunk)                 # S (B,nh,nc,N,hp)
+
+    # inter-chunk recurrence: a tiny state, O(nc) steps
+    cum = torch.cumsum(a_t.reshape(B, nh, nc, chunk), dim=-1)
+    chunk_decay = torch.exp(cum[..., -1])                     # (B,nh,nc)
+    S_prev = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=x.device)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S_prev)                                   # entering c
+        S_prev = S[:, :, c] + S_prev * chunk_decay[:, :, c, None, None]
+    S_in = torch.stack(S_in, 2)                               # (B,nh,nc,N,hp)
+
+    # inter-chunk output: y_inter[i] = exp(cum_i) C_i . S_in
+    y_inter = torch.einsum("bcin,bhcnp,bhci->bhcip",
+                           Cf.reshape(B, nc, chunk, N), S_in, torch.exp(cum))
+    y = y_intra.reshape(B, nh, nc, chunk, hp) + y_inter
+    y = y.reshape(B, nh, L, hp).transpose(1, 2).to(x.dtype)
+    if return_final_state:
+        return y, S_prev.transpose(-1, -2)                    # (B,nh,hp,N)
+    return y
+
+
+def ssd_decode_step(state, x, dt, A, Bm, Cm):
+    """Single-token recurrent update (plain PyTorch: the reference has no
+    kernel for it).
+
+    state: (B, nh, hp, N); x: (B, nh, hp); dt: (B, nh); Bm/Cm: (B, N).
+    Returns (y (B, nh, hp), new_state)."""
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float()[None])
+    state = (state * decay[..., None, None]
+             + torch.einsum("bh,bn,bhp->bhpn", dtf, Bm.float(), x.float()))
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
+    return y.to(x.dtype), state

@@ -2,12 +2,19 @@
 into `federated.serving.ServingEngine`, and a decode-steps CLI.
 Counterpart of `repro/launch/serve.py`.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --reduced --steps 4
 
-The CLI runs on one device with no mesh; the decode_32k shape at full
-width needs more memory than one card holds, so it runs only with
-`--reduced` today. Multi-device serving joins with the sharding slice.
+The CLI runs on one device with no mesh. The decode cache of an
+attention model is a KV ring of the shape's whole sequence: at
+decode_32k (batch 128, 32,768 tokens) SmolLM-360M's is about 171 GB, more
+than one card holds, so it runs only with `--reduced`. Mamba2-370M's
+decode cache is a fixed-size state per layer (a conv window of
+conv_width - 1 inputs and the (nh, hp, N) SSM state), about 6.5 GB at
+decode_32k, so it runs at full width on one card. Multi-device serving
+joins with the sharding slice.
 """
 from __future__ import annotations
 
@@ -84,6 +91,7 @@ def main(argv=None):
     cache = init_decode_cache(cfg, batch, seq, device=args.device)
     cache["length"] = min(64, seq)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=args.device)
+    step_s, finite = [], True
     with torch.no_grad():
         for it in range(args.steps):
             t0 = time.perf_counter()
@@ -91,8 +99,13 @@ def main(argv=None):
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             if tok.is_cuda:
                 torch.cuda.synchronize()
-            print(f"decode step {it}: {time.perf_counter() - t0:.4f}s  "
+            step_s.append(time.perf_counter() - t0)
+            finite = finite and bool(torch.isfinite(logits).all())
+            print(f"decode step {it}: {step_s[-1]:.4f}s  "
                   f"logits {tuple(logits.shape)}", flush=True)
+    return {"arch": cfg.name, "batch": batch, "seq_len": seq,
+            "logits_shape": tuple(logits.shape), "logits_finite": finite,
+            "step_s": step_s}
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Decoder blocks. Counterpart of `repro/models/blocks.py` for the dense
-("attn", "mlp") spec — the one SmolLM-360M runs. MoE, SSM, MLA and
-cross-attention blocks raise until their slices land.
+("attn", "mlp") spec that SmolLM-360M runs and the ("mamba", "none")
+spec that Mamba2-370M runs. MoE, MLA and cross-attention blocks raise
+until their slices land.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import Rng, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 
@@ -23,19 +25,20 @@ def layer_spec(cfg, i: int):
 
 def _check(cfg, spec):
     kind, ffn = spec
-    if kind != "attn":
-        attn._unported(f"the {kind!r} mixer", "mamba2 / jamba")
+    if kind not in ("attn", "mamba"):
+        raise ValueError(kind)
     if ffn == "moe":
-        attn._unported("MoE", "mixtral / deepseek-v2")
-    if cfg.attention != "gqa":
+        attn._unported("MoE", "mixtral / deepseek-v2 / jamba")
+    if kind == "attn" and cfg.attention != "gqa":
         attn._unported(f"{cfg.attention!r} attention", "deepseek-v2")
 
 
 def block_init(rng: Rng, cfg, spec, dtype, *, cross: bool = False):
     _check(cfg, spec)
-    _, ffn = spec
+    kind, ffn = spec
     p = {"norm1": rmsnorm_init(cfg.d_model, dtype, rng.device),
-         "mixer": attn.gqa_init(rng, cfg, dtype, cross=False)}
+         "mixer": (attn.gqa_init(rng, cfg, dtype, cross=False)
+                   if kind == "attn" else ssm.mamba_init(rng, cfg, dtype))}
     if cross:
         attn._unported("cross-attention", "encoder-decoder (seamless-m4t)")
     if ffn != "none":
@@ -56,9 +59,12 @@ def block_forward(params, cfg, spec, x, positions, *, causal: bool = True):
     _check(cfg, spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(params["mixer"], cfg, h, positions,
+    if spec[0] == "attn":
+        y = attn.gqa_forward(params["mixer"], cfg, h, positions,
                              causal=causal, window=cfg.sliding_window)
-    return _ffn(params, cfg, spec, x), aux
+    else:
+        y = ssm.mamba_forward(params["mixer"], cfg, h)
+    return _ffn(params, cfg, spec, x + y), aux
 
 
 def _ring_place(full, capacity: int):
@@ -79,11 +85,15 @@ def block_prefill(params, cfg, spec, x, positions, capacity: int):
     _check(cfg, spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    cap = (min(capacity, cfg.sliding_window) if cfg.sliding_window
-           else capacity)
-    y, (k, v) = attn.gqa_forward(params["mixer"], cfg, h, positions,
-                                 window=cfg.sliding_window, return_kv=True)
-    cache = {"k": _ring_place(k, cap), "v": _ring_place(v, cap)}
+    if spec[0] == "attn":
+        cap = (min(capacity, cfg.sliding_window) if cfg.sliding_window
+               else capacity)
+        y, (k, v) = attn.gqa_forward(params["mixer"], cfg, h, positions,
+                                     window=cfg.sliding_window, return_kv=True)
+        cache = {"k": _ring_place(k, cap), "v": _ring_place(v, cap)}
+    else:
+        y, cache = ssm.mamba_forward(params["mixer"], cfg, h,
+                                     return_cache=True)
     x = x + y
     return _ffn(params, cfg, spec, x), aux, cache
 
@@ -91,16 +101,22 @@ def block_prefill(params, cfg, spec, x, positions, capacity: int):
 def block_init_cache(cfg, spec, batch: int, capacity: int, dtype,
                      device="cuda"):
     _check(cfg, spec)
+    if spec[0] == "mamba":
+        return ssm.mamba_init_cache(cfg, batch, dtype, device)
     cap = min(capacity, cfg.sliding_window) if cfg.sliding_window else capacity
     return attn.gqa_init_cache(cfg, batch, cap, dtype, device)
 
 
 def block_decode(params, cfg, spec, x, cache, length: int):
     """One-token decode. x: (B, 1, d). Returns (y, cache) — the cache's
-    tensors are updated in place."""
+    tensors (the KV ring, or the conv window and SSM state) are updated
+    in place."""
     _check(cfg, spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    y, cache = attn.gqa_decode(params["mixer"], cfg, h, cache, length,
-                               window=cfg.sliding_window)
+    if spec[0] == "attn":
+        y, cache = attn.gqa_decode(params["mixer"], cfg, h, cache, length,
+                                   window=cfg.sliding_window)
+    else:
+        y, cache = ssm.mamba_decode(params["mixer"], cfg, h, cache)
     x = x + y
     return _ffn(params, cfg, spec, x), cache

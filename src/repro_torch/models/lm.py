@@ -1,5 +1,6 @@
 """Causal LM assembly: embeddings -> layer stack -> final norm -> logits.
-Counterpart of `repro/models/lm.py` for dense decoder-only archs.
+Counterpart of `repro/models/lm.py` for decoder-only archs whose blocks
+are dense attention (SmolLM-360M) or Mamba2 (Mamba2-370M).
 
 The parameter tree is the reference's: the repeating layer period is
 stored stacked, ``stack/pos{j}`` leaves with a leading ``n_reps`` axis,
@@ -11,7 +12,9 @@ Entry points:
   init_lm            parameter init
   lm_apply           training / prefill forward (optionally emits cache)
   init_decode_cache  decode cache
-  lm_decode_step     one-token decode against the cache (in place)
+  lm_decode_step     one-token decode against the cache (in place: the
+                     KV ring, or each Mamba2 layer's conv window and
+                     SSM state)
 """
 from __future__ import annotations
 

@@ -1,0 +1,239 @@
+"""Port parity: the Mamba2 SSD scan (`repro_torch/kernels/ssd`) against
+the JAX package's, on the same seeded numpy inputs, on the CPU.
+
+- K9's plain version `ssd_intra_chunk_plain` against the reference's
+  Pallas kernel in interpret mode: rtol 1e-5 and an atol of 1e-5 of the
+  largest |output| (both sum the same f32 products, in other orders).
+- `ssd_chunked` on both port routes against the reference's
+  "pallas_interpret" and "xla" routes and the sequential recurrence, at
+  the reference's own 1e-4 (`tests/test_kernels_ssd.py:33-36`).
+- An input whose above-diagonal decay overflows: the reference's
+  chunked oracle (a product with a 0/1 mask) gives NaN there, its kernel
+  and the port's plain version (a select) stay finite and agree.
+
+The kernel itself runs only on the card; here the wrapper takes its
+plain version because the tensors lie on the CPU, and the
+`autograd.Function` around the kernel is driven with a stand-in launch
+that runs the plain version."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd import ops as jax_ops
+from repro.kernels.ssd.ref import ssd_chunked_ref as jax_chunked_ref
+from repro.kernels.ssd.ref import ssd_sequential as jax_sequential
+from repro.kernels.ssd.ssd_scan import ssd_intra_chunk_pallas
+from repro_torch.kernels.ssd import ops, ref, ssd_scan
+
+SEQ = dict(rtol=1e-4, atol=1e-4)
+
+# (B, L, nh, hp, N, chunk): the reference's own cases, then an odd chunk
+# (Q = 37) and Q = 1
+SHAPES = [(1, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16), (1, 128, 4, 16, 32, 64),
+          (2, 64, 1, 4, 8, 64), (2, 74, 2, 8, 16, 37), (1, 5, 2, 4, 8, 1)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _mk(seed, B, L, nh, hp, N, dt_scale=1.0):
+    """The reference test's inputs (`test_kernels_ssd.py:11-18`)."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, (B, L, nh, hp)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.normal(-1, 0.5, (B, L, nh)))) * dt_scale
+          ).astype(np.float32)
+    A = (-np.exp(rng.normal(0, 0.3, (nh,)))).astype(np.float32)
+    Bm = rng.normal(0, 1, (B, L, N)).astype(np.float32)
+    Cm = rng.normal(0, 1, (B, L, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _kernel_inputs(x, dt, A, Bm, Cm):
+    """The kernel's operands as the reference's "pallas" route forms them
+    (`ops.py:40-49`): xdt (B, nh, L, hp), a (B, nh, L)."""
+    xdt = np.moveaxis(x * dt[..., None], 2, 1)
+    a = np.moveaxis(dt * A[None, None, :], 2, 1)
+    return xdt, a, Bm, Cm
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _hold_rel(got, want, rtol=1e-5):
+    """rtol and an atol of rtol times the largest |want|."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("B,L,nh,hp,N,chunk", SHAPES)
+def test_intra_chunk_plain_matches_pallas_interpret(B, L, nh, hp, N, chunk):
+    xdt, a, Bm, Cm = _kernel_inputs(*_mk(0, B, L, nh, hp, N))
+    jy, jS = ssd_intra_chunk_pallas(jnp.asarray(xdt), jnp.asarray(a[..., None]),
+                                    jnp.asarray(Bm), jnp.asarray(Cm),
+                                    chunk=chunk, interpret=True)
+    ty, tS = ref.ssd_intra_chunk_plain(*_t(xdt, a, Bm, Cm), chunk=chunk)
+    assert ty.shape == (B, nh, L, hp) and ty.dtype == torch.float32
+    assert tS.shape == (B, nh, L // chunk, N, hp) and tS.dtype == torch.float32
+    _hold_rel(ty.numpy(), jy)
+    _hold_rel(tS.numpy(), jS)
+    # the wrapper takes the plain version for CPU tensors, and the
+    # kernel's transposed-view layout gives the same numbers
+    y2, S2 = ssd_scan.ssd_intra_chunk(
+        torch.from_numpy(np.ascontiguousarray(np.moveaxis(xdt, 1, 2))
+                         ).transpose(1, 2),
+        torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, 1, 2))
+                         ).transpose(1, 2),
+        *_t(Bm, Cm), chunk=chunk)
+    assert torch.equal(y2, ty) and torch.equal(S2, tS)
+
+
+@pytest.mark.parametrize("B,L,nh,hp,N,chunk", SHAPES)
+def test_chunked_routes_match_reference_and_sequential(B, L, nh, hp, N, chunk):
+    x, dt, A, Bm, Cm = _mk(1, B, L, nh, hp, N)
+    jx = [jnp.asarray(v) for v in (x, dt, A, Bm, Cm)]
+    exact = np.asarray(jax_sequential(*jx))
+    j_pallas = np.asarray(jax_ops.ssd_chunked(*jx, chunk=chunk,
+                                              impl="pallas_interpret"))
+    j_xla = np.asarray(jax_ops.ssd_chunked(*jx, chunk=chunk, impl="xla"))
+    tx = _t(x, dt, A, Bm, Cm)
+    t_seq = ref.ssd_sequential(*tx).numpy()
+    np.testing.assert_allclose(t_seq, exact, **SEQ)
+    for impl, jy in (("cuda", j_pallas), ("torch", j_xla)):
+        ty = ops.ssd_chunked(*tx, chunk=chunk, impl=impl)
+        assert ty.shape == (B, L, nh, hp)
+        np.testing.assert_allclose(ty.numpy(), jy, **SEQ)
+        np.testing.assert_allclose(ty.numpy(), exact, **SEQ)
+    # the scoped default reaches the dispatcher
+    with ops.use_impl("torch"):
+        assert torch.equal(ops.ssd_chunked(*tx, chunk=chunk),
+                           ops.ssd_chunked(*tx, chunk=chunk, impl="torch"))
+
+
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_final_state_continues_into_decode_steps(impl):
+    """Prefill's final state continues exactly into decode steps
+    (`test_kernels_ssd.py:39-51`), against both packages' recurrence."""
+    B, L, nh, hp, N, chunk = 1, 32, 2, 4, 8, 8
+    x, dt, A, Bm, Cm = _mk(2, B, L + 4, nh, hp, N)
+    tx, tdt, tA, tB, tC = _t(x, dt, A, Bm, Cm)
+    y_pre, state = ops.ssd_chunked(tx[:, :L], tdt[:, :L], tA, tB[:, :L],
+                                   tC[:, :L], chunk=chunk, impl=impl,
+                                   return_final_state=True)
+    assert state.shape == (B, nh, hp, N) and state.dtype == torch.float32
+    _, jstate = jax_ops.ssd_chunked(
+        *(jnp.asarray(v) for v in (x[:, :L], dt[:, :L], A, Bm[:, :L],
+                                   Cm[:, :L])),
+        chunk=chunk, impl="pallas_interpret" if impl == "cuda" else "xla",
+        return_final_state=True)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), **SEQ)
+    y_ref = np.asarray(jax_sequential(*(jnp.asarray(v)
+                                        for v in (x, dt, A, Bm, Cm))))
+    np.testing.assert_allclose(y_pre.numpy(), y_ref[:, :L], **SEQ)
+    for t in range(L, L + 4):
+        y_t, state = ops.ssd_decode_step(state, tx[:, t], tdt[:, t], tA,
+                                         tB[:, t], tC[:, t])
+        np.testing.assert_allclose(y_t.numpy(), y_ref[:, t], **SEQ)
+
+
+def test_decode_step_matches_reference():
+    rng = np.random.RandomState(3)
+    B, nh, hp, N = 2, 3, 4, 8
+    state = rng.normal(0, 1, (B, nh, hp, N)).astype(np.float32)
+    x = rng.normal(0, 1, (B, nh, hp)).astype(np.float32)
+    dt = rng.rand(B, nh).astype(np.float32)
+    A = -rng.rand(nh).astype(np.float32)
+    Bm, Cm = (rng.normal(0, 1, (B, N)).astype(np.float32) for _ in range(2))
+    jy, js = jax_ops.ssd_decode_step(*(jnp.asarray(v)
+                                       for v in (state, x, dt, A, Bm, Cm)))
+    ty, ts = ops.ssd_decode_step(*_t(state, x, dt, A, Bm, Cm))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _overflow_inputs():
+    """dt·|A| near 10 per step: within a chunk of 16, cum_j − cum_i
+    above the diagonal reaches ~140 > 88.7, where f32 exp overflows."""
+    return _mk(4, 1, 32, 2, 8, 16, dt_scale=30.0)
+
+
+def test_overflow_above_diagonal_is_nan_in_the_oracle_only():
+    x, dt, A, Bm, Cm = _overflow_inputs()
+    chunk = 16
+    assert float((dt * -A[None, None]).sum(1).min()) > 88.7
+    jx = [jnp.asarray(v) for v in (x, dt, A, Bm, Cm)]
+    # the reference: its jnp oracle multiplies inf by 0, its kernel selects
+    j_xla = np.asarray(jax_chunked_ref(*jx, chunk))
+    assert np.isnan(j_xla).any()
+    j_pallas = np.asarray(jax_ops.ssd_chunked(*jx, chunk=chunk,
+                                              impl="pallas_interpret"))
+    assert np.isfinite(j_pallas).all()
+    # the port reproduces each route as it is
+    tx = _t(x, dt, A, Bm, Cm)
+    assert torch.isnan(ops.ssd_chunked(*tx, chunk=chunk, impl="torch")).any()
+    t_cuda = ops.ssd_chunked(*tx, chunk=chunk, impl="cuda")
+    assert torch.isfinite(t_cuda).all()
+    _hold_rel(t_cuda.numpy(), j_pallas)
+    np.testing.assert_allclose(t_cuda.numpy(),
+                               np.asarray(jax_sequential(*jx)), **SEQ)
+    # K9's plain version against the reference's interpret kernel
+    xdt, a, _, _ = _kernel_inputs(x, dt, A, Bm, Cm)
+    jy, jS = ssd_intra_chunk_pallas(jnp.asarray(xdt), jnp.asarray(a[..., None]),
+                                    jnp.asarray(Bm), jnp.asarray(Cm),
+                                    chunk=chunk, interpret=True)
+    ty, tS = ref.ssd_intra_chunk_plain(*_t(xdt, a, Bm, Cm), chunk=chunk)
+    assert torch.isfinite(ty).all() and torch.isfinite(tS).all()
+    _hold_rel(ty.numpy(), jy)
+    _hold_rel(tS.numpy(), jS)
+
+
+def test_plain_version_gradient_is_finite_under_overflow():
+    """The exponent is masked to −inf before the exp, so autograd never
+    forms 0 · inf above the diagonal: every gradient is finite."""
+    xdt, a, Bm, Cm = (t.requires_grad_(True) for t in _t(
+        *_kernel_inputs(*_overflow_inputs())))
+    y, S = ref.ssd_intra_chunk_plain(xdt, a, Bm, Cm, chunk=16)
+    (y.sum() + S.square().sum()).backward()
+    for t in (xdt, a, Bm, Cm):
+        assert torch.isfinite(t.grad).all()
+
+
+@pytest.mark.parametrize("needs", [(True, True, True, True),
+                                   (True, False, False, True)])
+def test_autograd_function_backward_recomputes_plain(monkeypatch, needs):
+    """The kernel's `autograd.Function`, with a stand-in launch (the plain
+    version, counted): its forward is the launch and its gradients equal
+    autograd through the plain version, for the inputs that need them."""
+    calls = []
+
+    def fake_launch(xdt, a, Bm, Cm, chunk):
+        calls.append(chunk)
+        return ref.ssd_intra_chunk_plain(xdt, a, Bm, Cm, chunk=chunk)
+
+    monkeypatch.setattr(ssd_scan, "_launch", fake_launch)
+    ins = _t(*_kernel_inputs(*_mk(5, 2, 32, 3, 8, 16)))
+    rng = np.random.RandomState(6)
+    gy = torch.from_numpy(rng.normal(0, 1, (2, 3, 32, 8)).astype(np.float32))
+    gS = torch.from_numpy(rng.normal(0, 1, (2, 3, 2, 16, 8)).astype(np.float32))
+    a1 = [t.clone().requires_grad_(n) for t, n in zip(ins, needs)]
+    y, S = ssd_scan._SsdIntraChunk.apply(*a1, 16)
+    torch.autograd.backward((y, S), (gy, gS))
+    assert calls == [16]
+    a2 = [t.clone().requires_grad_(n) for t, n in zip(ins, needs)]
+    y2, S2 = ref.ssd_intra_chunk_plain(*a2, chunk=16)
+    torch.autograd.backward((y2, S2), (gy, gS))
+    assert torch.equal(y.detach(), y2.detach())
+    for t1, t2, n in zip(a1, a2, needs):
+        if n:
+            assert torch.equal(t1.grad, t2.grad)
+        else:
+            assert t1.grad is None
