@@ -16,15 +16,22 @@ Phases, each printing one JSON line:
            folded weights w·s; K5 in f32 and bf16 with a NaN row made
            dead, on the FEMNIST block with adversarial rows and ties, on
            the degenerate rounds with their NaN and ±inf in place, and
-           at m > 16), K7 and K8 within a stated bf16 tolerance, K9
-           and its plain version each within a bound derived from f32
-           accumulation against a float64 evaluation (Mamba2-370M's
-           prefill and adaptation shapes, an odd chunk, and an input
-           whose above-diagonal decay overflows, where the chunked
-           oracle gives NaN and K9 stays finite). Times kernel, plain
-           version and one PyTorch library call (a yardstick the port
-           never calls) with CUDA events: median of 20 runs after
-           warm-up.
+           at m > 16), K7 and K8 within a stated bf16 tolerance (K7
+           also at the LM round's shape, and ragged kv_length on the
+           card: the oracle, bitwise equal to impl="torch", no K7
+           launch), K9 and its plain version each within a bound
+           derived from f32 accumulation against a float64 evaluation
+           (Mamba2-370M's prefill, adaptation, round and served-prefill
+           shapes, an odd chunk, and an input whose above-diagonal
+           decay overflows, where the chunked oracle gives NaN and K9
+           stays finite). Times kernel, plain version and one PyTorch
+           library call (a yardstick the port never calls) two ways:
+           `call_ms`, CUDA events around one call (median of 20 after
+           warm-up; the host's wrapper time is inside the window), and
+           `device_ms` / `library_device_ms`, the device activity alone
+           under torch.profiler with the L2 evicted before each call
+           (median of 4 blocks of 50 calls, kernel and yardstick in
+           turns).
   serve    drives the port's serving path at full SmolLM-360M width —
            `build_engine` + `ServingEngine.serve` over 16 seeded
            requests (adapt -> prefill -> decode) — with every kernel's
@@ -32,7 +39,8 @@ Phases, each printing one JSON line:
            finite output, cache hits, a served row bitwise equal to a
            solo `adapt_packed`, and the distance to the all-plain route.
   trace    torch.profiler over a further adaptation and decode: device
-           busy share and device time by kernel group.
+           busy share, device time by kernel group, and each kernel's
+           launches in the span beside its group (device µs a launch).
   train    the FedMeta training round. FEMNIST through the entry point:
            `FederatedTrainer(packed=True, client_plane=True)` runs 20
            FOMAML rounds of 4 clients with evals, then again with
@@ -110,6 +118,9 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA-core f32; dense bf16
+L2_FLUSH_BYTES = 256 << 20       # five times the H100's 50 MB L2
+L2_FLUSH_KERNEL = "bitwise_not"  # the flush's kernel, by name
+_L2_FLUSH = []
 REPLACES = {
     "inner_update_plane": "src/repro/kernels/meta_update/fused.py:115 "
                           "(_inner_plane_scalar_call), "
@@ -171,6 +182,79 @@ def time_ms(fn, torch, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def l2_flush_buffer(torch):
+    """The buffer `device_ms` rewrites before each timed call, made once."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                     device="cuda"))
+    return _L2_FLUSH[0]
+
+
+def per_call_us(prof) -> list:
+    """Each call's device µs from a `device_ms` trace: the device events
+    after one L2 flush, up to the next, summed. The profiler can drop
+    events, which merges two calls or shortens one, so only the calls
+    with the most common number of events are kept."""
+    events = sorted((evt.time_range.start, evt.time_range.elapsed_us(),
+                     L2_FLUSH_KERNEL in evt.name) for evt in prof.events()
+                    if str(evt.device_type).endswith("CUDA"))
+    calls = []                      # [events, µs] a call
+    for _, us, is_flush in events:
+        if is_flush:
+            calls.append([0, 0.0])
+        elif calls:
+            calls[-1][0] += 1
+            calls[-1][1] += us
+    counts = [n for n, _ in calls if n > 0]
+    if not counts:
+        return []
+    n = statistics.mode(counts)
+    return [us for k, us in calls if k == n]
+
+
+def device_ms(fn, torch, calls: int = 50, tries: int = 3) -> float:
+    """Device time of one call of fn, from HBM: under torch.profiler
+    recording the device only (as `_traced` does), the summed durations
+    of the device activity (kernels, copies, fills) that a call launches,
+    the median over `calls` calls. Host time is not in it. Before each
+    call an in-place `bitwise_not_` over 256 MB evicts the 50 MB L2, so
+    every call reads its operands from HBM, as `bound_ms` assumes; that
+    kernel is left out by name and marks where a call starts
+    (`per_call_us`). A block in which the profiler kept fewer than half
+    the calls whole is traced again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = l2_flush_buffer(torch)
+    kept = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        kept = per_call_us(prof)
+        if len(kept) >= calls // 2:
+            return statistics.median(kept) / 1e3
+    raise PhaseFailed(f"device_ms: {len(kept)} of {calls} calls traced "
+                      f"whole in {tries} tries")
+
+
+def device_times(torch, kernel, library=None, blocks: int = 4,
+                 calls: int = 50) -> dict:
+    """`device_ms` of the kernel and of its yardstick library call, each
+    the median of `blocks` blocks of `calls` calls, timed in turns in
+    this process on this card: kernel, library, library, kernel, ...
+    Without a yardstick, `library_device_ms` is None."""
+    runs = {"device_ms": [], "library_device_ms": []}
+    for i in range(blocks):
+        turn = [("device_ms", kernel), ("library_device_ms", library)]
+        for key, fn in (turn if i % 2 == 0 else turn[::-1]):
+            if fn is not None:
+                runs[key].append(device_ms(fn, torch, calls))
+    return {key: statistics.median(v) if v else None
+            for key, v in runs.items()}
 
 
 def library_time_ms(fn, torch):
@@ -251,19 +335,22 @@ def check_k1(torch, n_plane: int):
         err = float((out - plain).abs().max())
         del out, plain
         work = theta.clone()
-        ms = time_ms(lambda: fused.inner_update_plane(work, alpha, g), torch)
-        del work
+        kernel = lambda: fused.inner_update_plane(work, alpha, g)
+        library = lambda: torch.addcmul(theta, alpha_lib, g, value=-1.0)
+        ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: ref.inner_update_plane_ref(theta, alpha, g),
                            torch)
-        lib_ms = time_ms(lambda: torch.addcmul(theta, alpha_lib, g, value=-1.0),
-                         torch)
+        lib_ms = time_ms(library, torch)
+        dev = device_times(torch, kernel, library)
+        del work, kernel
         moved = nbytes(theta, g, theta) + (
             nbytes(alpha) if isinstance(alpha, torch.Tensor) else 0)
         b_ms, b_by = bound_ms(moved, 2.0 * C * N, "float32")
         row = {"name": "inner_update_plane", "case": f"C={C} N={N} alpha={mode}",
                "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "library": "torch.addcmul", "bound_ms": b_ms, "bound_by": b_by}
+               "call_ms": ms, **dev, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library": "torch.addcmul",
+               "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         if mode == "scalar":
             summary = row
@@ -300,15 +387,19 @@ def check_k2(torch, n_plane: int):
         bitwise = bool(torch.equal(out, plain))
         err = float((out - plain).abs().max())
         del out, plain
-        ms = time_ms(lambda: aggregate.weighted_aggregate_flat(G, w), torch)
+        kernel = lambda: aggregate.weighted_aggregate_flat(G, w)
+        library = None if dt == "int8" else (
+            lambda: torch.mv(G.t(), w.to(G.dtype)))
+        ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: aggregate.weighted_aggregate_ref(G, w),
                            torch)
-        lib_ms = (None if dt == "int8" else library_time_ms(
-            lambda: torch.mv(G.t(), w.to(G.dtype)), torch))
+        lib_ms = None if library is None else library_time_ms(library, torch)
+        dev = device_times(torch, kernel, library if lib_ms else None)
         b_ms, b_by = bound_ms(nbytes(G, w) + 4 * N, 2.0 * m * N, "float32")
         row = {"name": "weighted_aggregate", "case": f"m={m} N={N} {dt}",
                "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "call_ms": ms, **dev, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
                "library": "torch.mv (cuBLAS GEMV)", "bound_ms": b_ms,
                "bound_by": b_by}
         rows.append(row)
@@ -352,15 +443,18 @@ def check_k3(torch, n_plane: int):
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in ((p1, pp), (m1, mp), (v1, vp)))
         del pp, mp, vp
-        ms = time_ms(lambda: fused_adam.adam_flat_pallas(
-            p1, g, m1, v1, scales, **kw), torch)
+        kernel = lambda: fused_adam.adam_flat_pallas(p1, g, m1, v1, scales,
+                                                     **kw)
+        ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: fused_adam.adam_flat_ref(
             phi, g, m, v, scales, **kw), torch)
         steps = [torch.tensor(float(step), device="cuda")]
-        lib_ms = library_time_ms(lambda: torch._fused_adam_(
+        library = lambda: torch._fused_adam_(
             [p1], [g], [m1], [v1], [], steps, lr=kw["lr"], beta1=kw["b1"],
             beta2=kw["b2"], weight_decay=wd, eps=kw["eps"], amsgrad=False,
-            maximize=False), torch)
+            maximize=False)
+        lib_ms = library_time_ms(library, torch)
+        dev = device_times(torch, kernel, library if lib_ms else None)
         itemsize = m.element_size()
         flops = (16.0 if wd > 0 else 14.0) * N
         b_ms, b_by = bound_ms(N * (4 + 4 + 2 * itemsize + 4 + 2 * itemsize),
@@ -368,7 +462,8 @@ def check_k3(torch, n_plane: int):
         row = {"name": "adam_flat",
                "case": f"N={N} state={sd} wd={wd} step={step}",
                "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "call_ms": ms, **dev, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
                "library": "torch._fused_adam_ (rounds differently)",
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
@@ -436,13 +531,15 @@ def check_k6(torch, n_plane: int):
                     and torch.equal(q[3], q[2])
                     and bool((want[1:] % 2 == 0).all()))}
         del qp, sp, rp
-        ms = time_ms(lambda: ext.int8_encode(G, s, q, r), torch)
+        kernel = lambda: ext.int8_encode(G, s, q, r)
+        ms = time_ms(kernel, torch)
+        dev = device_times(torch, kernel)
         plain_ms = time_ms(lambda: k6._quantize(G, s), torch)
         wrapper_ms = time_ms(lambda: k6.int8_encode_flat(G), torch)
         b_ms, b_by = bound_ms(nbytes(G, q, r, s), 5.0 * m * N, "float32")
         row = {"name": "int8_encode", "case": f"{case} m={m} N={N} f32",
                "bitwise_equal": bitwise, "max_abs_err": err,
-               "max_q_diff": q_err, "tol": 0.0, "ms": ms,
+               "max_q_diff": q_err, "tol": 0.0, "call_ms": ms, **dev,
                "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
                "library_ms": None,
                "library": "none (no single PyTorch call emits q and the "
@@ -463,7 +560,9 @@ def check_k6(torch, n_plane: int):
             k2_bit = bool(torch.equal(out, plain))
             k2_err = float((out - plain).abs().max())
             del out, plain
-            k2_ms = time_ms(lambda: k6.int8_aggregate_flat(q, s, w), torch)
+            k2_kernel = lambda: k6.int8_aggregate_flat(q, s, w)
+            k2_ms = time_ms(k2_kernel, torch)
+            k2_dev = device_times(torch, k2_kernel)
             k2_plain = time_ms(lambda: k6.int8_aggregate_ref(q, s, w), torch)
             kb_ms, kb_by = bound_ms(nbytes(q, s, w) + 4 * N, 2.0 * m * N,
                                     "float32")
@@ -471,7 +570,8 @@ def check_k6(torch, n_plane: int):
                 "name": "weighted_aggregate",
                 "case": f"int8 m={m} N={N}, weights w*s (int8 codec)",
                 "bitwise_equal": k2_bit, "max_abs_err": k2_err, "tol": 0.0,
-                "ms": k2_ms, "plain_ms": k2_plain, "library_ms": None,
+                "call_ms": k2_ms, **k2_dev, "plain_ms": k2_plain,
+                "library_ms": None,
                 "library": "none (int8 block)", "bound_ms": kb_ms,
                 "bound_by": kb_by})
             if not k2_bit:
@@ -497,15 +597,17 @@ def check_k4(torch, n_plane: int):
     bitwise = bool(torch.equal(out, plain))
     err = float((out - plain).abs().max())
     del out, plain
-    ms = time_ms(lambda: fused.meta_update_flat(theta, alpha, g), torch)
+    kernel = lambda: fused.meta_update_flat(theta, alpha, g)
+    library = lambda: torch.addcmul(theta, alpha, g, value=-1.0)
+    ms = time_ms(kernel, torch)
     plain_ms = time_ms(lambda: ref.meta_update_flat_ref(theta, alpha, g),
                        torch)
-    lib_ms = time_ms(lambda: torch.addcmul(theta, alpha, g, value=-1.0),
-                     torch)
+    lib_ms = time_ms(library, torch)
+    dev = device_times(torch, kernel, library)
     b_ms, b_by = bound_ms(nbytes(theta, alpha, g, theta), 2.0 * N, "float32")
     row = {"name": "meta_update_flat", "case": f"N={N} alpha=(N,) f32",
            "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "call_ms": ms, **dev, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library": "torch.addcmul", "bound_ms": b_ms, "bound_by": b_by}
     del theta, g, alpha
     torch.cuda.empty_cache()
@@ -602,8 +704,9 @@ def check_k5(torch, n_plane: int):
                           "coordinate-wise trimmed mean)"}
         del out, plain
         if case in ("lm", "femnist", "generic"):
-            row["ms"] = time_ms(lambda: k5.trimmed_mean_flat(
-                G, live, trim=trim), torch)
+            kernel = lambda: k5.trimmed_mean_flat(G, live, trim=trim)
+            row["call_ms"] = time_ms(kernel, torch)
+            row.update(device_times(torch, kernel))
             row["plain_ms"] = time_ms(lambda: k5.trimmed_mean_ref(
                 G, live, trim=trim), torch)
             row["plain_route"] = "torch.sort + masked sum (impl='torch')"
@@ -651,12 +754,15 @@ def check_k7(torch):
     from repro_torch.kernels.attention import ops as attn_ops
     cases = [  # (B, H, Kv, L, hd, hd_v, dtype, causal, window, q_offset)
         (4, 15, 5, 64, 64, 64, "bfloat16", True, None, 0),   # adapt forward
+        (4, 15, 5, 128, 64, 64, "bfloat16", True, None, 0),  # the LM round
         (1, 15, 5, 64, 64, 64, "bfloat16", True, None, 0),   # prefill
         (4, 15, 5, 100, 64, 64, "bfloat16", True, None, 0),  # ragged tile
         (4, 15, 5, 64, 64, 64, "bfloat16", True, 16, 0),     # sliding window
         (2, 6, 2, 100, 64, 32, "float32", True, None, 3),    # q_offset, hd_v
         (2, 15, 5, 1, 64, 64, "bfloat16", True, None, 0),    # one token
         (2, 8, 8, 40, 128, 128, "bfloat16", False, None, 0),  # hd 128, no mask
+        (2, 8, 1, 70, 128, 64, "bfloat16", True, 20, 5),     # G = 8, hd_v < hd
+        (2, 6, 2, 50, 40, 24, "bfloat16", True, None, 0),    # element staging
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -672,8 +778,8 @@ def check_k7(torch):
         plain = attn_ops.flash_attention(q, k, v, impl="torch", **kw)
         torch.cuda.synchronize()
         err, tol, worst = closeness(out, plain, dt)
-        ms = time_ms(lambda: attn_ops.flash_attention(q, k, v, impl="cuda",
-                                                      **kw), torch)
+        kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
+        ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: attn_ops.flash_attention(
             q, k, v, impl="torch", **kw), torch)
         # SDPA's own causal flag where it means the same mask (q_offset 0,
@@ -682,9 +788,10 @@ def check_k7(torch):
         own_causal = causal and window is None and qoff == 0
         mask = (None if own_causal or not (causal or window)
                 else attention_mask(torch, L, L + qoff, causal, window, qoff))
-        lib_ms = library_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=own_causal,
-            enable_gqa=True), torch)
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=own_causal, enable_gqa=True)
+        lib_ms = library_time_ms(library, torch)
+        dev = device_times(torch, kernel, library if lib_ms else None)
         pairs = attention_pairs(L, L + qoff, causal, window, qoff)
         flops = 2.0 * B * H * pairs * (hd + hdv)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out), flops, dt)
@@ -692,7 +799,8 @@ def check_k7(torch):
                "case": f"B={B} H={H} Kv={Kv} L={L} hd={hd} hd_v={hdv} {dt} "
                        f"causal={causal} window={window} q_offset={qoff}",
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "call_ms": ms, **dev, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
@@ -701,7 +809,46 @@ def check_k7(torch):
         if not worst <= 1.0:
             raise PhaseFailed(f"K7 disagrees with plain: {row['case']} "
                               f"err {err}, {worst} of the limit ({tol})")
+    rows += check_k7_kv_length(torch, gen)
     return rows, summary
+
+
+def check_k7_kv_length(torch, gen):
+    """Ragged kv_length on the card: `ops.flash_attention(impl="cuda")`
+    sends it to the oracle, as the reference does under every impl, so
+    it must equal impl="torch" bit for bit, launch no K7, and give 0 on
+    a row with kv_length 0 (the oracle's guard)."""
+    from repro_torch.kernels.attention import flash_attention as k7
+    from repro_torch.kernels.attention import ops as attn_ops
+    B, H, Kv, L, hd = 4, 15, 5, 64, 64
+    q = torch.randn((B, L, H, hd), device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn((B, L, Kv, hd), device="cuda", generator=gen
+                        ).bfloat16() for _ in range(2))
+    rows = []
+    for label, kvl in (("(B,) with a 0 row", torch.tensor(
+            [0, 17, 64, 40], dtype=torch.int32, device="cuda")),
+                       ("scalar", 33)):
+        before = k7.launches
+        out = attn_ops.flash_attention(q, k, v, causal=False, kv_length=kvl,
+                                       impl="cuda")
+        plain = attn_ops.flash_attention(q, k, v, causal=False,
+                                         kv_length=kvl, impl="torch")
+        torch.cuda.synchronize()
+        row = {"name": "flash_attention",
+               "case": f"kv_length {label} B={B} H={H} Kv={Kv} L={L} "
+                       f"hd={hd} bfloat16 causal=False",
+               "bitwise_equal": bool(torch.equal(out, plain)),
+               "max_abs_err": float((out.float() - plain.float()).abs().max()),
+               "k7_launches": k7.launches - before,
+               "on_card": bool(out.is_cuda)}
+        if label != "scalar":
+            row["zero_row_is_zero"] = not bool(out[0].any())
+        rows.append(row)
+        if not (row["bitwise_equal"] and row["on_card"]
+                and row["k7_launches"] == 0
+                and row.get("zero_row_is_zero", True)):
+            raise PhaseFailed(f"K7 kv_length route: {row}")
+    return rows
 
 
 def check_k8(torch):
@@ -732,16 +879,18 @@ def check_k8(torch):
         plain = dec_ops.decode_attention(q, kc, vc, kvl, impl="torch")
         torch.cuda.synchronize()
         err, tol, worst = closeness(out, plain, dt)
-        ms = time_ms(lambda: dec_ops.decode_attention(q, kc, vc, kvl,
-                                                      impl="cuda"), torch)
+        kernel = lambda: dec_ops.decode_attention(q, kc, vc, kvl, impl="cuda")
+        ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: dec_ops.decode_attention(
             q, kc, vc, kvl, impl="torch"), torch)
         qt = q[:, :, None]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
         mask = (torch.arange(C, device="cuda")[None, :]
                 < kvl[:, None])[:, None, None, :]
-        lib_ms = library_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), torch)
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_ms = library_time_ms(library, torch)
+        dev = device_times(torch, kernel, library if lib_ms else None)
         valid = int(kvl.sum())
         elem = q.element_size()
         moved = nbytes(q, out, kvl) + 2 * valid * Kv * hd * elem
@@ -751,7 +900,8 @@ def check_k8(torch):
                "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} {dt} "
                        f"ragged={ragged}",
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "call_ms": ms, **dev, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
@@ -837,10 +987,13 @@ def ssd_library_chain(torch, Bm, Cm, xdt, chunk):
 
 
 # (name, B, nh, L, hp, N, chunk, dt_scale): Mamba2-370M's prefill at full
-# width (8 chunks), the adaptation's shape, an odd chunk, and an input
+# width (8 chunks), the adaptation's shape, the round's (4 clients), the
+# served prefill (one prompt, two chunks), an odd chunk, and an input
 # whose above-diagonal decay overflows f32 exp (dt·|A| ≈ 9 a step)
 K9_CASES = (("prefill", 4, 32, 1024, 64, 128, 128, 1.0),
             ("adapt", 2, 32, 128, 64, 128, 128, 1.0),
+            ("round", 4, 32, 128, 64, 128, 128, 1.0),
+            ("served prefill", 1, 32, 256, 64, 128, 128, 1.0),
             ("odd chunk", 2, 32, 200, 64, 128, 100, 1.0),
             ("overflow", 1, 32, 256, 64, 128, 128, 30.0))
 
@@ -855,8 +1008,8 @@ def check_k9(torch):
     stay finite. Bound: the larger of the bytes (each operand once) over
     3.35 TB/s and the function's least work — C Bᵀ once per (b, c),
     2Q²N, plus 2Q²hp + 2QN·hp per (b, h, c) — over 67 TFLOP/s (f32);
-    `bound_ms_kernel_work` counts C Bᵀ per head, as the TPU kernel and
-    K9 compute it."""
+    `bound_ms_kernel_work` counts C Bᵀ per head, as the TPU kernel
+    computes it (K9 computes it once per (b, c))."""
     from repro_torch.kernels.ssd import ref, ssd_scan
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows, summary = [], None
@@ -896,13 +1049,16 @@ def check_k9(torch):
             del oracle
         else:
             with torch.no_grad():
-                row["ms"] = time_ms(lambda: ssd_scan.ssd_intra_chunk(
-                    xdt, a, Bm, Cm, chunk=Q), torch)
+                kernel = lambda: ssd_scan.ssd_intra_chunk(xdt, a, Bm, Cm,
+                                                          chunk=Q)
+                library = ssd_library_chain(torch, Bm, Cm, xdt.contiguous(),
+                                            Q)
+                row["call_ms"] = time_ms(kernel, torch)
                 row["plain_ms"] = time_ms(lambda: ref.ssd_intra_chunk_plain(
                     xdt, a, Bm, Cm, chunk=Q), torch)
-                row["library_ms"] = library_time_ms(
-                    ssd_library_chain(torch, Bm, Cm, xdt.contiguous(), Q),
-                    torch)
+                row["library_ms"] = library_time_ms(library, torch)
+                row.update(device_times(
+                    torch, kernel, library if row["library_ms"] else None))
             row["library"] = ("torch.matmul chain: C Bᵀ, (C Bᵀ) @ xdt, Bᵀ @ "
                               "xdt, batched over (b, h, c), f32, no decay")
             nc = L // Q
@@ -1090,31 +1246,40 @@ def phase_serve(torch, cfg):
     return launches, ctx
 
 
-KERNEL_GROUPS = (("K1 inner_update", ("inner_update_kernel",)),
-                 ("K2 weighted_aggregate", ("weighted_aggregate_kernel",)),
-                 ("K3 adam", ("adam_kernel",)),
-                 ("K5 trimmed_mean", ("trimmed_mean",)),
-                 ("K6 int8_encode", ("int8_encode_kernel",)),
-                 ("K7 flash_attention", ("flash_attention_kernel",)),
-                 ("K8 flash_decode", ("flash_decode_kernel",)),
-                 ("K9 ssd_chunk", ("ssd_chunk",)),
-                 ("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
-                           "splitk")),
-                 ("copy/cast/fill", ("copy", "memcpy", "memset", "fill")))
+# (group, substrings of the device kernels' names, launch counter of
+# the wrapper that launches them)
+KERNEL_GROUPS = (
+    ("K1 inner_update", ("inner_update_kernel",), "inner_update_plane"),
+    ("K2 weighted_aggregate", ("weighted_aggregate_kernel",),
+     "weighted_aggregate"),
+    ("K3 adam", ("adam_kernel",), "adam_flat"),
+    ("K5 trimmed_mean", ("trimmed_mean",), "trimmed_mean"),
+    ("K6 int8_encode", ("int8_encode_kernel",), "int8_encode"),
+    ("K7 flash_attention", ("flash_attention_mma_kernel",
+                            "flash_attention_f32_kernel"), "flash_attention"),
+    ("K8 flash_decode", ("flash_decode_kernel",), "flash_decode"),
+    ("K9 ssd_chunk", ("ssd_state_kernel", "ssd_y_kernel"),
+     "ssd_chunk"),
+    ("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "splitk"), None),
+    ("copy/cast/fill", ("copy", "memcpy", "memset", "fill"), None))
 
 
 def _traced(torch, fn):
     """(host wall s, device summary) of one traced run of fn. Only the
     device's activity is recorded: the summary reads no host events,
     and recording them too gives the same device times and counts but
-    makes reading the trace several times slower."""
+    makes reading the trace several times slower. Each kernel group's
+    wrapper launches in the run (read from the counters before and
+    after, which are not reset) give its device µs a launch."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = read_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
+    after = read_launches()
     by_name, n_events = {}, 0
     for evt in prof.events():
         if not str(evt.device_type).endswith("CUDA"):
@@ -1123,22 +1288,29 @@ def _traced(torch, fn):
         by_name[evt.name] = by_name.get(evt.name, 0.0) + \
             evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups = {g: 0.0 for g, _, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for name, ms in by_name.items():
         low = name.lower()
-        for g, keys in KERNEL_GROUPS:
+        for g, keys, _ in KERNEL_GROUPS:
             if any(k.lower() in low for k in keys):
                 groups[g] += ms
                 break
         else:
             groups["other"] += ms
+    launches, us_per_launch = {}, {}
+    for g, _, counter in KERNEL_GROUPS:
+        n = after[counter] - before[counter] if counter else 0
+        if n:
+            launches[g] = n
+            us_per_launch[g] = groups[g] * 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return traced_s, {
         "wall_ms_traced": traced_s * 1e3, "device_events": n_events,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (traced_s * 1e3),
-        "device_ms_by_group": groups,
+        "device_ms_by_group": groups, "launches_by_group": launches,
+        "device_us_per_launch": us_per_launch,
         "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
@@ -2375,7 +2547,11 @@ def main(argv=None) -> int:
     # for K1, K7, K8; FEMNIST training for K2, K3; the int8 upload sweep
     # for K6; the robustness sweep for K5; the Mamba2 serve for K9), each
     # path counted from 0; every path's count beside it.
-    # K4 is on no path: the reference calls it nowhere.
+    # K4 is on no path: the reference calls it nowhere. `ms`,
+    # `plain_ms` and `library_ms` are calls' times, the host's part
+    # inside (each row's `call_ms`, `plain_ms`, `library_ms`);
+    # `device_ms` and `library_device_ms` are device times from HBM
+    # (`device_times`, in turns).
     kernels = []
     for name, s in summaries.items():
         if name == "meta_update_flat":
@@ -2388,9 +2564,11 @@ def main(argv=None) -> int:
             "replaces": REPLACES[name], "launches": launches,
             "launches_path": first,
             "launches_by_path": {p: paths[p].get(name, 0) for p in paths},
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "max_abs_err": s["max_abs_err"], "ms": s["call_ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "device_ms": s["device_ms"],
+            "library_device_ms": s["library_device_ms"],
             "case": s["case"]})
     t_done = time.perf_counter()
     ends = list(starts.values())[1:] + [t_done]

@@ -5,9 +5,10 @@ Counterpart of `repro/kernels/attention/flash_attention.py`
 `flash_attention_bhld`: q (B, H, Lq, hd) × k (B, Kv, Lk, hd) ×
 v (B, Kv, Lk, hd_v) -> (B, H, Lq, hd_v), GQA by h // G, causal and
 sliding-window masks from absolute positions with ``q_offset``, f32
-math, output in q's dtype. The kernel reads every operand through its
-strides, so `ops.flash_attention` hands it transposed views of the
-models' (B, L, H, hd) tensors and gets back a view over a
+math, output in q's dtype (bf16 on the tensor cores, f32 on the CUDA
+cores: the C++ launcher picks by dtype). The kernel reads every operand
+through its strides, so `ops.flash_attention` hands it transposed views
+of the models' (B, L, H, hd) tensors and gets back a view over a
 (B, Lq, H, hd_v) buffer: no transpose copies either way.
 
 The reference kernel has no VJP and the reference never differentiates

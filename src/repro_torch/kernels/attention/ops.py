@@ -8,7 +8,10 @@ impl:
   "cuda"  — K7 for CUDA tensors, the plain version for CPU tensors
             (default)
   "torch" — the plain version everywhere
-per call, or scoped with `use_impl`.
+per call, or scoped with `use_impl`. A call with ``kv_length`` (ragged
+valid kv slots) goes to the plain version under either impl and on
+either device, as the reference's `if impl == "xla" or kv_length is not
+None` does: K7 has no ragged-length input and is never attempted.
 """
 from __future__ import annotations
 
@@ -39,16 +42,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     """q: (B, Lq, H, hd); k, v: (B, Lk, Kv, hd) -> (B, Lq, H, hd_v)."""
     impl = impl or _DEFAULT_IMPL
     assert impl in _IMPLS, impl
-    if impl == "torch":
-        return ref.mha_reference(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, kv_length=kv_length)
-    if kv_length is not None:
-        # the reference keeps ragged kv_length on its oracle; the port has
-        # no kernel for it and does not fall back on the card
-        if q.is_cuda:
-            raise NotImplementedError(
-                "flash_attention with kv_length has no CUDA kernel; "
-                "pass impl='torch'")
+    if impl == "torch" or kv_length is not None:
+        # ragged kv_length goes to the oracle under every impl, on any
+        # device, as the reference's dispatch sends it to its own
         return ref.mha_reference(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_length=kv_length)
     out = flash_attention_bhld(q.transpose(1, 2), k.transpose(1, 2),

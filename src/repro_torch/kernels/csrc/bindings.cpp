@@ -46,7 +46,7 @@ cudaError_t launch_trimmed_mean(int dtype, const void* G, const float* live,
                                 float* out, int m, int trim, long long N,
                                 cudaStream_t stream);
 cudaError_t launch_ssd_chunk(const float* xdt, const float* a, const float* Bm,
-                             const float* Cm, float* y, float* S,
+                             const float* Cm, float* y, float* S, float* cbuf,
                              const long long* strides, int B, int nh, int L,
                              int Q, int N, int hp, cudaStream_t stream);
 
@@ -329,11 +329,13 @@ void trimmed_mean(torch::Tensor G, torch::Tensor live, torch::Tensor out,
 }
 
 // xdt, y: (B, nh, L, hp); a: (B, nh, L); Bm, Cm: (B, L, N); all float32,
-// any strides. S: contiguous (B, nh, L / chunk, N, hp) float32.
+// any strides. S: contiguous (B, nh, L / chunk, N, hp) float32. cbuf:
+// contiguous float32 scratch (B, L / chunk, chunk, chunk rounded up to a
+// multiple of 4) for C B^T.
 void ssd_chunk(torch::Tensor xdt, torch::Tensor a, torch::Tensor Bm,
                torch::Tensor Cm, torch::Tensor y, torch::Tensor S,
-               int64_t chunk) {
-  for (const auto* t : {&xdt, &a, &Bm, &Cm, &y, &S}) {
+               torch::Tensor cbuf, int64_t chunk) {
+  for (const auto* t : {&xdt, &a, &Bm, &Cm, &y, &S, &cbuf}) {
     check_cuda(*t, "ssd_chunk operand");
     TORCH_CHECK(t->scalar_type() == torch::kFloat,
                 "ssd_chunk operands must be float32, got ", t->scalar_type());
@@ -358,7 +360,14 @@ void ssd_chunk(torch::Tensor xdt, torch::Tensor a, torch::Tensor Bm,
   TORCH_CHECK(S.is_contiguous() && S.size(0) == B && S.size(1) == nh &&
                   S.size(2) == L / chunk && S.size(3) == N && S.size(4) == hp,
               "S must be contiguous (B, nh, L / chunk, N, hp)");
-  TORCH_CHECK(B <= 65535 && nh <= 65535, "B and nh up to 65535");
+  TORCH_CHECK(B <= 65535 && nh * (L / chunk) <= 65535,
+              "B and nh * (L / chunk) up to 65535");
+  TORCH_CHECK(cbuf.is_contiguous() && cbuf.dim() == 4 && cbuf.size(0) == B &&
+                  cbuf.size(1) == L / chunk && cbuf.size(2) == chunk &&
+                  cbuf.size(3) == (chunk + 3) / 4 * 4,
+              "cbuf must be contiguous (B, L / chunk, chunk, chunk rounded "
+              "up to a multiple of 4)");
+  check_aligned16(cbuf, "cbuf");
   std::vector<long long> st;
   for (const auto* t : {&xdt, &a, &Bm, &Cm, &y})
     for (int d = 0; d < t->dim(); ++d) st.push_back(t->stride(d));
@@ -366,7 +375,8 @@ void ssd_chunk(torch::Tensor xdt, torch::Tensor a, torch::Tensor Bm,
   C10_CUDA_CHECK(launch_ssd_chunk(
       xdt.data_ptr<float>(), a.data_ptr<float>(), Bm.data_ptr<float>(),
       Cm.data_ptr<float>(), y.data_ptr<float>(), S.data_ptr<float>(),
-      st.data(), static_cast<int>(B), static_cast<int>(nh),
+      cbuf.data_ptr<float>(), st.data(), static_cast<int>(B),
+      static_cast<int>(nh),
       static_cast<int>(L), static_cast<int>(chunk), static_cast<int>(N),
       static_cast<int>(hp), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

@@ -7,7 +7,9 @@ and the chunk's state contribution S = (B ⊙ exp(cum_last − cum))ᵀ @ xdt,
 float32. The kernel reads xdt, a, Bm and Cm and writes y through their
 strides, so `ops.ssd_chunked` hands it transposed views of the models'
 (B, L, nh, ·) tensors and gets y back as a view over a (B, L, nh, hp)
-buffer: no transpose copies.
+buffer: no transpose copies. It runs as two kernels on the tensor cores
+(3xTF32): C Bᵀ once per (batch, chunk) into a scratch the wrapper
+allocates, beside the S blocks, then y, which reads the scratch.
 
 The reference kernel has no VJP and the reference never differentiates
 through it. The port's serving adaptation and training round do, so
@@ -37,7 +39,10 @@ def _launch(xdt, a, Bm, Cm, chunk):
                     device=xdt.device).transpose(1, 2)
     S = torch.empty((B, nh, L // chunk, N, hp), dtype=torch.float32,
                     device=xdt.device)
-    get_ext().ssd_chunk(xdt, a, Bm, Cm, y, S, int(chunk))
+    # scratch for C Bᵀ, computed once per (b, c) and shared by the heads
+    cbuf = torch.empty((B, L // chunk, chunk, (chunk + 3) // 4 * 4),
+                       dtype=torch.float32, device=xdt.device)
+    get_ext().ssd_chunk(xdt, a, Bm, Cm, y, S, cbuf, int(chunk))
     launches += 1
     return y, S
 

@@ -241,14 +241,95 @@ def test_flash_attention_gradient_matches_jax():
                                    atol=1e-5)
 
 
-def test_flash_attention_kv_length_stays_on_plain_version():
+KV_LENGTHS = {"ragged": np.array([5, 16], np.int32),
+              "zero_row": np.array([0, 11], np.int32),
+              "scalar": 7}
+
+
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+@pytest.mark.parametrize("kvl", sorted(KV_LENGTHS))
+def test_flash_attention_kv_length_stays_on_plain_version(kvl, impl):
+    """Ragged kv_length goes to the oracle under either impl, as the
+    reference's dispatch sends it to its own; a row with kv_length 0
+    gives 0 (the oracle's guard for fully masked rows)."""
     q, k, v = _qkv(np.random.RandomState(5), 2, 8, 16, 2, 1, 16, 16)
-    kvl = np.array([5, 16], np.int32)
+    kv = KV_LENGTHS[kvl]
     expect = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                     causal=False, kv_length=jnp.asarray(kvl))
-    got = attn_ops.flash_attention(_t(q), _t(k), _t(v), causal=False,
-                                   kv_length=_t(kvl))
+                     causal=False, kv_length=jnp.asarray(kv))
+    got = attn_ops.flash_attention(
+        _t(q), _t(k), _t(v), causal=False, impl=impl,
+        kv_length=kv if kvl == "scalar" else _t(kv))
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), **ATT)
+    if kvl == "zero_row":
+        assert not got[0].any() and np.all(np.asarray(expect)[0] == 0)
+
+
+def test_flash_attention_kv_length_never_reaches_the_kernel(monkeypatch):
+    """With kv_length the dispatcher never calls K7's entry point, on
+    either impl (the card's route is the same code)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("kv_length reached the kernel route")
+    monkeypatch.setattr(attn_ops, "flash_attention_bhld", refuse)
+    q, k, v = _qkv(np.random.RandomState(6), 2, 8, 16, 2, 1, 16, 16)
+    for impl in ("cuda", "torch"):
+        out = attn_ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                       kv_length=_t(np.array([3, 16])),
+                                       impl=impl)
+        assert out.shape == (2, 8, 2, 16)
+    with pytest.raises(AssertionError, match="kernel route"):
+        attn_ops.flash_attention(_t(q), _t(k), _t(v), impl="cuda")
+
+
+def _flash_bf16_emulated(q, k, v, terms, block_k=64):
+    """K7's bf16 route on the CPU: scores from bf16 operands summed in
+    f32, masked and scaled, the online softmax over tiles of 64 keys in
+    f32, and P·V with P rounded to `terms` bf16 terms (1: bf16(p); 2: hi
+    = bf16(p) and lo = bf16(p − hi)) against bf16 V, f32 sums, the
+    output rounded to bf16. Causal, q_offset 0."""
+    B, Lq, H, hd = q.shape
+    _, Lk, Kv, hdv = v.shape
+    G = H // Kv
+    qf = q.float().reshape(B, Lq, Kv, G, hd)
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qf, k.float()) / np.sqrt(hd)
+    keep = torch.arange(Lk)[None, :] <= torch.arange(Lq)[:, None]
+    s = torch.where(keep, s, torch.tensor(-1e30))
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, Kv, G, Lq, hdv)
+    for k0 in range(0, Lk, block_k):
+        st = s[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        vt = v.float()[:, k0:k0 + block_k]
+        hi = p.bfloat16().float()
+        pv = torch.einsum("bkgqj,bjkd->bkgqd", hi, vt)
+        if terms == 2:
+            lo = (p - hi).bfloat16().float()
+            pv = pv + torch.einsum("bkgqj,bjkd->bkgqd", lo, vt)
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, hdv).bfloat16()
+
+
+@pytest.mark.parametrize("terms,fits", [(2, True), (1, False)])
+def test_flash_bf16_p_rounding_against_the_card_limit(terms, fits):
+    """Which P·V operand rounding meets the limit K7's bf16 route is held
+    to on the card (`chip_smoke.closeness`: 2^-7·|plain| + 1e-4 per
+    element, plain the oracle in bf16): P as hi + lo bf16 terms fits; P
+    as one bf16 term (2^-9 relative a weight) exceeds the 1e-4 absolute
+    part on outputs near zero, by about 10x here. K7 carries two terms.
+    The kernel itself is held on the card."""
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(rng, 2, 128, 128, 6, 2, 64, 64))
+    plain = attn_ops.flash_attention(q, k, v, causal=True, impl="torch")
+    got = _flash_bf16_emulated(q, k, v, terms)
+    limit = 2.0 ** -7 * plain.float().abs() + 1e-4
+    worst = float(((got.float() - plain.float()).abs() / limit).max())
+    assert (worst <= 1.0) == fits, worst
 
 
 # ---- K8: flash decode -----------------------------------------------------

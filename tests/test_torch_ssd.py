@@ -237,3 +237,95 @@ def test_autograd_function_backward_recomputes_plain(monkeypatch, needs):
             assert torch.equal(t1.grad, t2.grad)
         else:
             assert t1.grad is None
+
+
+# ---- K9's operand rounding on the tensor cores (numerics only) -------------
+
+U32 = 2.0 ** -24
+
+
+def _tf32(x):
+    """Round float32 to tf32 (10 stored mantissa bits) to nearest, ties
+    away from zero, as K9's split does (`ssd_chunk.cu` `split`, the
+    rounding of cvt.rna.tf32.f32): add half of the 13 dropped bits to
+    the magnitude, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """tf32 by clearing the 13 low bits: how the tensor cores read an f32
+    pattern, and K9's lo term."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, scheme):
+    """a @ b in float32 with each operand rounded as the kernel's MMAs
+    see it: "3xtf32" splits x into hi = tf32(x) and lo = x - hi truncated
+    to tf32 and adds lo·hi, hi·lo and hi·hi (K9's products); "tf32" is
+    hi·hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if scheme == "tf32":
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _intra_chunk_emulated(xdt, a, Bm, Cm, chunk, scheme):
+    """K9's function in its order: cumsum, C Bᵀ, P = (C Bᵀ) ⊙ D by a
+    select, y = P xdt, S = (B ⊙ sd)ᵀ xdt, every product through `_mm`."""
+    B, nh, L, hp = xdt.shape
+    N, nc = Bm.shape[-1], L // chunk
+    x = xdt.reshape(B, nh, nc, chunk, hp)
+    cum = torch.cumsum(a.reshape(B, nh, nc, chunk), dim=-1)
+    Bc = Bm.reshape(B, 1, nc, chunk, N)
+    Cc = Cm.reshape(B, 1, nc, chunk, N)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    D = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                              float("-inf")))
+    y = _mm(_mm(Cc, Bc.transpose(-1, -2), scheme) * D, x, scheme)
+    sd = torch.exp(cum[..., -1:] - cum)
+    S = _mm((Bc * sd[..., None]).transpose(-1, -2), x, scheme)
+    return y.reshape(B, nh, L, hp), S
+
+
+def _f64_bound(xdt, a, Bm, Cm, chunk):
+    """The float64 evaluation and the per-element limits of
+    `chip_smoke.py`'s `ssd_f64_oracle` (the bound `check_k9` holds K9 to
+    on the card), copied: |y − y64| <= ((1 + (Q + N + 2)u)(1 + eps_D) − 1)
+    ((|C||B|ᵀ ⊙ D) @ |xdt|), |S − S64| <= ((1 + (Q + 2)u)(1 + eps_D) − 1)
+    ((|B| ⊙ sd)ᵀ @ |xdt|), eps_D = expm1(((2Q + 1)|cum_last| + 2)u)."""
+    B, nh, L, hp = xdt.shape
+    N, Q, nc = Bm.shape[-1], chunk, L // chunk
+    x = xdt.double().reshape(B, nh, nc, Q, hp)
+    cum = torch.cumsum(a.double().reshape(B, nh, nc, Q), dim=-1)
+    Bc = Bm.double().reshape(B, 1, nc, Q, N)
+    Cc = Cm.double().reshape(B, 1, nc, Q, N)
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    D = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                              float("-inf")))
+    sd = torch.exp(cum[..., -1:] - cum)
+    y = torch.matmul(torch.matmul(Cc, Bc.transpose(-1, -2)) * D, x)
+    S = torch.matmul((Bc * sd[..., None]).transpose(-1, -2), x)
+    ymag = torch.matmul(torch.matmul(Cc.abs(), Bc.abs().transpose(-1, -2)) * D,
+                        x.abs())
+    Smag = torch.matmul((Bc.abs() * sd[..., None]).transpose(-1, -2), x.abs())
+    eps_d = torch.expm1(((2 * Q + 1) * cum[..., -1].abs() + 2) * U32
+                        )[..., None, None]
+    y_lim = ((1 + (Q + N + 2) * U32) * (1 + eps_d) - 1) * ymag
+    S_lim = ((1 + (Q + 2) * U32) * (1 + eps_d) - 1) * Smag
+    return y.reshape(B, nh, L, hp), S, y_lim.reshape(B, nh, L, hp), S_lim
+
+
+@pytest.mark.parametrize("scheme,fits", [("3xtf32", True), ("tf32", False)])
+def test_tensor_core_operand_rounding_against_the_f64_bound(scheme, fits):
+    """K9 runs its three products on the tensor cores as 3xTF32. With the
+    operands rounded that way (and f32 sums), y and S stay within the
+    float64 bound that `check_k9` holds the kernel to; with plain TF32
+    (one term, ~2^-11 a product) they do not. The kernel itself is held
+    on the card."""
+    xdt, a, Bm, Cm = _t(*_kernel_inputs(*_mk(2, 1, 128, 2, 16, 32)))
+    y, S = _intra_chunk_emulated(xdt, a, Bm, Cm, 64, scheme)
+    y64, S64, y_lim, S_lim = _f64_bound(xdt, a, Bm, Cm, 64)
+    worst = max(float(((y.double() - y64).abs() / y_lim).max()),
+                float(((S.double() - S64).abs() / S_lim).max()))
+    assert (worst <= 1.0) == fits, worst
