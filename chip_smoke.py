@@ -16,10 +16,14 @@ Phases, each printing one JSON line:
            folded weights w·s; K5 in f32 and bf16 with a NaN row made
            dead, on the FEMNIST block with adversarial rows and ties, on
            the degenerate rounds with their NaN and ±inf in place, and
-           at m > 16), K7 and K8 within a stated bf16 tolerance (K7
-           also at the LM round's shape, and ragged kv_length on the
-           card: the oracle, bitwise equal to impl="torch", no K7
-           launch), K9 and its plain version each within a bound
+           at m > 16; K1 in its scalar, shared and per-client α modes),
+           K7 and K8 within a stated bf16 tolerance (K7 also at the LM
+           round's shape, and ragged kv_length on the card: the oracle,
+           bitwise equal to impl="torch", no K7 launch; K8 also on a
+           32K-slot cache split across blocks, ragged 4K-slot caches,
+           rows with kv_length 0 against the mean of V, and a Python-int
+           kv_length that launches K8 alone), K9 and its plain version
+           each within a bound
            derived from f32 accumulation against a float64 evaluation
            (Mamba2-370M's prefill, adaptation, round and served-prefill
            shapes, an odd chunk, and an input whose above-diagonal
@@ -313,6 +317,11 @@ def closeness(out, plain, dt):
 
 
 def check_k1(torch, n_plane: int):
+    """K1 bitwise against its plain version at the full SmolLM-360M plane
+    in its three α modes, each timed beside the one PyTorch call that
+    computes θ − α∘g: `torch.sub(theta, g, alpha=a)` for a Python
+    scalar, `torch.addcmul(theta, alpha, g, value=-1)` for a shared
+    (N,) or a per-client (C, N) α."""
     from repro_torch.kernels.meta_update import fused, ref
     C, N = 4, n_plane
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -320,13 +329,16 @@ def check_k1(torch, n_plane: int):
     g = torch.randn((C, N), device="cuda", generator=gen)
     rows = []
     summary = None
-    for mode in ("scalar", "per_client"):
+    for mode in ("scalar", "shared", "per_client"):
         if mode == "scalar":
             alpha = 0.05
-            alpha_lib = torch.tensor(0.05, device="cuda")
+            library = lambda: torch.sub(theta, g, alpha=alpha)
+            lib_name = "torch.sub(alpha=)"
         else:
-            alpha = torch.rand((C, N), device="cuda", generator=gen) * 0.1
-            alpha_lib = alpha
+            shape = (N,) if mode == "shared" else (C, N)
+            alpha = torch.rand(shape, device="cuda", generator=gen) * 0.1
+            library = lambda: torch.addcmul(theta, alpha, g, value=-1.0)
+            lib_name = "torch.addcmul"
         out = theta.clone()
         fused.inner_update_plane(out, alpha, g)             # in place
         torch.cuda.synchronize()
@@ -336,26 +348,24 @@ def check_k1(torch, n_plane: int):
         del out, plain
         work = theta.clone()
         kernel = lambda: fused.inner_update_plane(work, alpha, g)
-        library = lambda: torch.addcmul(theta, alpha_lib, g, value=-1.0)
         ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: ref.inner_update_plane_ref(theta, alpha, g),
                            torch)
         lib_ms = time_ms(library, torch)
         dev = device_times(torch, kernel, library)
-        del work, kernel
+        del work, kernel, library
         moved = nbytes(theta, g, theta) + (
             nbytes(alpha) if isinstance(alpha, torch.Tensor) else 0)
         b_ms, b_by = bound_ms(moved, 2.0 * C * N, "float32")
         row = {"name": "inner_update_plane", "case": f"C={C} N={N} alpha={mode}",
                "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
                "call_ms": ms, **dev, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "library": "torch.addcmul",
+               "library_ms": lib_ms, "library": lib_name,
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         if mode == "scalar":
             summary = row
-        if isinstance(alpha, torch.Tensor):
-            del alpha, alpha_lib
+        del alpha
         if not bitwise:
             raise PhaseFailed(f"K1 not bitwise equal to plain ({mode}): {err}")
     del theta, g
@@ -851,65 +861,144 @@ def check_k7_kv_length(torch, gen):
     return rows
 
 
+def device_kernels_a_call(torch, fn, calls: int = 20, tries: int = 3):
+    """(device events a call, {name: median device µs}) of the kernels,
+    copies and fills that one call of fn launches, traced as `device_ms`
+    traces: an L2 flush before each call marks where it starts, and the
+    calls with the most common number of events are kept (the profiler
+    can drop events); traced again if it kept none."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = l2_flush_buffer(torch)
+    per_call = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        per_call = []
+        for _, name, us in sorted(
+                (evt.time_range.start, evt.name, evt.time_range.elapsed_us())
+                for evt in prof.events()
+                if str(evt.device_type).endswith("CUDA")):
+            if L2_FLUSH_KERNEL in name:
+                per_call.append([])
+            elif per_call:
+                per_call[-1].append((name, us))
+        if any(per_call):
+            break
+    counts = [len(c) for c in per_call if c]
+    if not counts:
+        return 0, {}
+    n = statistics.mode(counts)
+    by_name = {}
+    for c in per_call:
+        if len(c) == n:
+            for name, us in c:
+                by_name.setdefault(name, []).append(us)
+    return n, {name: statistics.median(v) for name, v in by_name.items()}
+
+
 def check_k8(torch):
+    """K8 against its plain version at the decode step's shapes, a long
+    cache split across blocks, ragged lengths, and rows with kv_length 0
+    (held against the mean of V over all C slots, the reference kernel's
+    answer; the plain version gives NaN there). A Python-int kv_length
+    is the decode path's route: one call must launch K8 and nothing
+    else. SDPA is the yardstick, with no mask where every slot is valid."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import flash_decode as k8
     from repro_torch.kernels.decode_attention import ops as dec_ops
-    cases = [  # (B, C, Kv, G, hd, dtype, ragged)
-        (1, 64, 5, 3, 64, "bfloat16", False),   # serving decode step
-        (16, 48, 5, 3, 64, "bfloat16", True),
-        (16, 100, 5, 3, 64, "bfloat16", True),
-        (4, 100, 2, 4, 64, "float32", True),
-        (3, 1, 5, 3, 64, "bfloat16", False),    # one slot
-        (4, 33, 1, 8, 128, "bfloat16", True),   # G = 8, hd 128, ragged tile
+    cases = [  # (B, C, Kv, G, hd, dtype, kv_length)
+        (1, 64, 5, 3, 64, "bfloat16", "int"),          # serving decode step
+        (16, 48, 5, 3, 64, "bfloat16", "ragged"),
+        (16, 100, 5, 3, 64, "bfloat16", "ragged"),
+        (4, 100, 2, 4, 64, "float32", "ragged"),
+        (3, 1, 5, 3, 64, "bfloat16", "int"),           # one slot
+        (4, 33, 1, 8, 128, "bfloat16", "ragged"),      # G = 8, hd 128, ragged tile
+        (1, 32768, 5, 3, 64, "bfloat16", "int"),       # long cache, split
+        (16, 4096, 5, 3, 64, "bfloat16", "ragged"),    # split, dead splits
+        (4, 4096, 5, 3, 64, "bfloat16", "zero_row"),   # a 0 row through the combine
+        (4, 100, 2, 4, 64, "float32", "zero_row"),     # a 0 row, one split
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for (B, C, Kv, G, hd, dt, ragged) in cases:
+    for (B, C, Kv, G, hd, dt, lengths) in cases:
         dtype = getattr(torch, dt)
         H = Kv * G
         q = torch.randn((B, H, hd), device="cuda", generator=gen).to(dtype)
         kc = torch.randn((B, C, Kv, hd), device="cuda", generator=gen).to(dtype)
         vc = torch.randn((B, C, Kv, hd), device="cuda", generator=gen).to(dtype)
-        if ragged:
+        if lengths == "int":
+            kvl = C
+            kvl_t = torch.full((B,), C, device="cuda", dtype=torch.int32)
+        else:
             kvl = torch.randint(1, C + 1, (B,), device="cuda", generator=gen,
                                 dtype=torch.int32)
-        else:
-            kvl = torch.full((B,), C, device="cuda", dtype=torch.int32)
+            if lengths == "zero_row":
+                kvl[0] = 0
+            kvl_t = kvl
         out = dec_ops.decode_attention(q, kc, vc, kvl, impl="cuda")
         plain = dec_ops.decode_attention(q, kc, vc, kvl, impl="torch")
         torch.cuda.synchronize()
-        err, tol, worst = closeness(out, plain, dt)
+        live = slice(1, None) if lengths == "zero_row" else slice(None)
+        err, tol, worst = closeness(out[live], plain[live], dt)
+        zero_row = None
+        if lengths == "zero_row":
+            mean_v = vc[0].float().mean(0).repeat_interleave(G, 0).to(dtype)
+            z_err, _, z_worst = closeness(out[0], mean_v, dt)
+            zero_row = {"max_abs_err": z_err, "worst_of_limit": z_worst,
+                        "plain_finite": bool(torch.isfinite(plain[0]).all())}
+            err, worst = max(err, z_err), max(worst, z_worst)
         kernel = lambda: dec_ops.decode_attention(q, kc, vc, kvl, impl="cuda")
+        per_call, one_call = device_kernels_a_call(torch, kernel)
         ms = time_ms(kernel, torch)
         plain_ms = time_ms(lambda: dec_ops.decode_attention(
             q, kc, vc, kvl, impl="torch"), torch)
         qt = q[:, :, None]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-        mask = (torch.arange(C, device="cuda")[None, :]
-                < kvl[:, None])[:, None, None, :]
+        mask = (None if lengths == "int" else
+                (torch.arange(C, device="cuda")[None, :]
+                 < kvl_t[:, None])[:, None, None, :])
         library = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         lib_ms = library_time_ms(library, torch)
         dev = device_times(torch, kernel, library if lib_ms else None)
-        valid = int(kvl.sum())
+        # slots read: the valid ones, every slot of a 0 row
+        valid = int(torch.where(kvl_t > 0, kvl_t.clamp(max=C), C).sum())
         elem = q.element_size()
-        moved = nbytes(q, out, kvl) + 2 * valid * Kv * hd * elem
+        moved = (nbytes(q, out) + 2 * valid * Kv * hd * elem
+                 + (0 if lengths == "int" else nbytes(kvl_t)))
         flops = 2.0 * H * valid * (hd + hd)
         b_ms, b_by = bound_ms(moved, flops, dt)
         row = {"name": "flash_decode",
                "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} {dt} "
-                       f"ragged={ragged}",
+                       f"kv_length={lengths}",
+               "splits": k8.splits_for(kc, kvl),
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
+               "device_events_a_call": per_call,
+               "device_us_by_kernel": one_call,
                "call_ms": ms, **dev, "plain_ms": plain_ms,
                "library_ms": lib_ms,
-               "library": "F.scaled_dot_product_attention",
+               "library": "F.scaled_dot_product_attention"
+                          + ("" if mask is None else " (bool mask)"),
                "bound_ms": b_ms, "bound_by": b_by}
+        if zero_row:
+            row["zero_row_vs_mean_v"] = zero_row
         rows.append(row)
         if summary is None:
             summary = row
         if not worst <= 1.0:
             raise PhaseFailed(f"K8 disagrees with plain: {row['case']} "
                               f"err {err}, {worst} of the limit ({tol})")
+        # an int kv_length launches K8 and nothing else: no fill
+        if lengths == "int" and row["splits"] == 1 and not (
+                per_call == 1 and all("flash_decode" in name
+                                      for name in one_call)):
+            raise PhaseFailed(f"K8 with an int kv_length launched {one_call} "
+                              f"({per_call} device events a call), not K8 "
+                              f"alone")
     return rows, summary
 
 
@@ -1257,7 +1346,8 @@ KERNEL_GROUPS = (
     ("K6 int8_encode", ("int8_encode_kernel",), "int8_encode"),
     ("K7 flash_attention", ("flash_attention_mma_kernel",
                             "flash_attention_f32_kernel"), "flash_attention"),
-    ("K8 flash_decode", ("flash_decode_kernel",), "flash_decode"),
+    ("K8 flash_decode", ("flash_decode_kernel", "flash_decode_mma_kernel",
+                         "flash_decode_combine_kernel"), "flash_decode"),
     ("K9 ssd_chunk", ("ssd_state_kernel", "ssd_y_kernel"),
      "ssd_chunk"),
     ("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "splitk"), None),
@@ -1280,11 +1370,12 @@ def _traced(torch, fn):
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     after = read_launches()
-    by_name, n_events = {}, 0
+    by_name, n_events, fills = {}, 0, 0
     for evt in prof.events():
         if not str(evt.device_type).endswith("CUDA"):
             continue
         n_events += 1
+        fills += "fill" in evt.name.lower()
         by_name[evt.name] = by_name.get(evt.name, 0.0) + \
             evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
@@ -1310,7 +1401,7 @@ def _traced(torch, fn):
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (traced_s * 1e3),
         "device_ms_by_group": groups, "launches_by_group": launches,
-        "device_us_per_launch": us_per_launch,
+        "device_us_per_launch": us_per_launch, "fill_launches": fills,
         "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 

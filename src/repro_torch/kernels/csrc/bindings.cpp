@@ -14,6 +14,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <vector>
 
 cudaError_t launch_inner_update(const float* theta, float* out,
@@ -27,9 +28,10 @@ cudaError_t launch_flash_attention(int dtype, const void* q, const void* k,
                                    float scale, int causal, int window,
                                    int q_offset, cudaStream_t stream);
 cudaError_t launch_flash_decode(int dtype, const void* q, const void* k,
-                                const void* v, const int* kvl, void* o,
+                                const void* v, const int* kvl, int kvl_s,
+                                void* o, float* scratch,
                                 const long long* strides, int B, int C,
-                                int Kv, int G, int hd, float scale,
+                                int Kv, int G, int hd, int splits, float scale,
                                 cudaStream_t stream);
 cudaError_t launch_weighted_aggregate(int dtype, const void* G,
                                       const float* w, float* out, int m,
@@ -153,14 +155,17 @@ void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
 }
 
 // q, o: contiguous (B, H, hd); caches (B, C, Kv, hd) with a contiguous head
-// dim; kv_length: (B,) int32.
+// dim; kv_length: (B,) int32, or None to use kv_length_s for every row (the
+// decode path's Python int, passed as a kernel argument). splits: blocks
+// along the cache axis; with splits > 1, scratch is float32 of at least
+// B * Kv * splits * G * (hd + 2) elements for the partials.
 void flash_decode(torch::Tensor q, torch::Tensor k_cache,
-                  torch::Tensor v_cache, torch::Tensor kv_length,
-                  torch::Tensor o, double scale) {
+                  torch::Tensor v_cache, c10::optional<torch::Tensor> kv_length,
+                  int64_t kv_length_s, torch::Tensor o, torch::Tensor scratch,
+                  int64_t splits, double scale) {
   check_cuda(q, "q");
   check_cuda(k_cache, "k_cache");
   check_cuda(v_cache, "v_cache");
-  check_cuda(kv_length, "kv_length");
   check_cuda(o, "o");
   const int dt = dtype_code(q);
   TORCH_CHECK(k_cache.scalar_type() == q.scalar_type() &&
@@ -170,10 +175,12 @@ void flash_decode(torch::Tensor q, torch::Tensor k_cache,
   TORCH_CHECK(q.dim() == 3 && q.is_contiguous() && o.is_contiguous() &&
                   o.sizes() == q.sizes(),
               "q and o must be contiguous (B, H, hd)");
+  check_aligned16(q, "q");
   TORCH_CHECK(k_cache.dim() == 4 && v_cache.sizes() == k_cache.sizes(),
               "caches must be (B, C, Kv, hd)");
   const int B = q.size(0), H = q.size(1), hd = q.size(2);
   const int C = k_cache.size(1), Kv = k_cache.size(2);
+  TORCH_CHECK(C >= 1, "the cache must hold at least one slot");
   TORCH_CHECK(k_cache.size(0) == B && k_cache.size(3) == hd,
               "cache shape does not match q");
   TORCH_CHECK(Kv > 0 && H % Kv == 0, "num heads must be a multiple of kv heads");
@@ -181,9 +188,29 @@ void flash_decode(torch::Tensor q, torch::Tensor k_cache,
   TORCH_CHECK(G <= 8 && hd <= 128, "at most 8 query heads per kv head, hd <= 128");
   const int vec = 16 / static_cast<int>(q.element_size());
   TORCH_CHECK(hd % vec == 0, "hd must be a multiple of ", vec);
-  TORCH_CHECK(kv_length.scalar_type() == torch::kInt &&
-                  kv_length.is_contiguous() && kv_length.numel() == B,
-              "kv_length must be (B,) int32");
+  const int* kvl = nullptr;
+  if (kv_length.has_value()) {
+    const torch::Tensor& t = *kv_length;
+    check_cuda(t, "kv_length");
+    TORCH_CHECK(t.scalar_type() == torch::kInt && t.is_contiguous() &&
+                    t.numel() == B,
+                "kv_length must be (B,) int32");
+    kvl = t.data_ptr<int>();
+  }
+  TORCH_CHECK(splits >= 1 && splits <= 512, "splits must be in [1, 512], got ",
+              splits);
+  float* part = nullptr;
+  if (splits > 1) {
+    check_cuda(scratch, "scratch");
+    TORCH_CHECK(scratch.scalar_type() == torch::kFloat &&
+                    scratch.is_contiguous() &&
+                    scratch.numel() >= static_cast<int64_t>(B) * Kv * splits *
+                                           G * (hd + 2),
+                "scratch must be contiguous float32 of B * Kv * splits * G * "
+                "(hd + 2) elements");
+    check_aligned16(scratch, "scratch");
+    part = scratch.data_ptr<float>();
+  }
   std::vector<long long> st;
   for (const auto* t : {&k_cache, &v_cache}) {
     TORCH_CHECK(t->stride(3) == 1, "cache head dim must be contiguous");
@@ -193,11 +220,14 @@ void flash_decode(torch::Tensor q, torch::Tensor k_cache,
       st.push_back(t->stride(d));
     }
   }
-  TORCH_CHECK(B <= 65535, "B up to 65535");
+  TORCH_CHECK(B <= 65535 && Kv <= 65535, "B and Kv up to 65535");
+  TORCH_CHECK(kv_length_s >= INT32_MIN && kv_length_s <= INT32_MAX,
+              "kv_length out of the int32 range");
   const at::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(launch_flash_decode(dt, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                                     kv_length.data_ptr<int>(), o.data_ptr(), st.data(), B, C,
-                                     Kv, G, hd, static_cast<float>(scale),
+                                     kvl, static_cast<int>(kv_length_s), o.data_ptr(), part,
+                                     st.data(), B, C, Kv, G, hd, static_cast<int>(splits),
+                                     static_cast<float>(scale),
                                      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

@@ -4,24 +4,62 @@
 // Replaces: src/repro/kernels/decode_attention/flash_decode.py,
 //   `flash_decode` (`_flash_decode_kernel`).
 //
-// Bound on the H100: memory. Each cache element is read once for
-// 2·G flops (G = H / Kv query heads share it), far below the ~295
-// flops per byte where the tensor cores would bind; the floor is the
-// valid cache bytes / 3.35 TB/s. At the serving path's shapes (C = 64)
-// the cache of one layer is a few tens of KB, so the kernel is bound
-// by latency and launch.
+// What bounds it on the H100. Each cache element is read once for 2·G
+// flops (G = H / Kv query heads share it), far below the ~295 flops a
+// byte at which the tensor cores would bind, so the floor is the valid
+// cache bytes / 3.35 TB/s. At the serving step (C = 64, Kv = 5, B = 1)
+// that is 80 KB, 0.03 µs: the kernel is bound by latency, by how many
+// dependent trips to device memory a block makes. At long caches
+// (C = 32K: 42 MB) it is bound by bytes, if enough blocks keep enough
+// loads in flight.
 //
-// Design: one block of 4 warps per (kv head, batch row) holds the G
-// query rows of that kv head in shared memory, so one pass over the
-// cache serves all G heads (the reference's GQA packing). Key tiles of
-// 32 slots go round-robin to the warps; in a tile each lane scores one
-// slot, reading its K row with 16-byte vector loads (bf16 in, f32 math),
-// then the warp accumulates P·V lane-per-dimension with p broadcast by
-// shuffle. Each warp keeps its own online-softmax state (m, l, acc) in
-// registers; at the end the 4 partial states are merged through shared
-// memory. Any cache length C is accepted (the Pallas kernel asserted
-// C % min(512, C) == 0). Splitting one (b, kv head)'s cache across
-// blocks, with a combine pass, is later work.
+// Design:
+// - Stage, then compute. A block starts the K and V tile copies of up
+//   to kStages - 1 tiles (8 KB of K and 8 KB of V each) as cp.async,
+//   16 bytes a thread, neighbouring threads on neighbouring bytes of a
+//   row, before it touches any of them; it then waits once and scores
+//   and accumulates from shared memory. No device-memory load sits in
+//   the key loop: a longer range streams through the ring, the next
+//   tile's copy in flight while one is consumed. At the serving step the
+//   whole (b, kv head) cache (64 keys, 16 KB) is one tile: one trip.
+// - Enough blocks. The grid is (splits, Kv, B): each split of the cache
+//   axis keeps its own online-softmax state (m, l, acc for each of the G
+//   query heads) and writes it to a scratch; flash_decode_combine_kernel
+//   merges the splits. The split count comes from the wrapper
+//   (`num_splits` in decode_attention/flash_decode.py): one split, one
+//   launch and no scratch where the cache is short.
+// - Skip dead slots. A split reads only slots below kv_length[b]: a tile
+//   wholly at or past it is never copied. This is exact: the reference
+//   masks with the finite -1e30, and exp(-1e30 - m) = 0 for any real m.
+//   A row with kv_length 0 keeps the reference kernel's answer: every
+//   slot scores -1e30, so the softmax is uniform and the output is the
+//   mean of V over all C slots (the jnp oracle gives NaN there).
+// - Short chains once the tiles land. At the serving step a block waits
+//   ~2,000 SM cycles for its tiles and then, on the CUDA cores, spent
+//   ~2,900 more on shuffles, exponentials and the merge of its warps
+//   (clock64() phases, tools/probe_k1_k8.py). So bf16 with hd <= 64 (the
+//   serving path) runs on the tensor cores: S = Q Kᵀ and O += P V by
+//   mma.sync, the G query rows packed into one 16-row fragment, every
+//   warp scoring the whole tile so that it holds the whole softmax and
+//   writes its own 16 head dims with no merge (~1,300 cycles after
+//   staging). Not for the flops: 2·G a cache element is far below what
+//   the tensor cores would bind at.
+// - f32, and bf16 with a wider head, run flash_decode_kernel on the CUDA
+//   cores: kernels built for the exact G, kLPR lanes a K row (two
+//   16-byte chunks a lane where the query rows fit in registers), each
+//   warp its own online softmax over its rows, P through shared memory
+//   to P·V with the lanes over the head dims, one merge of the 8 warps.
+// - Softmax in log2 units: scores are scaled by scale·log2(e) and
+//   exponentiated with exp2f.
+// - A scalar kv_length (the decode path's Python int) is a kernel
+//   argument; the wrapper then launches this kernel and nothing else.
+//
+// At a long cache (C = 32K) the blocks stream their tiles at ~2–3 TB/s
+// and the device time is set by the device memory; the split count keeps
+// every block in one wave (num_splits).
+#include <algorithm>
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
@@ -33,146 +71,711 @@ using repro_torch::to_f;
 using repro_torch::warp_max;
 using repro_torch::warp_sum;
 
-constexpr int kWarps = 4;
-constexpr int kMaxG = 8;           // query heads per kv head
-constexpr int kMaxD = 128;         // largest head dim
-constexpr int kDPL = kMaxD / 32;   // output dims per lane
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 4;           // tiles of the ring
+constexpr int kBlocksPerSM = 2;      // resident blocks an SM (num_splits)
+constexpr int kMaxD = 128;           // largest head dim
+constexpr int kMaxSplits = 512;
+constexpr int kCombineThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct CacheStrides {
   long long b, c, h;  // element strides; the head dim is contiguous
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ kvl,
-                    T* __restrict__ o, CacheStrides sk, CacheStrides sv,
-                    int C, int Kv, int G, int hd, float scale) {
-  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
-  __shared__ float qs[kMaxG * kMaxD];
-  __shared__ float red_m[kWarps][kMaxG];
-  __shared__ float red_l[kWarps][kMaxG];
-  __shared__ float red_acc[kWarps][kMaxG][kMaxD];
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* kvl;     // (B,) valid slots, or null: kvl_s for every row
+  int kvl_s;
+  void* o;
+  float* part_acc;    // (B, Kv, splits, G, hd) when splits > 1
+  float* part_ml;     // (B, Kv, splits, G, 2): m, l
+  CacheStrides sk, sv;
+  int C, Kv, G, hd, splits, per_split;
+  float scale2;       // scale · log2(e)
+};
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int H = Kv * G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qb = q + ((long long)b * H + kvh * G) * hd;   // (G, hd) rows
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x)
-    qs[(idx / hd) * kMaxD + idx % hd] = to_f(qb[idx]);
-  __syncthreads();
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
 
-  const int len = kvl[b];
-  const T* kb = kc + b * sk.b + kvh * sk.h;
-  const T* vb = vc + b * sv.b + kvh * sv.h;
+// src_bytes < 16 fills the rest of the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
 
-  float m[kMaxG], l[kMaxG], acc[kMaxG][kDPL];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The lane layout of one (dtype, head-dim bucket, query-head bucket):
+// a K row of kHD elements is kChunks 16-byte chunks, read by kLPR lanes
+// kCPL chunks each (two where the query rows fit in registers, so a
+// score needs one shuffle level less); a tile is 8 KB of K, kSteps row
+// steps of every warp; in P·V each lane owns kDPL consecutive dims.
+template <typename T, int kHD, int kG>
+struct Shape {
+  static constexpr int kVec = 16 / sizeof(T);   // elements a chunk
+  static constexpr int kChunks = kHD / kVec;
+  static constexpr int kCPL = (kG <= 4 && kChunks >= 2) ? 2 : 1;
+  static constexpr int kLPR = kChunks / kCPL;   // a power of two
+  static constexpr int kRowsPerStep = 32 / kLPR;
+  static constexpr int kSteps = 2 / kCPL;
+  static constexpr int kRowsW = kSteps * kRowsPerStep;   // a warp's rows
+  static constexpr int kTk = kWarps * kRowsW;             // keys a tile
+  static constexpr int kGp = kG <= 4 ? 4 : 8;             // P row stride
+  static constexpr int kDPL = kHD / 32;
+};
+
+template <int kBytes>
+struct Bits;
+template <>
+struct Bits<2> { using type = unsigned short; };
+template <>
+struct Bits<4> { using type = unsigned int; };
+template <>
+struct Bits<8> { using type = uint2; };
+template <>
+struct Bits<16> { using type = uint4; };
+
+// kN consecutive elements at src (aligned to their total size) as f32,
+// in one load
+template <typename T, int kN>
+__device__ __forceinline__ void load_vec(const T* src, float (&dst)[kN]) {
+  using V = typename Bits<kN * sizeof(T)>::type;
+  const V raw = *reinterpret_cast<const V*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int i = 0; i < kN; ++i) dst[i] = to_f(e[i]);
+}
+
+// f32, and bf16 with hd > 64: one block per (split, kv head, batch row),
+// 8 warps, on the CUDA cores. Each warp scores
+// its rows of every staged tile (kLPR lanes a row, reduced by shuffles),
+// keeps its own online softmax over them, and accumulates P·V with its
+// lanes over the head dims, P read back from shared memory; the warps
+// merge once, at the end. kHD >= hd and kG >= G (the query heads of a
+// kv head) are the buckets the kernel was built for.
+template <typename T, int kHD, int kG>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+flash_decode_kernel(const Args p) {
+  using S = Shape<T, kHD, kG>;
+  constexpr int kVec = S::kVec, kLPR = S::kLPR, kCPL = S::kCPL;
+  constexpr int kTk = S::kTk, kDPL = S::kDPL;
+  extern __shared__ __align__(16) unsigned char stage[];
+  __shared__ __align__(16) float pw[kWarps][S::kRowsW][S::kGp];
+  __shared__ float m_w[kWarps][kG], l_w[kWarps][kG];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane / kLPR, c = lane % kLPR;  // row in the step, chunk
+  const int G = p.G, hd = p.hd;
+  const int chunks = hd / kVec;
+  const int rowb = hd * static_cast<int>(sizeof(T));   // staged row pitch
+  const int len = p.kvl ? p.kvl[b] : p.kvl_s;
+  const bool empty = len <= 0;
+  const int span = empty ? p.C : min(len, p.C);
+  const int start = split * p.per_split;
+  const int end = min(start + p.per_split, span);
+  const int ntiles = end > start ? (end - start + kTk - 1) / kTk : 0;
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+
+  auto fetch = [&](int t) {  // tile t's K and V rows into its ring slot
+    if (t < ntiles) {
+      unsigned char* ks = stage + (t % kStages) * 2 * kTk * rowb;
+      unsigned char* vs = ks + kTk * rowb;
+      const int j0 = start + t * kTk;
+      const int rows = min(kTk, end - j0);
+      for (int idx = threadIdx.x; idx < rows * S::kChunks;
+           idx += kThreads) {
+        const int rr = idx / S::kChunks, cc = idx % S::kChunks;
+        if (cc < chunks) {
+          cp_async16(ks + rr * rowb + cc * 16,
+                     kb + (long long)(j0 + rr) * p.sk.c + cc * kVec);
+          cp_async16(vs + rr * rowb + cc * 16,
+                     vb + (long long)(j0 + rr) * p.sv.c + cc * kVec);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  // this lane's chunks (c, c + kLPR, ...) of the G query rows, in
+  // registers, while the copies fly
+  const int H = p.Kv * G;
+  const T* qb = static_cast<const T*>(p.q) + ((long long)b * H + kvh * G) * hd;
+  float qf[kG][kCPL * kVec];
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int j = 0; j < kCPL; ++j) {
+      const int ch = c + j * kLPR;
+      float e[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) e[i] = 0.f;
+      if (g < G && ch < chunks) load_vec(qb + g * hd + ch * kVec, e);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) qf[g][j * kVec + i] = e[i];
+    }
+  // this warp's online softmax (every lane holds m and l) and this
+  // lane's dims of its P·V
+  float m[kG], l[kG], acc[kG][kDPL];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < kDPL; ++i) acc[g][i] = 0.f;
   }
+  const bool dims_live = lane * kDPL < hd;
 
-  const int ntiles = (C + 31) / 32;
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int j = t * 32 + lane;
-    const bool inb = j < C;
-    float s[kMaxG];
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of tile t
+    __syncthreads();                // everyone's; slot t - 1 is free
+    fetch(t + kStages - 1);
+    const unsigned char* ks = stage + (t % kStages) * 2 * kTk * rowb;
+    const unsigned char* vs = ks + kTk * rowb;
+    const int rows = min(kTk, end - (start + t * kTk));
+
+    // scores of this lane's rows; a row past the tile's end scores -inf,
+    // so it weighs 0
+    float s[S::kSteps][kG];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-    if (inb) {
-      const uint4* krow = reinterpret_cast<const uint4*>(kb + j * sk.c);
-      for (int d0 = 0; d0 < hd; d0 += kVec) {
-        const uint4 raw = krow[d0 / kVec];
-        const T* kv = reinterpret_cast<const T*>(&raw);
+    for (int st = 0; st < S::kSteps; ++st) {
+      const int rr = (st * kWarps + warp) * S::kRowsPerStep + r;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const float kf = to_f(kv[e]);
+      for (int g = 0; g < kG; ++g) s[st][g] = 0.f;
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) s[g] += qs[g * kMaxD + d0 + e] * kf;
+      for (int j = 0; j < kCPL; ++j) {
+        const int ch = c + j * kLPR;
+        if (rr < rows && ch < chunks) {
+          float kf[kVec];
+          load_vec(reinterpret_cast<const T*>(ks + rr * rowb + ch * 16), kf);
+#pragma unroll
+          for (int i = 0; i < kVec; ++i)
+#pragma unroll
+            for (int g = 0; g < kG; ++g)
+              s[st][g] += qf[g][j * kVec + i] * kf[i];
         }
       }
-    }
-    float p[kMaxG];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      const float sg = (inb && j < len) ? s[g] * scale : kNegInf;
-      const float m_new = fmaxf(m[g], warp_max(sg));
-      const float a = expf(m[g] - m_new);
-      p[g] = inb ? expf(sg - m_new) : 0.f;
-      l[g] = a * l[g] + warp_sum(p[g]);
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int o = kLPR / 2; o > 0; o >>= 1)
+          s[st][g] += __shfl_xor_sync(kFullMask, s[st][g], o);
+        s[st][g] = rr >= rows ? -INFINITY
+                   : empty    ? kNegInf
+                              : s[st][g] * p.scale2;
+      }
+    }
+    // the warp's statistics over its rows of the tile; P to shared memory
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      float mx = s[0][g];
+#pragma unroll
+      for (int st = 1; st < S::kSteps; ++st) mx = fmaxf(mx, s[st][g]);
+#pragma unroll
+      for (int o = kLPR; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, o));
+      const float m_new = fmaxf(m[g], mx);
+      const float a = exp2f(m[g] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int st = 0; st < S::kSteps; ++st) {
+        s[st][g] = exp2f(s[st][g] - m_new);
+        sum += s[st][g];
+      }
+#pragma unroll
+      for (int o = kLPR; o < 32; o <<= 1)
+        sum += __shfl_xor_sync(kFullMask, sum, o);
+      l[g] = a * l[g] + sum;
+      m[g] = m_new;
 #pragma unroll
       for (int i = 0; i < kDPL; ++i) acc[g][i] *= a;
-      m[g] = m_new;
     }
-    const int nkeys = min(32, C - t * 32);
-    for (int jj = 0; jj < nkeys; ++jj) {
-      const T* vrow = vb + (long long)(t * 32 + jj) * sv.c;
-      float vv[kDPL];
+    if (c == 0) {
 #pragma unroll
-      for (int i = 0; i < kDPL; ++i) {
-        const int d = lane + 32 * i;
-        vv[i] = d < hd ? to_f(vrow[d]) : 0.f;
-      }
+      for (int st = 0; st < S::kSteps; ++st)
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) break;
-        const float pj = __shfl_sync(kFullMask, p[g], jj);
+        for (int g = 0; g < kG; ++g)
+          pw[warp][st * S::kRowsPerStep + r][g] = s[st][g];
+    }
+    __syncwarp();
+    // P·V over the warp's rows, this lane's kDPL dims
+    if (dims_live) {
 #pragma unroll
-        for (int i = 0; i < kDPL; ++i) acc[g][i] += pj * vv[i];
-      }
+      for (int st = 0; st < S::kSteps; ++st)
+#pragma unroll
+        for (int rl = 0; rl < S::kRowsPerStep; ++rl) {
+          const int rr = (st * kWarps + warp) * S::kRowsPerStep + rl;
+          if (rr < rows) {
+            float vf[kDPL], pr[S::kGp];
+            load_vec(reinterpret_cast<const T*>(vs + rr * rowb) + lane * kDPL,
+                     vf);
+            const float4* p4 = reinterpret_cast<const float4*>(
+                pw[warp][st * S::kRowsPerStep + rl]);
+#pragma unroll
+            for (int k = 0; k < S::kGp / 4; ++k) {
+              const float4 x = p4[k];
+              pr[4 * k] = x.x;
+              pr[4 * k + 1] = x.y;
+              pr[4 * k + 2] = x.z;
+              pr[4 * k + 3] = x.w;
+            }
+#pragma unroll
+            for (int g = 0; g < kG; ++g)
+#pragma unroll
+              for (int i = 0; i < kDPL; ++i) acc[g][i] += pr[g] * vf[i];
+          }
+        }
     }
   }
 
-  // merge the per-warp online-softmax states
+  // merge the warps' states through the ring's memory
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(stage);   // (kWarps, G, hd)
+  if (dims_live) {
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      red_m[warp][g] = m[g];
-      red_l[warp][g] = l[g];
-    }
+    for (int g = 0; g < kG; ++g)
+      if (g < G)
 #pragma unroll
-    for (int i = 0; i < kDPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) red_acc[warp][g][d] = acc[g][i];
+        for (int i = 0; i < kDPL; ++i)
+          if (lane * kDPL + i < hd)
+            red[(warp * G + g) * hd + lane * kDPL + i] = acc[g][i];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      m_w[warp][g] = m[g];
+      l_w[warp][g] = l[g];
     }
   }
   __syncthreads();
-  T* ob = o + ((long long)b * H + kvh * G) * hd;
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
-    const int g = idx / hd, d = idx % hd;
+  const long long bh = (long long)b * p.Kv + kvh;
+  for (int idx = threadIdx.x; idx < G * hd; idx += kThreads) {
+    const int g = idx / hd;
     float mm = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, red_m[w][g]);
-    float ll = 0.f, aa = 0.f;
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, m_w[w][g]);
+    float a = 0.f, ll = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(red_m[w][g] - mm);
-      ll += red_l[w][g] * f;
-      aa += red_acc[w][g][d] * f;
+      const float f = exp2f(m_w[w][g] - mm);
+      a += f * red[w * G * hd + idx];
+      ll += f * l_w[w][g];
     }
-    ob[idx] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+    if (p.splits == 1) {
+      static_cast<T*>(p.o)[bh * G * hd + idx] =
+          from_f<T>(a / fmaxf(ll, 1e-30f));
+    } else {
+      p.part_acc[((bh * p.splits + split) * G) * hd + idx] = a;
+      if (idx % hd == 0) {
+        float* ml = p.part_ml + ((bh * p.splits + split) * G + g) * 2;
+        ml[0] = mm;
+        ml[1] = ll;
+      }
+    }
   }
 }
 
+// ------------------------------------------- bf16, hd <= 64: tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaD = 64;              // head dim the kernel is built for
+constexpr int kMmaLD = kMmaD + 8;      // staged row pitch, in elements
+constexpr int kMmaTk = 64;             // keys a tile
+static_assert(kMmaWarps * 16 == kMmaD, "a warp takes 16 dims of P V");
+
+// four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) · b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The serving step's kernel (bf16, hd <= 64): one block of 4 warps per
+// (split, kv head, batch row), the same staging, splits and masking as
+// flash_decode_kernel, but S = Q Kᵀ and O += P V on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 accumulators), so the chains of
+// shuffles and FMAs after the tiles land shrink to a few MMAs. The G
+// query rows of the kv head are rows 0..G-1 of a 16-row A fragment
+// (rows G..15 zero). Every warp scores all 64 keys of a tile (S is 32
+// MMAs, cheap) and so holds the whole online softmax itself; it then
+// accumulates P V for its own 16 of the 64 head dims and writes them:
+// no merge between warps, no barrier after the last tile. P is carried
+// as hi + lo bf16 terms (two MMAs), as in K7, so a weight keeps 2^-17
+// of its value. Rows are staged with an 8-element pad so the ldmatrix
+// row fetches hit distinct banks; slots past the range and columns past
+// hd are zero-filled, so a padded key weighs 0 against a zero V row.
+__global__ void __launch_bounds__(kMmaThreads, kBlocksPerSM)
+flash_decode_mma_kernel(const Args p) {
+  constexpr int KC = kMmaD / 16;        // 16-wide k chunks of hd
+  constexpr int NT = kMmaTk / 8;        // 8-key n tiles of S
+  constexpr int kTile = kMmaTk * kMmaLD;   // elements of one K or V tile
+  extern __shared__ __align__(16) unsigned char stage[];
+  bf16* ring = reinterpret_cast<bf16*>(stage);   // slots of {K, V} tiles
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, t4 = lane % 4;   // query row, key/column pair
+  const int G = p.G, hd = p.hd;
+  const int len = p.kvl ? p.kvl[b] : p.kvl_s;
+  const bool empty = len <= 0;
+  const int span = empty ? p.C : min(len, p.C);
+  const int start = split * p.per_split;
+  const int end = min(start + p.per_split, span);
+  const int ntiles = end > start ? (end - start + kMmaTk - 1) / kMmaTk : 0;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+
+  auto fetch = [&](int t) {  // tile t's K and V rows into its ring slot
+    if (t < ntiles) {
+      bf16* ks = ring + (t % kStages) * 2 * kTile;
+      bf16* vs = ks + kTile;
+      const int j0 = start + t * kMmaTk;
+      const int rows = min(kMmaTk, end - j0);
+      constexpr int kCh = kMmaD / 8;
+      for (int idx = threadIdx.x; idx < kMmaTk * kCh; idx += kMmaThreads) {
+        const int rr = idx / kCh, cc = (idx % kCh) * 8;
+        const bool ok = rr < rows && cc < hd;
+        cp_async16_zfill(ks + rr * kMmaLD + cc,
+                         ok ? kb + (long long)(j0 + rr) * p.sk.c + cc : kb,
+                         ok ? 16 : 0);
+        cp_async16_zfill(vs + rr * kMmaLD + cc,
+                         ok ? vb + (long long)(j0 + rr) * p.sv.c + cc : vb,
+                         ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  // Q as the A fragments of its KC k chunks: row gq (rows 8..15 zero)
+  unsigned qa[KC][4];
+  const long long bh = (long long)b * p.Kv + kvh;
+  const bf16* qrow = static_cast<const bf16*>(p.q) + (bh * G + gq) * hd;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const int c0 = kc * 16 + 2 * t4, c1 = c0 + 8;
+    qa[kc][0] = gq < G && c0 < hd
+                    ? *reinterpret_cast<const unsigned*>(qrow + c0) : 0u;
+    qa[kc][2] = gq < G && c1 < hd
+                    ? *reinterpret_cast<const unsigned*>(qrow + c1) : 0u;
+    qa[kc][1] = qa[kc][3] = 0u;
+  }
+  // the online softmax of row gq (l: this lane's part of the row sum),
+  // and this warp's two 8-dim n tiles of O (rows gq and gq + 8)
+  float m = kNegInf, l = 0.f;
+  float oacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of tile t
+    __syncthreads();                // everyone's; slot t - 1 is free
+    fetch(t + kStages - 1);
+    const bf16* Kt = ring + (t % kStages) * 2 * kTile;
+    const bf16* Vt = Kt + kTile;
+    const int rows = min(kMmaTk, end - (start + t * kMmaTk));
+
+    // S = Q Kᵀ for the tile's 64 keys: NT n tiles of 8
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned kf[4];
+        ldsm_x4(kf, Kt + (np * 16 + (lane % 8) + 8 * (lane / 16)) * kMmaLD +
+                        kc * 16 + 8 * ((lane / 8) & 1));
+        mma_bf16(s[2 * np], qa[kc], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa[kc], kf[2], kf[3]);
+      }
+    // row gq's scores (e = 0, 1; e = 2, 3 are the zero rows): a slot past
+    // the range scores -inf, so it weighs 0
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kt = nt * 8 + 2 * t4 + e;
+        s[nt][e] = kt >= rows ? -INFINITY
+                   : empty    ? kNegInf
+                              : s[nt][e] * p.scale2;
+        tmax = fmaxf(tmax, s[nt][e]);
+      }
+    tmax = fmaxf(tmax, __shfl_xor_sync(kFullMask, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(kFullMask, tmax, 2));
+    const float m_new = fmaxf(m, tmax);
+    const float alpha = exp2f(m - m_new);
+    m = m_new;
+    l *= alpha;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - m);
+        l += s[nt][e];
+      }
+      s[nt][2] = s[nt][3] = 0.f;
+    }
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt) {
+      oacc[dt][0] *= alpha;
+      oacc[dt][1] *= alpha;
+    }
+
+    // O += P V over this warp's 16 dims, P as hi + lo bf16: the S
+    // accumulators of n tiles 2kc and 2kc + 1 are the A fragment of the
+    // 16-key chunk kc
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      unsigned ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = s[2 * kc + i / 2][2 * (i & 1)];
+        const float x1 = s[2 * kc + i / 2][2 * (i & 1) + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            x0 - __low2float(hi), x1 - __high2float(hi));
+        ph[i] = *reinterpret_cast<const unsigned*>(&hi);
+        pl[i] = *reinterpret_cast<const unsigned*>(&lo);
+      }
+      unsigned vf[4];
+      ldsm_x4_trans(vf, Vt + (kc * 16 + (lane % 8) + 8 * ((lane / 8) & 1)) *
+                                 kMmaLD +
+                            warp * 16 + 8 * (lane / 16));
+      mma_bf16(oacc[0], pl, vf[0], vf[1]);
+      mma_bf16(oacc[1], pl, vf[2], vf[3]);
+      mma_bf16(oacc[0], ph, vf[0], vf[1]);
+      mma_bf16(oacc[1], ph, vf[2], vf[3]);
+    }
+  }
+
+  // row gq's sum over the quad; then this warp's dims of row gq
+  l += __shfl_xor_sync(kFullMask, l, 1);
+  l += __shfl_xor_sync(kFullMask, l, 2);
+  if (gq >= G) return;
+  if (p.splits == 1) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* orow = static_cast<bf16*>(p.o) + (bh * G + gq) * hd;
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt) {
+      const int d = warp * 16 + dt * 8 + 2 * t4;
+      if (d < hd)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(oacc[dt][0] * inv, oacc[dt][1] * inv);
+    }
+  } else {
+    const long long row = (bh * p.splits + split) * G + gq;
+    float* arow = p.part_acc + row * hd;
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt) {
+      const int d = warp * 16 + dt * 8 + 2 * t4;
+      if (d < hd)
+        *reinterpret_cast<float2*>(arow + d) =
+            make_float2(oacc[dt][0], oacc[dt][1]);
+    }
+    if (warp == 0 && t4 == 0) {
+      p.part_ml[row * 2] = m;
+      p.part_ml[row * 2 + 1] = l;
+    }
+  }
+}
+
+// Merge the splits of one (kv head, batch row, query head): the
+// weights exp2(m_s - M) and the denominator by block reductions (each
+// thread holds its splits' (m, l) pairs, read once), then each float4
+// column of the partial sums, the splits divided among thread groups
+// whose loads are independent. Its time is two round trips to the L2,
+// where the partials were just written.
 template <typename T>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const int* kvl, void* o, const long long* st, int B,
-                         int C, int Kv, int G, int hd, float scale,
-                         cudaStream_t stream) {
-  const CacheStrides sk{st[0], st[1], st[2]};
-  const CacheStrides sv{st[3], st[4], st[5]};
-  const dim3 grid(Kv, B);
-  flash_decode_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kvl, static_cast<T*>(o), sk, sv, C, Kv, G, hd,
-      scale);
+__global__ void __launch_bounds__(kCombineThreads)
+flash_decode_combine_kernel(const Args p) {
+  constexpr int kWarpsC = kCombineThreads / 32;
+  constexpr int kPer = kMaxSplits / kCombineThreads;   // splits a thread
+  __shared__ float w[kMaxSplits];
+  __shared__ float part[kWarpsC];
+  __shared__ float4 red[kCombineThreads];
+  const int kvh = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int G = p.G, hd = p.hd, S = p.splits;
+  const long long row0 = ((long long)b * p.Kv + kvh) * S * G + g;  // split 0
+  const float2* ml = reinterpret_cast<const float2*>(p.part_ml);
+
+  float2 v[kPer];
+  float mx = kNegInf;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int s = threadIdx.x + i * kCombineThreads;
+    v[i] = s < S ? ml[row0 + (long long)s * G] : make_float2(kNegInf, 0.f);
+    mx = fmaxf(mx, v[i].x);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) part[warp] = mx;
+  __syncthreads();
+  float M = kNegInf;
+#pragma unroll
+  for (int k = 0; k < kWarpsC; ++k) M = fmaxf(M, part[k]);
+  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int s = threadIdx.x + i * kCombineThreads;
+    if (s < S) {
+      const float ws = exp2f(v[i].x - M);
+      w[s] = ws;
+      l += ws * v[i].y;
+    }
+  }
+  l = warp_sum(l);
+  __syncthreads();                 // every thread has read part[] as M
+  if (lane == 0) part[warp] = l;
+  __syncthreads();
+  float L = 0.f;
+#pragma unroll
+  for (int k = 0; k < kWarpsC; ++k) L += part[k];
+
+  const int items = hd / 4;                      // float4 columns
+  const int groups = kCombineThreads / items;    // >= 8: hd <= 128
+  const int item = threadIdx.x % items, grp = threadIdx.x / items;
+  const float4* acc4 = reinterpret_cast<const float4*>(p.part_acc);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (grp < groups) {
+#pragma unroll 4
+    for (int s = grp; s < S; s += groups) {
+      const float ws = w[s];
+      const float4 x = acc4[(row0 + (long long)s * G) * items + item];
+      a.x += ws * x.x;
+      a.y += ws * x.y;
+      a.z += ws * x.z;
+      a.w += ws * x.w;
+    }
+  }
+  red[threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.x < items) {
+    for (int k = 1; k < groups; ++k) {
+      const float4 x = red[k * items + threadIdx.x];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    const float inv_l = 1.f / fmaxf(L, 1e-30f);
+    T* ob = static_cast<T*>(p.o) +
+            (((long long)b * p.Kv + kvh) * G + g) * hd + item * 4;
+    ob[0] = from_f<T>(a.x * inv_l);
+    ob[1] = from_f<T>(a.y * inv_l);
+    ob[2] = from_f<T>(a.z * inv_l);
+    ob[3] = from_f<T>(a.w * inv_l);
+  }
+}
+
+template <typename T, int kHD, int kG>
+cudaError_t launch_split(const Args& a, int B, cudaStream_t stream) {
+  constexpr int kTk = Shape<T, kHD, kG>::kTk;
+  const int rowb = a.hd * static_cast<int>(sizeof(T));
+  // the ring, or the merge of the warps' partials if that is larger
+  const int smem =
+      std::max(kStages * 2 * kTk * rowb,
+               kWarps * a.G * a.hd * static_cast<int>(sizeof(float)));
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_kernel<T, kHD, kG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      std::max(kStages * 2 * kTk * kHD * static_cast<int>(sizeof(T)),
+               kWarps * kG * kHD * static_cast<int>(sizeof(float))));
+  if (attr != cudaSuccess) return attr;
+  flash_decode_kernel<T, kHD, kG>
+      <<<dim3(a.splits, a.Kv, B), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int kHD>
+cudaError_t launch_g(const Args& a, int B, cudaStream_t stream) {
+  if (a.G <= 2) return launch_split<T, kHD, 2>(a, B, stream);
+  if (a.G == 3) return launch_split<T, kHD, 3>(a, B, stream);
+  if (a.G == 4) return launch_split<T, kHD, 4>(a, B, stream);
+  return launch_split<T, kHD, 8>(a, B, stream);
+}
+
+cudaError_t launch_mma(const Args& a, int B, cudaStream_t stream) {
+  constexpr int kSmem =
+      kStages * 2 * kMmaTk * kMmaLD * static_cast<int>(sizeof(bf16));
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (attr != cudaSuccess) return attr;
+  flash_decode_mma_kernel<<<dim3(a.splits, a.Kv, B), kMmaThreads, kSmem,
+                            stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_combine(const Args& a, int B, cudaStream_t stream) {
+  flash_decode_combine_kernel<T>
+      <<<dim3(a.Kv, B, a.G), kCombineThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 with hd <= 64 (the serving path) on the tensor cores; f32 and
+// bf16 with a wider head on the CUDA cores; then the combine
+cudaError_t launch_all(int dtype, const Args& a, int B, cudaStream_t stream) {
+  cudaError_t err;
+  if (dtype == 1) {
+    err = a.hd <= kMmaD ? launch_mma(a, B, stream)
+                        : launch_g<bf16, 128>(a, B, stream);
+  } else if (a.hd <= 32) {
+    err = launch_g<float, 32>(a, B, stream);
+  } else if (a.hd <= 64) {
+    err = launch_g<float, 64>(a, B, stream);
+  } else {
+    err = launch_g<float, 128>(a, B, stream);
+  }
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return dtype == 1 ? launch_combine<bf16>(a, B, stream)
+                    : launch_combine<float>(a, B, stream);
 }
 
 }  // namespace
@@ -180,16 +783,39 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. q, o: contiguous (B, Kv*G, hd).
 // strides: (b, c, h) element strides of the K cache, then of the V cache;
 // the head dim of both caches is contiguous, rows 16-byte aligned.
-// kvl: (B,) int32 valid slot counts. G <= 8, hd <= 128, hd % (16 / elem) == 0.
+// kvl: (B,) int32 valid slot counts, or null to use kvl_s for every row.
+// splits in [1, 512]; with splits > 1, scratch holds B*Kv*splits*G*(hd+2)
+// floats, 16-byte aligned. G <= 8, hd <= 128, hd % (16 / elem) == 0.
 cudaError_t launch_flash_decode(int dtype, const void* q, const void* k,
-                                const void* v, const int* kvl, void* o,
+                                const void* v, const int* kvl, int kvl_s,
+                                void* o, float* scratch,
                                 const long long* strides, int B, int C,
-                                int Kv, int G, int hd, float scale,
+                                int Kv, int G, int hd, int splits, float scale,
                                 cudaStream_t stream) {
   if (B == 0 || Kv == 0) return cudaSuccess;
-  if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(q, k, v, kvl, o, strides, B, C, Kv, G,
-                                       hd, scale, stream);
-  return launch_typed<float>(q, k, v, kvl, o, strides, B, C, Kv, G, hd, scale,
-                             stream);
+  if (splits < 1 || splits > kMaxSplits || G > 8 || hd > kMaxD)
+    return cudaErrorInvalidValue;
+  // the slots the splits divide: every row's valid slots, the whole
+  // cache for a kv_length of 0 (the mean of V)
+  const int span = (kvl == nullptr && kvl_s > 0) ? std::min(kvl_s, C) : C;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.kvl = kvl;
+  a.kvl_s = kvl_s;
+  a.o = o;
+  a.part_acc = scratch;
+  a.part_ml = splits > 1 ? scratch + (long long)B * Kv * splits * G * hd
+                         : nullptr;
+  a.sk = CacheStrides{strides[0], strides[1], strides[2]};
+  a.sv = CacheStrides{strides[3], strides[4], strides[5]};
+  a.C = C;
+  a.Kv = Kv;
+  a.G = G;
+  a.hd = hd;
+  a.splits = splits;
+  a.per_split = (span + splits - 1) / splits;
+  a.scale2 = scale * kLog2e;
+  return launch_all(dtype, a, B, stream);
 }

@@ -18,6 +18,9 @@ def decode_attention(q, k_cache, v_cache, kv_length, *, impl: str = "cuda"):
     assert impl in _IMPLS, impl
     B = q.shape[0]
     if isinstance(kv_length, int):
+        if impl == "cuda":
+            # K8 takes it as a kernel argument: no fill launch
+            return flash_decode(q, k_cache, v_cache, kv_length)
         # a fill kernel, not a host-to-device copy that would stall the host
         kvl = torch.full((B,), kv_length, dtype=torch.int32, device=q.device)
     else:

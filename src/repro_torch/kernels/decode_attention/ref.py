@@ -28,3 +28,64 @@ def decode_attention_ref(q, k_cache, v_cache, kv_length):
     p = p / torch.sum(p, dim=-1, keepdim=True)
     o = torch.einsum("bkgj,bjkd->bkgd", p, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def cache_span(kv_length, C: int) -> int:
+    """The slots K8's splits divide: a Python int kv_length > 0 gives its
+    valid slots (at most C); a tensor, or 0 (a row whose answer is the
+    mean of V over every slot), gives the whole cache."""
+    if isinstance(kv_length, int) and kv_length > 0:
+        return min(kv_length, C)
+    return C
+
+
+def decode_attention_split_plain(q, k_cache, v_cache, kv_length, splits,
+                                 tile: int = 64):
+    """Plain model of K8's arithmetic, for tests: the cache axis cut into
+    `splits` ranges of ceil(span / splits) slots (`cache_span`), each
+    range read in tiles of `tile` slots up to the row's valid length,
+    with its own online softmax (m, l, acc) in log2 units; a range with
+    no valid slot keeps m = -1e30, l = 0. Then the ranges merge with
+    weights exp2(m_s - M). A row with kv_length 0 scores every slot at
+    -1e30, so it gives the mean of V, as the reference kernel does.
+    Returns (B, H, hd) in q's dtype."""
+    B, H, hd = q.shape
+    C, Kv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Kv
+    per = -(-cache_span(kv_length, C) // splits)
+    lens = torch.as_tensor(kv_length).expand(B)
+    scale2 = 1.0 / (float(np.sqrt(hd)) * float(np.log(2.0)))
+    qf = q.float().reshape(B, Kv, G, hd)
+    kf, vf = k_cache.float(), v_cache.float()
+    out = torch.empty((B, Kv, G, hd), dtype=torch.float32)
+    for b in range(B):
+        length = int(lens[b])
+        empty = length <= 0
+        span = C if empty else min(length, C)
+        ms, ls, accs = [], [], []
+        for s in range(splits):
+            m = torch.full((Kv, G), -1e30)
+            l = torch.zeros((Kv, G))
+            acc = torch.zeros((Kv, G, hd))
+            for j0 in range(s * per, min((s + 1) * per, span), tile):
+                j1 = min(j0 + tile, (s + 1) * per, span)
+                kt = kf[b, j0:j1].transpose(0, 1)          # (Kv, n, hd)
+                vt = vf[b, j0:j1].transpose(0, 1)
+                sc = torch.einsum("kgd,knd->kgn", qf[b], kt) * scale2
+                if empty:
+                    sc = torch.full_like(sc, -1e30)
+                m_new = torch.maximum(m, sc.amax(-1))
+                a = torch.exp2(m - m_new)
+                p = torch.exp2(sc - m_new[..., None])
+                l = a * l + p.sum(-1)
+                acc = a[..., None] * acc + torch.einsum("kgn,knd->kgd", p, vt)
+                m = m_new
+            ms.append(m)
+            ls.append(l)
+            accs.append(acc)
+        m_all = torch.stack(ms)                             # (S, Kv, G)
+        w = torch.exp2(m_all - m_all.amax(0))
+        l_tot = (w * torch.stack(ls)).sum(0)
+        acc_tot = (w[..., None] * torch.stack(accs)).sum(0)
+        out[b] = acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
