@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
            the degenerate rounds with their NaN and ±inf in place, and
            at m > 16; K1 in its scalar, shared and per-client α modes),
            K7 and K8 within a stated bf16 tolerance (K7 also at the LM
-           round's shape, and ragged kv_length on the card: the oracle,
+           round's shape and, in f32, the lm scenario's (4, 2 heads, 1 kv
+           head, L 16, hd 32), and ragged kv_length on the card: the oracle,
            bitwise equal to impl="torch", no K7 launch; K8 also on a
            32K-slot cache split across blocks, ragged 4K-slot caches,
            rows with kv_length 0 against the mean of V, and a Python-int
@@ -81,6 +82,23 @@ Phases, each printing one JSON line:
            sign-flipped row of 4) for 2 rounds, screen and mean with a
            NaN row for one round each, the mean's round skipped with φ
            and the Adam state bitwise unchanged.
+  train_scenarios  the paper's other scenarios through `run_comparison`
+           on the client plane, five methods each: (i) the committed
+           Sent140 plan (`sent_lstm`, 8 clients a round; cut to 6
+           rounds), its comm-to-target table printed beside the
+           artifact's, then 5 FOMAML rounds on the kernel route and on
+           impl="torch" (equal NaN masks in φ, finite entries bitwise);
+           (ii) the committed recommender plan (FedMeta on the 40-way
+           local head, FedAvg on the 120-way global head; cut to 20
+           rounds), θ's size by method equal to the artifact's, top-4 in
+           every eval record; (iii) the Shakespeare (`char_lstm`) and LM
+           (reduced SmolLM, K7 in f32) registry plans for 10 rounds, an
+           eval every 5. Bytes a round held exactly by method; K1, K2 and
+           K3 launched in each, K7 in the LM's; eval accuracy and loss
+           finite. (iv) Two FOMAML rounds of each LSTM at the paper's
+           widths (`char_lstm(70, 256, 8)`, `sent_lstm(2000, 100, 64)`;
+           52,174,208 and 17,574,528 B a round), round 1 held against
+           the all-plain route, the char-LSTM's round 2 traced.
   serve_ssm  the serving path of Mamba2-370M at full width (bf16, random
            weights, seed 0): 16 requests of the serve phase's traffic,
            supports of 128-token sequences, prompts of 200 tokens (two
@@ -773,6 +791,7 @@ def check_k7(torch):
         (2, 8, 8, 40, 128, 128, "bfloat16", False, None, 0),  # hd 128, no mask
         (2, 8, 1, 70, 128, 64, "bfloat16", True, 20, 5),     # G = 8, hd_v < hd
         (2, 6, 2, 50, 40, 24, "bfloat16", True, None, 0),    # element staging
+        (4, 2, 1, 16, 32, 32, "float32", True, None, 0),     # the lm scenario
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -2034,9 +2053,9 @@ def comm_compare(torch, errors, rounds=100, eval_every=2):
     """(iii) the committed FEMNIST comparison plan on the client plane:
     FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD."""
     from repro_torch.federated.experiment import format_table, run_comparison
-    from repro_torch.launch.compare import femnist_plan
+    from repro_torch.launch.compare import comparison_plan
     committed = _committed("femnist_compare.json")
-    plan = femnist_plan(rounds=rounds, eval_every=eval_every)
+    plan = comparison_plan("femnist", rounds=rounds, eval_every=eval_every)
     reset_launches()
     t0 = time.perf_counter()
     out = run_comparison(plan, device="cuda")
@@ -2552,6 +2571,257 @@ def phase_train_faults(torch, cfg):
     return paths
 
 
+# -------------------------------------------------------- train_scenarios
+
+# bytes of one round (download + upload of f32 φ, m clients: 2·m·n·4 B)
+# by scenario and method, the reference's: Meta-SGD ships {θ, α}; the
+# recommender's FedMeta methods ship the 40-way local head (n = 11,880),
+# FedAvg the 120-way global one (n = 17,080)
+SCENARIO_ROUND_BYTES = {
+    "sent140": {"*": 2_986_112, "meta-sgd": 5_972_224},
+    "shakespeare": {"*": 3_636_608, "meta-sgd": 7_273_216},
+    "recommend": {"*": 760_320, "meta-sgd": 1_520_640,
+                  "fedavg": 1_093_120, "fedavg(meta)": 1_093_120},
+    "lm": {"*": 2_500_608, "meta-sgd": 5_001_216},
+}
+# rounds and eval cadence run here. The committed plans (sent140,
+# recommend) run 60 rounds with an eval every 2; the registry's
+# (shakespeare, lm) 100 with an eval every 10. Cut to keep the phase near
+# 150 s: rounds are host-bound (eager dispatch), and a round of the five
+# methods with its evals took 6.4 s for Sent140, 8.4 s for Shakespeare
+# and 0.68 s for the recommender on the H100. Each cut is printed on the
+# part's line.
+SCENARIO_RUNS = {"sent140": (6, 2), "recommend": (20, 2),
+                 "shakespeare": (10, 5), "lm": (10, 5)}
+# the paper's widths (the reference's defaults): LEAF's Shakespeare
+# char-LSTM and the Sent140 LSTM with a learned 64-wide embedding;
+# bytes of one FOMAML round of 8 clients
+PAPER_WIDTHS = {
+    "shakespeare": ("char_lstm", dict(vocab=70, hidden=256, embed_dim=8),
+                    52_174_208),
+    "sent140": ("sent_lstm", dict(vocab=2000, hidden=100, embed_dim=64),
+                17_574_528),
+}
+FED_KERNELS = ("inner_update_plane", "weighted_aggregate", "adam_flat")
+
+
+def _finite_evals(rec) -> bool:
+    """Every eval record's accuracy and loss, and the test pass's, finite
+    (`sent_lstm` may leave NaN entries in φ, in the reference too)."""
+    vals = [rec["test_acc"], rec["test_loss"]]
+    vals += [h[k] for h in rec["history"] if "eval_acc" in h
+             for k in ("eval_acc", "eval_loss")]
+    return all(math.isfinite(v) for v in vals)
+
+
+def _nan_masks_and_finite_equal(torch, a, b):
+    """(NaN masks equal, finite entries bitwise equal, largest finite
+    gap) of two flat tensors."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    same_mask = bool(torch.equal(na, nb))
+    live = ~(na | nb)
+    gap = float((a[live] - b[live]).abs().max()) if bool(live.any()) else 0.0
+    return same_mask, bool(torch.equal(a[live], b[live])), gap
+
+
+def scenario_compare(torch, errors, dataset):
+    """One scenario's comparison plan through `run_comparison` on the
+    client plane: the five methods, bytes a round held exactly by method,
+    K1, K2 and K3 launched (K7 too on `lm`), eval metrics finite; the
+    committed artifact's comm-to-target table beside the port's."""
+    from repro_torch.federated.experiment import format_table, run_comparison
+    from repro_torch.launch.compare import COMMITTED_PLANS, comparison_plan
+    rounds, eval_every = SCENARIO_RUNS[dataset]
+    plan = comparison_plan(dataset, rounds=rounds, eval_every=eval_every)
+    full = COMMITTED_PLANS.get(dataset, dict(rounds=100, eval_every=10))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_comparison(plan, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    committed = (_committed(f"{dataset}_compare.json")
+                 if dataset in COMMITTED_PLANS else None)
+    want = SCENARIO_ROUND_BYTES[dataset]
+    for m, rec in out["methods"].items():
+        rb = want.get(m, want["*"])
+        _hold_bytes(errors, f"{dataset} {m}", rec, rb, rb // 2, None)
+        if not _finite_evals(rec):
+            errors.append(f"{dataset} {m}: non-finite eval accuracy or loss")
+        # the recommender's artifact records θ's size by method
+        ref_phi = committed and committed["methods"][m]["comm"].get(
+            "phi_MB")
+        if ref_phi is not None and rec["comm"]["phi_MB"] != ref_phi:
+            errors.append(f"{dataset} {m}: phi_MB {rec['comm']['phi_MB']}, "
+                          f"artifact {ref_phi}")
+        if dataset == "recommend" and not all(
+                "top4" in h for h in rec["history"] if "eval_acc" in h):
+            errors.append(f"recommend {m}: an eval record without top4")
+    need = FED_KERNELS + (("flash_attention",) if dataset == "lm" else ())
+    for name in need:
+        if launches[name] <= 0:
+            errors.append(f"{dataset}: {name} not launched")
+    table = {}
+    for m, rec in out["methods"].items():
+        row = out["comm_to_target"].get(m) or {}
+        table[m] = {k: row.get(k) for k in
+                    ("rounds", "comm_MB", "comm_reduction_vs_fedavg")}
+        table[m].update(test_acc=rec["test_acc"], seconds=rec["seconds"],
+                        bytes_per_round=round(rec["comm"]["comm_MB"] * 1e6
+                                              / rounds),
+                        phi_MB=rec["comm"]["phi_MB"])
+        if committed:
+            ref = committed["comm_to_target"].get(m) or {}
+            table[m].update({f"committed_{k}": ref.get(k) for k in
+                             ("rounds", "comm_MB",
+                              "comm_reduction_vs_fedavg")})
+            table[m]["committed_test_acc"] = \
+                committed["methods"][m]["test_acc"]
+    print(f"[{dataset}] port, {rounds} rounds:\n{format_table(out)}",
+          flush=True)
+    if committed:
+        print(f"[{dataset}] committed artifact, {full['rounds']} rounds:\n"
+              f"{format_table(committed)}", flush=True)
+    res = {"rounds": rounds, "eval_every": eval_every,
+           "cut": (None if (rounds, eval_every) == (full["rounds"],
+                                                     full["eval_every"])
+                   else f"{full['rounds']} rounds, eval every "
+                        f"{full['eval_every']} -> {rounds}, {eval_every}"),
+           "target_acc": out["target_acc"],
+           "committed_target_acc": committed and committed["target_acc"],
+           "wall_s": wall, "launches": launches, "table": table}
+    return res, {f"train_scenarios[{dataset}]": launches}
+
+
+def scenario_nan_routes(torch, errors, rounds=5):
+    """Sent140 FOMAML for 5 rounds on the kernel route and on
+    impl="torch": equal NaN masks in φ, its finite entries and the
+    history bitwise equal."""
+    from repro_torch.federated.experiment import run_comparison
+    from repro_torch.launch.compare import comparison_plan
+    plan = dataclasses.replace(
+        comparison_plan("sent140", rounds=rounds, eval_every=rounds),
+        methods=("fomaml",))
+    outs = [run_comparison(plan, device="cuda", impl=impl)
+            for impl in (None, "torch")]
+    a, b = (o["states"]["fomaml"]["phi"] for o in outs)
+    same_mask, same_finite, gap = _nan_masks_and_finite_equal(torch, a, b)
+    same_history = outs[0]["methods"]["fomaml"]["history"] == \
+        outs[1]["methods"]["fomaml"]["history"]
+    if not (same_mask and same_finite):
+        errors.append(f"sent140 kernel vs plain route: NaN masks equal "
+                      f"{same_mask}, finite entries bitwise {same_finite} "
+                      f"(largest gap {gap})")
+    return {"rounds": rounds, "nan_entries": int(torch.isnan(a).sum()),
+            "same_nan_mask": same_mask, "finite_bitwise": same_finite,
+            "finite_max_gap": gap, "same_history": same_history}
+
+
+def scenario_paper_width(torch, errors, dataset, trace):
+    """Two FOMAML rounds of the paper-width LSTM on the scenario's
+    clients, m = 8, client plane: bytes a round exactly, round 1 held
+    against the all-plain route (f32: meta-gradients within 1e-3 of the
+    largest, φ within Adam's 2·lr), K1–K3 launched; round 2 traced when
+    ``trace``."""
+    from repro_torch.federated.experiment import (DATASETS, _build_views,
+                                                 make_trainer)
+    from repro_torch.launch.compare import comparison_plan
+    from repro_torch.models import paper
+    from repro_torch.utils.pytree import tree_size
+    factory, kw, round_bytes = PAPER_WIDTHS[dataset]
+    plan = dataclasses.replace(
+        comparison_plan(dataset, rounds=2, eval_every=0),
+        methods=("fomaml",),
+        model_fn=lambda device: getattr(paper, factory)(**kw, device=device))
+    _, view = _build_views(plan, DATASETS[dataset], "cuda")
+
+    def round1(impl):
+        tr = make_trainer(plan, "fomaml", view.loss_fn, view.eval_fn,
+                          view.train, device="cuda", impl=impl)
+        t0 = time.perf_counter()
+        state = tr.run(tr.init(plan.seed, view.model.init), 1)
+        torch.cuda.synchronize()
+        return tr, state, time.perf_counter() - t0
+
+    _, plain, _ = round1("torch")
+    reset_launches()
+    tr, state, wall1 = round1(None)
+    n = tree_size(tr.phi_tree(state)["theta"])
+    d_phi = float((state["phi"] - plain["phi"]).abs().max())
+    d_g = float((state["opt"]["m"] - plain["opt"]["m"]).abs().max()
+                / plain["opt"]["m"].abs().max())
+    bitwise = bool(torch.equal(state["phi"], plain["phi"]))
+    del plain
+    phi_tol, g_tol = 2 * plan.outer_lr + 1e-6, 1e-3
+    if not (d_phi <= phi_tol and d_g <= g_tol):
+        errors.append(f"{dataset} paper width round 1 vs the plain route: "
+                      f"|dφ| {d_phi} (limit {phi_tol}), meta-gradient "
+                      f"{d_g} (limit {g_tol})")
+    box = {}
+
+    def second():
+        box["state"] = tr.run(state, 1)
+
+    if trace:
+        wall2, traced = _traced(torch, second)
+    else:
+        t0 = time.perf_counter()
+        second()
+        torch.cuda.synchronize()
+        wall2, traced = time.perf_counter() - t0, None
+    launches = read_launches()
+    for name in FED_KERNELS:
+        if launches[name] <= 0:
+            errors.append(f"{dataset} paper width: {name} not launched")
+    rec = {"comm": tr.comm.summary(), "history": tr.history}
+    _hold_bytes(errors, f"{dataset} paper width", rec, round_bytes,
+                round_bytes // 2, None)
+    if not bool(torch.isfinite(box["state"]["phi"]).all()):
+        errors.append(f"{dataset} paper width: non-finite φ")
+    res = {"model": factory, **kw, "params": n, "clients": 8,
+           "round_bytes": round(rec["comm"]["comm_MB"] * 1e6 / 2),
+           "round_wall_ms": [wall1 * 1e3, wall2 * 1e3],
+           "query_loss": [h["query_loss"] for h in tr.history],
+           "plain_route_round1": {"max_abs_dphi": d_phi, "phi_tol": phi_tol,
+                                  "meta_grad_rel": d_g, "meta_grad_tol": g_tol,
+                                  "phi_bitwise": bitwise},
+           "launches": launches}
+    if traced:
+        res["trace_round2"] = traced
+    return res, {f"train_scenarios[{dataset} paper width]": launches}
+
+
+def phase_train_scenarios(torch):
+    """The paper's other scenarios: one JSON line per part, each part's
+    kernel launches counted from 0."""
+    paths = {}
+    failed = []
+    for part in ("sent140", "recommend", "shakespeare", "lm",
+                 "paper_widths"):
+        errors = []
+        t0 = time.perf_counter()
+        if part == "paper_widths":
+            res, p = {}, {}
+            for dataset in PAPER_WIDTHS:
+                res[dataset], q = scenario_paper_width(
+                    torch, errors, dataset, trace=(dataset == "shakespeare"))
+                p.update(q)
+        else:
+            res, p = scenario_compare(torch, errors, part)
+            if part == "sent140":
+                res["nan_routes"] = scenario_nan_routes(torch, errors)
+        paths.update(p)
+        emit({"phase": "train_scenarios", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0, **res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2614,6 +2884,8 @@ def main(argv=None) -> int:
         paths.update(phase_train_faults(torch, cfg))
         gc.collect()
         torch.cuda.empty_cache()
+        phase = mark("train_scenarios")
+        paths.update(phase_train_scenarios(torch))
         mcfg = get_config("mamba2-370m")
         phase = mark("serve_ssm")
         launches, ctx = phase_serve_ssm(torch, mcfg)

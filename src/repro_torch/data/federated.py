@@ -10,8 +10,9 @@ fraction p per client.
 
 The sampling code is the reference's, call for call, so a given seed
 gives the same arrays and advances a `RandomState` the same way. Batches
-are padded to fixed shapes. `FederatedDataset.view`/`stats` and
-`assemble_task_batch` (population plane) wait for their slices.
+are padded to fixed shapes. `FederatedDataset.stats`, the lazy client
+registry and `assemble_task_batch` (population plane) wait for their
+slices: the generators' ``lazy=True`` raises (`refuse_lazy`).
 """
 from __future__ import annotations
 
@@ -69,6 +70,38 @@ class FederatedDataset:
         val = [self.clients[i] for i in idx[n_train:n_train + n_val]]
         test = [self.clients[i] for i in idx[n_train + n_val:]]
         return train, val, test
+
+    def view(self, transform, num_classes: int | None = None,
+             name: str | None = None) -> "FederatedDataset":
+        """A per-client re-labelled/re-featured view of the same dataset.
+
+        ``transform(client) -> ClientData`` runs on every client and MUST
+        preserve client order and per-client example counts ``n``. Under
+        that contract a view consumes the same seeded sampling streams as
+        the original (`sample_task_batch` draws depend only on the client
+        count and each client's ``n``), which lets the experiment plane
+        run FedMeta on a local-label view and FedAvg on the global view
+        of one dataset.
+        """
+        clients = []
+        for c in self.clients:
+            t = transform(c)
+            if t.n != c.n:
+                raise ValueError("view transform must preserve client "
+                                 f"sizes (got {t.n}, want {c.n})")
+            clients.append(t)
+        return FederatedDataset(clients, num_classes or self.num_classes,
+                                name=name or self.name)
+
+
+def refuse_lazy(lazy: bool) -> None:
+    """The generators take the reference's ``lazy=``, ``independent=``
+    and ``cache_clients=`` keywords; a lazy `ClientRegistry` is not
+    ported yet."""
+    if lazy:
+        raise NotImplementedError("lazy=True (a ClientRegistry) is not "
+                                  "ported yet: it joins the port with the "
+                                  "population slice")
 
 
 def support_query_split(client: ClientData, support_frac: float,

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.data.federated import ClientData, FederatedDataset
+from repro_torch.data.federated import (ClientData, FederatedDataset,
+                                        refuse_lazy)
 
 
 def _class_prototypes(num_classes: int, size: int, rng: np.random.RandomState):
@@ -79,10 +80,13 @@ def _femnist_client(protos, num_classes, image_size, mean_samples,
 
 def make_femnist(num_clients: int = 120, num_classes: int = 62,
                  image_size: int = 28, mean_samples: int = 80,
-                 seed: int = 0) -> FederatedDataset:
+                 seed: int = 0, *, lazy: bool = False,
+                 independent: bool = False,
+                 cache_clients=None) -> FederatedDataset:
     """Eager `FederatedDataset`; the same draws, in the same order, as
-    the reference's eager generator. (Its ``lazy=`` registry waits for the
-    population slice.)"""
+    the reference's eager generator. ``lazy=True`` raises
+    (`refuse_lazy`)."""
+    refuse_lazy(lazy)
     rng = np.random.RandomState(seed)
     protos = _class_prototypes(num_classes, image_size, rng)
     clients = [_femnist_client(protos, num_classes, image_size,

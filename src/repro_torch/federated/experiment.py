@@ -15,12 +15,15 @@ accounting. `run_comparison(plan)` enforces that:
   * the paper's comm-to-target metric (`comm_to_target`) against one
     shared target, and per-method fairness statistics.
 
-The port has the FEMNIST scenario. The other datasets and the knobs of
-later slices (the population plane, prefetching and fused rounds)
-raise, naming their slice. The plan's ``compression``, ``dp``,
-``block_dtype`` and ``opt_state_dtype`` run the bytes-on-the-wire
-round; its ``faults``, ``aggregator``, ``screen_factor`` and ``trim``
-the failure plane (packed pipelines only).
+Scenarios: FEMNIST, Sent140, Shakespeare, the production recommender
+(FedMeta ships a 40-way local head over each client's own services,
+FedAvg a head over the whole catalogue: `_build_views`) and LM
+personalization on a reduced SmolLM. The knobs of later slices (the
+population plane, prefetching and fused rounds) raise, naming their
+slice. The plan's ``compression``, ``dp``, ``block_dtype`` and
+``opt_state_dtype`` run the bytes-on-the-wire round; its ``faults``,
+``aggregator``, ``screen_factor`` and ``trim`` the failure plane
+(packed pipelines only).
 
 Injection: `run_comparison` takes the reference's initial parameters
 (``init_params``) and FedAvg(Meta)'s fine-tune indices
@@ -55,10 +58,108 @@ def _femnist_model(device):
     return femnist_cnn(num_classes=62, hidden=128, device=device)
 
 
+def _sent140_data(num_clients, seed):
+    from repro_torch.data import make_sent140
+    return make_sent140(num_clients=num_clients, seed=seed)
+
+
+def _sent140_model(device):
+    from repro_torch.models.paper import sent_lstm
+    return sent_lstm(vocab=2000, hidden=32, embed_dim=16, device=device)
+
+
+def _shakespeare_data(num_clients, seed):
+    from repro_torch.data import make_shakespeare
+    return make_shakespeare(num_clients=num_clients, mean_samples=150,
+                            seed=seed)
+
+
+def _shakespeare_model(device):
+    from repro_torch.models.paper import char_lstm
+    return char_lstm(vocab=70, hidden=64, embed_dim=8, device=device)
+
+
+# ---- recommend scenario (paper §4.3 / Table 3) --------------------------
+# Scaled constants of the synthetic production dataset: the paper has
+# 2,400 services with 2–36 per client and a 40-way local head; the
+# scenario keeps the 40-way head and the 2–36-per-client structure over a
+# 120-service catalogue (data/synth_recommend.py).
+REC_SERVICES, REC_CTX, REC_HEAD = 120, 24, 40
+REC_FEAT = REC_CTX + REC_SERVICES
+
+
+def _recommend_data(num_clients, seed):
+    from repro_torch.data import make_recommend
+    return make_recommend(num_clients=num_clients, num_services=REC_SERVICES,
+                          ctx_dim=REC_CTX, seed=seed)
+
+
+def _recommend_model(device):
+    """The GLOBAL-head recommender FedAvg must ship: one classifier over
+    the whole service catalogue."""
+    from repro_torch.models.paper import rec_nn
+    return rec_nn(REC_FEAT, REC_SERVICES, device=device)
+
+
+def _recommend_meta_model(plan, device):
+    """The LOCAL-head recommender FedMeta ships: the same trunk with a
+    ``local_head``-way output over the client's own services — the θ-size
+    asymmetry behind the paper's Table 3."""
+    from repro_torch.models.paper import rec_nn
+    return rec_nn(REC_FEAT, plan.local_head or REC_HEAD, device=device)
+
+
+def _recommend_meta_data(clients, plan):
+    from repro_torch.data import localize_clients
+    return localize_clients(clients, plan.local_head or REC_HEAD)
+
+
+def _recommend_loss(model):
+    from repro_torch.core.losses import classification_loss
+    return classification_loss(model.apply, topk=(4,))   # Table 3: Top-4
+
+
+# ---- LM personalization scenario ----------------------------------------
+# Per-client dialect corpora (data/lm_tasks.make_lm_clients) on a reduced
+# SmolLM: small vocabulary and sequences.
+LM_VOCAB, LM_SEQ = 64, 16
+
+
+def _lm_data(num_clients, seed):
+    from repro_torch.data import make_lm_clients
+    return make_lm_clients(num_clients=num_clients, seq_len=LM_SEQ,
+                           vocab=LM_VOCAB, seed=seed)
+
+
+def _lm_model(device):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.steps import make_apply_fn
+    from repro_torch.models import init_lm
+    from repro_torch.models.paper import Model
+    cfg = dataclasses.replace(reduced_config(get_config("smollm-360m")),
+                              num_layers=2, d_model=64, num_heads=2,
+                              num_kv_heads=1, head_dim=32, d_ff=128,
+                              vocab_size=LM_VOCAB, dtype="float32")
+    return Model(lambda key: init_lm(key, cfg, device=device),
+                 make_apply_fn(cfg), f"lm-{cfg.name}")
+
+
+def _lm_loss(model):
+    from repro_torch.core.losses import lm_pair_loss
+    return lm_pair_loss(model.apply)
+
+
 # dataset name -> builders + paper-Table-4-shaped hyperparameters (the
-# reference's values). Learning rates may be tuned per algorithm
-# (method_overrides); the sharing discipline is about splits, sampling
-# streams and byte accounting.
+# reference's values, letter for letter). Learning rates may be tuned
+# per algorithm (method_overrides); the sharing discipline is about
+# splits, sampling streams and byte accounting.
+#
+# Optional entries: ``loss(model) -> (loss_fn, eval_fn)`` (default
+# `classification_loss(model.apply)`); ``meta_model(plan, device)``, the
+# FedMeta methods' model (the baselines keep ``model``);
+# ``meta_data(clients, plan)``, the FedMeta methods' order- and
+# size-preserving client view; ``support_frac`` / ``local_head`` /
+# ``inner_steps``, further plan defaults.
 DATASETS = {
     "femnist": dict(data=_femnist_data, model=_femnist_model,
                     inner_lr=0.01, outer_lr=1e-3, local_lr=1e-3,
@@ -67,18 +168,30 @@ DATASETS = {
                     # first-order MAML stagnates at inner_lr=0.01 on
                     # synthetic femnist; 0.05 converges
                     method_overrides={"fomaml": {"inner_lr": 0.05}}),
+    "sent140": dict(data=_sent140_data, model=_sent140_model,
+                    inner_lr=0.01, outer_lr=1e-3, local_lr=1e-3,
+                    clients_per_round=8, support_size=16, query_size=16,
+                    num_clients=100),
+    "shakespeare": dict(data=_shakespeare_data, model=_shakespeare_model,
+                        inner_lr=0.1, outer_lr=1e-2, local_lr=1e-3,
+                        clients_per_round=8, support_size=24, query_size=24,
+                        num_clients=48),
+    "recommend": dict(data=_recommend_data, model=_recommend_model,
+                      loss=_recommend_loss, meta_model=_recommend_meta_model,
+                      meta_data=_recommend_meta_data,
+                      # local labels are per client (local id 0 = the
+                      # client's first service), so the meta models lean
+                      # on real local adaptation: 5 inner steps at lr 0.1
+                      inner_lr=0.1, inner_steps=5,
+                      outer_lr=1e-3, local_lr=1e-3,
+                      clients_per_round=8, support_size=32, query_size=16,
+                      num_clients=120, support_frac=0.5,
+                      local_head=REC_HEAD),
+    "lm": dict(data=_lm_data, model=_lm_model, loss=_lm_loss,
+               inner_lr=0.1, outer_lr=3e-3, local_lr=1e-2,
+               clients_per_round=4, support_size=4, query_size=4,
+               num_clients=32, support_frac=0.5),
 }
-# the reference's other scenarios and the port slice that brings each
-PENDING_DATASETS = {"sent140": "scenario", "shakespeare": "scenario",
-                    "recommend": "scenario", "lm": "scenario"}
-
-
-def _scenario(dataset: str) -> dict:
-    if dataset in PENDING_DATASETS:
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet: it joins the port "
-            f"with the {PENDING_DATASETS[dataset]} slice")
-    return DATASETS.get(dataset, {})
 
 
 @dataclasses.dataclass
@@ -88,10 +201,13 @@ class ExperimentPlan:
 
     ``pipeline`` picks the FedMeta substrate: "tree", "packed" or
     "client_plane" (the baselines are substrate-independent).
-    ``data_fn(num_clients, seed)``, ``model_fn(device)`` and
-    ``loss_builder(model)`` override the named registry (callables are
-    not serialized); ``meta_model_fn``/``meta_data_fn`` (the recommend
-    scenario's local head) wait for the scenario slice."""
+    ``data_fn(num_clients, seed)``, ``model_fn(device)``,
+    ``loss_builder(model)``, ``meta_model_fn(plan, device)`` and
+    ``meta_data_fn(clients, plan)`` override the named registry
+    (callables are not serialized). ``local_head`` is the FedMeta head
+    width of a scenario with a per-method model-size asymmetry
+    (recommend: 40, the paper's §4.3 local classifier; None = no
+    asymmetry)."""
     dataset: str
     methods: Sequence[str] = DEFAULT_METHODS
     rounds: int = 100
@@ -160,9 +276,7 @@ def default_plan(dataset: str, **overrides) -> ExperimentPlan:
     >>> default_plan("femnist").method_overrides
     {'fomaml': {'inner_lr': 0.05}}
     """
-    su = _scenario(dataset)
-    if not su:
-        raise KeyError(f"unknown dataset {dataset!r}")
+    su = DATASETS[dataset]
     base = dict(clients_per_round=su["clients_per_round"],
                 support_size=su["support_size"],
                 query_size=su["query_size"], inner_lr=su["inner_lr"],
@@ -265,19 +379,16 @@ class _View:
 
 
 def _build_views(plan: ExperimentPlan, su: dict, device="cuda"):
-    """-> (global_view, meta_view). FEMNIST has no per-method asymmetry,
-    so the two are one view; the local-head scenarios (meta_model /
-    meta_data) join with the scenario slice."""
+    """-> (global_view, meta_view): one view unless the scenario defines
+    a per-method asymmetry (meta_model / meta_data), in which case the
+    FedMeta methods get their own model and client-data view while the
+    baselines keep the global one. Views preserve client order and sizes,
+    so both consume the same seeded sampling streams."""
     from repro_torch.core.losses import classification_loss
     if plan.lazy_population:
         raise NotImplementedError("plan.lazy_population is not ported yet: "
                                   "it joins the port with the population "
                                   "slice")
-    if (plan.meta_model_fn or su.get("meta_model") or plan.meta_data_fn
-            or su.get("meta_data")):
-        raise NotImplementedError("per-method model/data views are not "
-                                  "ported yet: they join the port with "
-                                  "the scenario slice")
     data_fn = plan.data_fn or su["data"]
     model_fn = plan.model_fn or su["model"]
     loss_builder = plan.loss_builder or su.get("loss") or (
@@ -285,8 +396,19 @@ def _build_views(plan: ExperimentPlan, su: dict, device="cuda"):
     ds = data_fn(plan.num_clients, plan.seed)
     train, val, test = ds.split_clients(seed=plan.seed)
     model = model_fn(device)
-    view = _View(train, val, test, model, *loss_builder(model))
-    return view, view
+    gview = _View(train, val, test, model, *loss_builder(model))
+
+    meta_model_fn = plan.meta_model_fn or su.get("meta_model")
+    meta_data_fn = plan.meta_data_fn or su.get("meta_data")
+    if meta_model_fn is None and meta_data_fn is None:
+        return gview, gview
+    mmodel = meta_model_fn(plan, device) if meta_model_fn else model
+    if meta_data_fn:
+        mtrain, mval, mtest = (meta_data_fn(c, plan)
+                               for c in (train, val, test))
+    else:
+        mtrain, mval, mtest = train, val, test
+    return gview, _View(mtrain, mval, mtest, mmodel, *loss_builder(mmodel))
 
 
 def _cap_clients(clients, cap: Optional[int]):
@@ -375,13 +497,15 @@ def run_comparison(plan: ExperimentPlan, log: Callable = None, *,
     `launch/compare.py --outdir` does, so no run can overwrite the
     committed reference artifacts under ``results/``. ``device``: where the trainers run; ``impl``: the
     FedMeta kernels' route ("cuda" or "torch"). ``init_params``
-    ({method: numpy tree}, see `convert.initial_params`) and
-    ``finetune_idx`` inject the reference's draws. Beside the
+    ({method: numpy tree}, see `convert.initial_params`; each method's
+    tree is drawn from its own view's model, so the recommender's
+    FedMeta methods start from the 40-way local head and FedAvg from the
+    global one) and ``finetune_idx`` inject the reference's draws. Beside the
     reference's keys the record carries ``states``, each method's final
     train state (not written to the file)."""
     from repro_torch.convert import initial_params
     say = log or (lambda *a, **k: None)
-    su = _scenario(plan.dataset)
+    su = DATASETS.get(plan.dataset, {})
     gview, mview = _build_views(plan, su, device)
 
     results = {}

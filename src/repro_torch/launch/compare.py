@@ -1,11 +1,12 @@
 """Experiment-plane launcher of the port: the counterpart of
 `examples/compression_femnist.py` (``--sweep compression``), of the
-FEMNIST comparison plan behind `examples/femnist_fedmeta.py` and
-``results/experiments/femnist_compare.json`` (``--sweep femnist``), and
-of `examples/robustness_femnist.py` (``--sweep robustness``).
+comparison plans behind ``results/experiments/{femnist,sent140,
+recommend}_compare.json`` and the registry's other scenarios (``--sweep
+femnist|sent140|shakespeare|recommend|lm``), and of
+`examples/robustness_femnist.py` (``--sweep robustness``).
 
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep compression
-    PYTHONPATH=src python -m repro_torch.launch.compare --sweep femnist \\
+    PYTHONPATH=src python -m repro_torch.launch.compare --sweep sent140 \\
         --device cpu --pipeline tree --init-from init.npz --outdir /tmp/f
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep robustness
 
@@ -13,8 +14,11 @@ of `examples/robustness_femnist.py` (``--sweep robustness``).
 a bf16 block, int8 with error feedback and top-5% with error feedback
 (bf16 values) — on the same split and stream, target accuracy 0.12; it
 prints each variant's bytes and the upload-bytes-to-target ratio against
-bf16. ``femnist``: FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD on
-the committed comparison plan; it prints the comm-to-target table.
+bf16. A scenario (``femnist``, ``sent140``, ``shakespeare``,
+``recommend``, ``lm``): FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD
+on the committed comparison plan where one exists (FEMNIST 100 rounds,
+Sent140 and the recommender 60, an eval every 2; Sent140's target 0.7),
+else on the registry's defaults; it prints the comm-to-target table.
 ``robustness``: FOMAML on FEMNIST (60 clients, 8 a round, 40 rounds,
 eval every 5) under five failure scenarios — clean, dropout 0.25,
 sign-flip ×10 Byzantine at 0.125 and 0.25, non-finite 0.125 — each with
@@ -26,8 +30,9 @@ JSON is written only where ``--outdir`` says. Runs on the card unless
 ``--device cpu``. ``--init-from`` starts every method from the initial
 parameters in an ``.npz`` (keys ``method|path|to|leaf``, plus
 ``finetune_idx`` for FedAvg(Meta)); ``python tests/test_torch_experiment.py
---write-init init.npz`` writes the JAX reference's, so the port can
-replay the committed comparison from the reference's starting point.
+--write-init init.npz [--dataset sent140]`` writes the JAX reference's,
+so the port can replay a committed comparison from the reference's
+starting point.
 """
 from __future__ import annotations
 
@@ -66,12 +71,25 @@ def compression_plan(label: str, *, rounds=30, eval_every=2, seed=0,
                         name=f"compression_{label}", **VARIANTS[label])
 
 
-def femnist_plan(*, rounds=100, eval_every=2, seed=0,
-                 pipeline="client_plane"):
-    """The committed FEMNIST comparison plan (five methods, FOMAML's
-    inner_lr 0.05 from the registry's overrides)."""
-    return default_plan("femnist", rounds=rounds, eval_every=eval_every,
-                        seed=seed, pipeline=pipeline)
+# the committed comparison artifacts' plans
+# (results/experiments/<dataset>_compare.json), beside the registry's
+COMMITTED_PLANS = {"femnist": dict(rounds=100, eval_every=2),
+                   "sent140": dict(rounds=60, eval_every=2, target_acc=0.7),
+                   "recommend": dict(rounds=60, eval_every=2)}
+SCENARIOS = ("femnist", "sent140", "shakespeare", "recommend", "lm")
+
+
+def comparison_plan(dataset: str, *, rounds=None, eval_every=None, seed=0,
+                    pipeline="client_plane"):
+    """The committed comparison plan of ``dataset`` (five methods, the
+    registry's hyperparameters and overrides), or the registry's
+    defaults where no artifact exists; ``rounds`` and ``eval_every``
+    override either."""
+    kw = dict(COMMITTED_PLANS.get(dataset, {}))
+    kw.update({k: v for k, v in (("rounds", rounds),
+                                 ("eval_every", eval_every))
+               if v is not None})
+    return default_plan(dataset, seed=seed, pipeline=pipeline, **kw)
 
 
 def upload_ratios(variants: dict, base: str = "bf16") -> dict:
@@ -242,15 +260,16 @@ def sweep_robustness(*, device="cuda", impl=None, init=(None, None),
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sweep", choices=("compression", "femnist",
-                                        "robustness"),
-                    default="compression")
+    ap.add_argument("--sweep", choices=("compression", "robustness")
+                    + SCENARIOS, default="compression")
     ap.add_argument("--rounds", type=int, default=None,
-                    help="default: 30 (compression), 100 (femnist), 40 "
-                         "(robustness)")
+                    help="default: 30 (compression), 40 (robustness), the "
+                         "committed plan's or else the registry's "
+                         "(scenarios)")
     ap.add_argument("--eval-every", type=int, default=None,
-                    help="default: 2 (compression, femnist), 5 "
-                         "(robustness)")
+                    help="default: 2 (compression), 5 (robustness), the "
+                         "committed plan's or else the registry's "
+                         "(scenarios)")
     ap.add_argument("--clients", type=int, default=None,
                     help="robustness: the client population (default 60)")
     ap.add_argument("--seed", type=int, default=0)
@@ -286,14 +305,14 @@ def main(argv=None):
               out["upload_to_target_ratio_vs_bf16"])
         name = "compression_femnist.json"
     else:
-        plan = femnist_plan(rounds=args.rounds or 100,
-                            eval_every=args.eval_every or 2, seed=args.seed,
-                            pipeline=args.pipeline)
+        plan = comparison_plan(args.sweep, rounds=args.rounds,
+                               eval_every=args.eval_every, seed=args.seed,
+                               pipeline=args.pipeline)
         out = run_comparison(plan, print, device=args.device,
                              init_params=init[0], finetune_idx=init[1])
         out.pop("states")
         print(format_table(out))
-        name = "femnist_compare.json"
+        name = f"{args.sweep}_compare.json"
     if args.outdir:
         os.makedirs(args.outdir, exist_ok=True)
         path = os.path.join(args.outdir, name)

@@ -86,9 +86,24 @@ def test_plan_json_and_defaults_match_reference():
     t.method_overrides["fomaml"]["inner_lr"] = 9.0
     assert tx.default_plan("femnist").method_overrides == \
         {"fomaml": {"inner_lr": 0.05}}
-    for name in tx.PENDING_DATASETS:
-        with pytest.raises(NotImplementedError, match="scenario slice"):
-            tx.default_plan(name)
+    assert list(tx.DATASETS) == list(jx.DATASETS)
+
+
+@pytest.mark.parametrize("dataset", list(jx.DATASETS))
+def test_default_plans_match_reference(dataset):
+    """Every registry scenario's plan — the reference's hyperparameters
+    letter for letter, with and without overrides — and its scenario
+    constants."""
+    assert tx.default_plan(dataset).to_json() == \
+        jx.default_plan(dataset).to_json()
+    kw = dict(rounds=60, eval_every=2, local_head=20, inner_steps=3,
+              pipeline="client_plane")
+    assert tx.default_plan(dataset, **kw).to_json() == \
+        jx.default_plan(dataset, **kw).to_json()
+    assert sorted(tx.DATASETS[dataset]) == sorted(jx.DATASETS[dataset])
+    for const in ("REC_SERVICES", "REC_CTX", "REC_HEAD", "REC_FEAT",
+                  "LM_VOCAB", "LM_SEQ"):
+        assert getattr(tx, const) == getattr(jx, const)
 
 
 def test_method_overrides_and_trainer_knobs():
@@ -147,8 +162,12 @@ PLANS = {
 
 def _reference_init(plan):
     """The reference's initial parameters for every method of ``plan``,
-    as `jx.run_comparison` draws them (key PRNGKey(seed))."""
-    model = jx._femnist_model()
+    as `jx.run_comparison` draws them (key PRNGKey(seed)), each from its
+    own view's model: a scenario's ``meta_model`` (the recommender's
+    local head) for the FedMeta methods, its ``model`` for FedAvg."""
+    su = jx.DATASETS[plan.dataset]
+    model = su["model"]()
+    meta_model = su["meta_model"](plan) if "meta_model" in su else model
     key = jax.random.PRNGKey(plan.seed)
     out = {}
     for m in plan.methods:
@@ -158,7 +177,7 @@ def _reference_init(plan):
             over = plan.method_overrides.get(m, {})
             algo = jax_make_algorithm(m, None, None,
                                       over.get("inner_lr", plan.inner_lr))
-            tree = algo.init_state(key, model.init)
+            tree = algo.init_state(key, meta_model.init)
         out[m] = jax.tree.map(np.asarray, tree)
     return out
 
@@ -269,11 +288,12 @@ def test_compression_sweep_bytes_and_writes_no_file(tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
 
 
-def write_reference_init(path, methods=jx.DEFAULT_METHODS, seed=0):
-    """Write the JAX reference's initial parameters of the FEMNIST plan
-    (and its FedAvg(Meta) fine-tune draw) to ``path`` in the layout
-    `repro_torch.launch.compare.load_init` reads."""
-    plan = jx.default_plan("femnist", methods=tuple(methods), seed=seed)
+def write_reference_init(path, methods=jx.DEFAULT_METHODS, seed=0,
+                         dataset="femnist"):
+    """Write the JAX reference's initial parameters of a registry
+    scenario's plan (and its FedAvg(Meta) fine-tune draw) to ``path`` in
+    the layout `repro_torch.launch.compare.load_init` reads."""
+    plan = jx.default_plan(dataset, methods=tuple(methods), seed=seed)
     flat = {}
     for m, tree in _reference_init(plan).items():
         for keys, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
@@ -284,11 +304,32 @@ def write_reference_init(path, methods=jx.DEFAULT_METHODS, seed=0):
     np.savez(path, **flat)
 
 
+def test_write_reference_init_round_trips(tmp_path):
+    """The written ``.npz`` loads through `load_init` into each method's
+    own view tree: the recommender's FedMeta φ from the 40-way head."""
+    from repro_torch.launch.compare import load_init
+    path = tmp_path / "init.npz"
+    write_reference_init(path, methods=("fedavg", "fomaml", "meta-sgd"),
+                         dataset="recommend")
+    init, ft = load_init(str(path))
+    assert sorted(init) == ["fedavg", "fomaml", "meta-sgd"]
+    assert init["fedavg"]["w2"].shape == (64, 120)
+    assert init["fomaml"]["theta"]["w2"].shape == (64, 40)
+    assert sorted(init["meta-sgd"]) == ["alpha", "theta"]
+    assert ft.shape == (3, 32)
+    plan = jx.default_plan("recommend", methods=("fomaml",))
+    want = _reference_init(plan)["fomaml"]
+    for a, b in zip(jax.tree.leaves(init["fomaml"]), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(
-        description="write the JAX reference's initial FEMNIST parameters")
+        description="write the JAX reference's initial parameters of a "
+                    "registry scenario's comparison plan")
     ap.add_argument("--write-init", required=True, metavar="NPZ")
+    ap.add_argument("--dataset", default="femnist", choices=list(jx.DATASETS))
     ap.add_argument("--legacy-threefry", action="store_true",
                     help="draw with jax_threefry_partitionable=False, the "
                          "default of the JAX that made the committed "
@@ -297,4 +338,4 @@ if __name__ == "__main__":
     args = ap.parse_args()
     if args.legacy_threefry:
         jax.config.update("jax_threefry_partitionable", False)
-    write_reference_init(args.write_init)
+    write_reference_init(args.write_init, dataset=args.dataset)
