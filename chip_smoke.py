@@ -13,8 +13,10 @@ Phases, each printing one JSON line:
            card at the main paths' shapes: K1–K6 bitwise (K2–K6 at the
            full SmolLM-360M plane; K6 also on a FEMNIST block with a zero
            row and exact .5 products; K2 on the int8 block with the
-           folded weights w·s; K5 in f32 and bf16 with a NaN row made
-           dead, on the FEMNIST block with adversarial rows and ties, on
+           folded weights w·s and on the jittered staleness ring's
+           6-row block; K5 in f32 and bf16 with a NaN row made dead, on
+           the trimmed resume cell's 4-row FEMNIST block with its ring
+           row dead, on the FEMNIST block with adversarial rows and ties, on
            the degenerate rounds with their NaN and ±inf in place, and
            at m > 16; K1 in its scalar, shared and per-client α modes),
            K7 and K8 within a stated bf16 tolerance (K7 also at the LM
@@ -99,6 +101,26 @@ Phases, each printing one JSON line:
            widths (`char_lstm(70, 256, 8)`, `sent_lstm(2000, 100, 64)`;
            52,174,208 and 17,574,528 B a round), round 1 held against
            the all-plain route, the char-LSTM's round 2 traced.
+  train_async  the async round engine and crash-safe checkpoints, through
+           `FederatedTrainer.run`: (i) SmolLM-360M at full width (the
+           SmolLM round's settings, `make_lm_clients` dialects of 128
+           tokens at the model's vocabulary), 4 rounds synchronous and
+           pipelined (prefetch 2 staged on a side stream, flush every 4,
+           fused blocks of 2): history equal record for record and the
+           state bitwise; 2 more rounds of each traced (round wall, busy
+           share, K1/K2/K3/K7 launches). (ii) The same with stragglers,
+           `StalenessConfig(delay=2, fraction=0.25)` fixed and jittered,
+           4 rounds on the kernel route and on impl="torch" (K1, K2, K3
+           plain): φ, the Adam state and the (2, 1, N) ring bitwise
+           equal; K2 launched on 4-row and 6-row blocks; the predicted
+           peak (the synchronous round's, the ring twice and the
+           aggregation block) checked against the card's memory first.
+           (iii) Kill and resume (`tests/test_checkpoint.py`'s
+           configurations: staleness; staleness + dropout + byzantine +
+           trimmed, trim 1) at FEMNIST width and on the `lm` scenario's
+           reduced SmolLM: 9 rounds against 6 checkpointed at 3 and 6 and
+           a fresh trainer resumed to 9, prefetch 2, history and φ
+           bitwise; each checkpoint's bytes, save and load seconds.
   serve_ssm  the serving path of Mamba2-370M at full width (bf16, random
            weights, seed 0): 16 requests of the serve phase's traffic,
            supports of 128-token sequences, prompts of 200 tokens (two
@@ -393,12 +415,14 @@ def check_k1(torch, n_plane: int):
 
 def check_k2(torch, n_plane: int):
     """K2 against its plain version, bitwise: m = 4 at the full plane in
-    f32 and bf16, then m = 1, 7 and an int8 block at a small N."""
+    f32 and bf16, m = 6 in f32 (the jittered staleness ring's block, m +
+    delay·k), then m = 1, 7 and an int8 block at a small N."""
     from repro_torch.kernels.meta_update import aggregate
     gen = torch.Generator(device="cuda").manual_seed(12)
     small = 1 << 20
     rows, summary = [], None
     for m, N, dt in ((4, n_plane, "float32"), (4, n_plane, "bfloat16"),
+                     (6, n_plane, "float32"),
                      (1, small, "float32"), (7, small, "float32"),
                      (4, small, "int8")):
         if dt == "int8":
@@ -682,7 +706,9 @@ def check_k5(torch, n_plane: int):
     """K5 against its plain version (`trimmed_mean_plain`), bitwise: at
     the full SmolLM-360M plane (m = 4, trim 1, a NaN row made dead by
     `row_liveness`) in f32 and bf16; on the FEMNIST block (8, 461,824),
-    trim 2, with adversarial rows and a tie; on the degenerate rounds
+    trim 2, with adversarial rows and a tie; on the staleness block of
+    the trimmed kill-and-resume cell (4, 461,824), trim 1, its ring row
+    at weight 0; on the degenerate rounds
     (bitwise where finite, NaN and ±inf in place); and at m = 20 and 17
     (the generic loop). `plain_ms` is the "torch" route, the sort-based
     `trimmed_mean_ref`; `plain_literal_ms` the plain version K5 equals."""
@@ -693,6 +719,7 @@ def check_k5(torch, n_plane: int):
     cases = [("lm", 4, n_plane, "float32", 1), ("lm", 4, n_plane,
                                                 "bfloat16", 1),
              ("femnist", 8, 461_824, "float32", 2),
+             ("ring", 4, 461_824, "float32", 1),
              ("generic", 20, small, "float32", 3),
              ("generic", 17, small, "bfloat16", 4)]
     cases += [(f"degenerate {name}", m, 8192, "float32", trim)
@@ -710,6 +737,8 @@ def check_k5(torch, n_plane: int):
             G[5] = float("nan")
             G[m - 2] = G[2]
         w = torch.ones((m,), device="cuda")
+        if case == "ring":
+            w[m - 1] = 0.0          # the ring's row before it arrives
         if case in degenerate:
             live = torch.tensor(degenerate[case], dtype=torch.float32,
                                 device="cuda")
@@ -731,7 +760,7 @@ def check_k5(torch, n_plane: int):
                "library": "none (no single PyTorch call computes a "
                           "coordinate-wise trimmed mean)"}
         del out, plain
-        if case in ("lm", "femnist", "generic"):
+        if case in ("lm", "femnist", "ring", "generic"):
             kernel = lambda: k5.trimmed_mean_flat(G, live, trim=trim)
             row["call_ms"] = time_ms(kernel, torch)
             row.update(device_times(torch, kernel))
@@ -2822,6 +2851,358 @@ def phase_train_scenarios(torch):
     return paths
 
 
+# ------------------------------------------------------------ train_async
+
+ASYNC_ROUNDS = 4
+ASYNC_KNOBS = {"sync": dict(prefetch_depth=0, flush_every=1, fuse_rounds=1),
+               "pipelined": dict(prefetch_depth=2, flush_every=4,
+                                 fuse_rounds=2)}
+# k = round(0.25 · 4) = 1 straggler a round, a 2-round ring; K2's block:
+# m − k + 1 rows (fixed delay), m + delay·k (jitter)
+ASYNC_STALE = {"fixed": (dict(delay=2, fraction=0.25), 4),
+               "jitter": (dict(delay=2, fraction=0.25, jitter=True), 6)}
+ASYNC_FED = ("inner_update_plane", "weighted_aggregate", "adam_flat",
+             "flash_attention")
+
+
+def _same_history(a, b) -> bool:
+    """Two histories equal record for record (a NaN equals a NaN)."""
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        if set(ra) != set(rb):
+            return False
+        for k, va in ra.items():
+            vb = rb[k]
+            if not (va == vb or (isinstance(va, float) and
+                                 isinstance(vb, float) and
+                                 math.isnan(va) and math.isnan(vb))):
+                return False
+    return True
+
+
+def async_lm_clients(cfg):
+    """8 clients of 8–15 token sequences of 128 at the model's vocabulary
+    (`make_lm_clients`: a dialect of a shared order-1 chain each)."""
+    from repro_torch.data import make_lm_clients
+    return make_lm_clients(num_clients=8, mean_seqs=8, seq_len=128,
+                           vocab=cfg.vocab_size, seed=0).clients
+
+
+def async_lm_trainer(cfg, clients, **kw):
+    """The SmolLM round's settings through the entry point: a packed
+    FOMAML (inner lr 0.05) `FederatedTrainer` on the client plane, m = 4
+    clients of 4 support + 4 query sequences, Adam(1e-3), φ from seed 0
+    on the card -> (trainer, initial state)."""
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import lm_pair_loss
+    from repro_torch.federated.server import FederatedTrainer
+    from repro_torch.launch.steps import make_apply_fn
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adam
+    algo = make_algorithm("fomaml", *lm_pair_loss(make_apply_fn(cfg)), 0.05)
+    tr = FederatedTrainer(algo, adam(1e-3), clients, clients_per_round=4,
+                          support_frac=0.5, support_size=4, query_size=4,
+                          seed=0, packed=True, client_plane=True,
+                          device="cuda", **kw)
+    return tr, tr.init(0, lambda key: init_lm(key, cfg, device="cuda"))
+
+
+def _opt_and_phi(state):
+    keep = {"phi": state["phi"], "opt": dict(state["opt"])}
+    if "stale" in state:
+        keep["stale"] = dict(state["stale"])
+    return keep
+
+
+def async_pipeline(torch, cfg, clients, errors):
+    """(i) `ASYNC_ROUNDS` rounds synchronous and pipelined (prefetch 2,
+    flush every 4, fused blocks of 2) from one φ: history and state
+    bitwise equal. Round 1 of each run is its warm-up, rounds 2.. are
+    timed; two more rounds of each are traced (two single rounds; one
+    fused block of two). Peak memory counts what the phase still holds
+    from an earlier run (``held_gb``)."""
+    out, paths, ends = {}, {}, {}
+    for name, kw in ASYNC_KNOBS.items():
+        tr, state = async_lm_trainer(cfg, clients, **kw)
+        reset_launches()
+        state = tr.run(state, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state = tr.run(state, ASYNC_ROUNDS, start_round=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        paths[f"train_async[{name}]"] = launches
+        peak = torch.cuda.max_memory_allocated()
+        box = {}
+
+        def more():
+            box["s"] = tr.run(state, ASYNC_ROUNDS + 2,
+                              start_round=ASYNC_ROUNDS)
+
+        traced_s, trace = _traced(torch, more)
+        ends[name] = (list(tr.history), _opt_and_phi(box["s"]))
+        for k in ASYNC_FED:
+            if launches[k] <= 0:
+                errors.append(f"{name}: {k} was not launched")
+        if not (launches["weighted_aggregate"] == launches["adam_flat"]
+                == ASYNC_ROUNDS):
+            errors.append(f"{name}: K2/K3 launches {launches}")
+        out[name] = {"knobs": kw,
+                     "round_wall_ms": wall / (ASYNC_ROUNDS - 1) * 1e3,
+                     "peak_mem_gb": peak / 1e9, "held_gb": held / 1e9,
+                     "side_stream": tr._stager.side is not None,
+                     "launches": {k: launches[k] for k in ASYNC_FED},
+                     "traced_rounds": 2,
+                     "traced_round_wall_ms": traced_s / 2 * 1e3,
+                     "trace": trace, "n_plane": tr._plane.n_padded,
+                     "last": {k: tr.history[-1][k]
+                              for k in ("query_loss", "accuracy")}}
+        del tr, state, box
+        gc.collect()
+        torch.cuda.empty_cache()
+    (h0, s0), (h1, s1) = ends["sync"], ends["pipelined"]
+    out["history_equal"] = _same_history(h0, h1)
+    out["state_bitwise"] = _same_state(torch, s0, s1)
+    if not (out["history_equal"] and out["state_bitwise"]):
+        errors.append(f"pipelined vs sync: history {out['history_equal']}, "
+                      f"state {out['state_bitwise']}")
+    if not out["pipelined"]["side_stream"]:
+        errors.append("the pipelined run did not stage on a side stream")
+    out["finite"] = bool(torch.isfinite(s0["phi"]).all())
+    if not out["finite"]:
+        errors.append("non-finite φ")
+    del ends, s0, s1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+def async_staleness(torch, cfg, clients, errors, sync_peak, n_plane):
+    """(ii) `ASYNC_ROUNDS` rounds with stragglers (fixed delay, then
+    jitter) on the kernel route and on the all-plain route
+    (impl="torch": K1, K2, K3 plain; attention on K7 in both): φ, the
+    Adam state and the ring bitwise equal, K2 launched on the
+    (m − k + 1, N) and (m + delay·k, N) blocks."""
+    from repro_torch.federated.async_engine import StalenessConfig
+    from repro_torch.kernels.meta_update import ops as mu_ops
+    total = torch.cuda.get_device_properties(0).total_memory
+    out, paths = {}, {}
+    real_k2 = mu_ops.weighted_aggregate_flat
+    for mode, (kw, rows) in ASYNC_STALE.items():
+        cfg_s = StalenessConfig(**kw)
+        k = cfg_s.num_stragglers(4)
+        ring_b = cfg_s.delay * k * n_plane * 4
+        # the synchronous round's peak, the ring twice (the old one and
+        # the one the round builds) and the aggregation block beside the
+        # (m, N) block
+        need = sync_peak + 2 * ring_b + rows * n_plane * 4
+        fits = need <= total
+        ends, res = {}, {"config": kw, "stragglers": k,
+                         "ring_gb": ring_b / 1e9,
+                         "predicted_peak_gb": need / 1e9,
+                         "device_gb": total / 1e9, "fits": fits}
+        if not fits:
+            errors.append(f"{mode}: {need / 1e9:.1f} GB will not fit")
+            out[mode] = res
+            continue
+        for impl in ("cuda", "torch"):
+            seen = []
+
+            def k2(gs, w):
+                seen.append(int(gs.shape[0]))
+                return real_k2(gs, w)
+
+            tr, state = async_lm_trainer(cfg, clients, staleness=cfg_s,
+                                         impl=impl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            mu_ops.weighted_aggregate_flat = k2
+            reset_launches()
+            try:
+                t0 = time.perf_counter()
+                state = tr.run(state, ASYNC_ROUNDS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                mu_ops.weighted_aggregate_flat = real_k2
+            launches = read_launches()
+            paths[f"train_async[stale-{mode},{impl}]"] = launches
+            ends[impl] = (list(tr.history), _opt_and_phi(state))
+            res[impl] = {"round_wall_ms": wall / ASYNC_ROUNDS * 1e3,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9, "held_gb": held / 1e9,
+                         "k2_rows_launched": seen,
+                         "launches": {n: launches[n] for n in ASYNC_FED}}
+            want_k2 = [rows] * ASYNC_ROUNDS if impl == "cuda" else []
+            if seen != want_k2 or launches["flash_attention"] <= 0:
+                errors.append(f"{mode} {impl}: K2 rows {seen} (want "
+                              f"{want_k2}), launches {launches}")
+            del tr, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        (h0, s0), (h1, s1) = ends["cuda"], ends["torch"]
+        res["history_equal"] = _same_history(h0, h1)
+        res["state_bitwise"] = _same_state(torch, s0, s1)
+        res["ring_bitwise"] = _same_state(torch, s0["stale"], s1["stale"])
+        res["ring_weights"] = s0["stale"]["w"].tolist()
+        res["finite"] = bool(torch.isfinite(s0["phi"]).all())
+        if not (res["history_equal"] and res["state_bitwise"]
+                and res["finite"]):
+            errors.append(f"{mode}: kernel vs plain route: history "
+                          f"{res['history_equal']}, state "
+                          f"{res['state_bitwise']}, finite {res['finite']}")
+        out[mode] = res
+        del ends, s0, s1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def async_resume(torch, errors):
+    """(iii) kill and resume, the reference's `tests/test_checkpoint.py`
+    configurations (staleness alone; staleness + dropout + byzantine +
+    trimmed, trim 1): 9 rounds uninterrupted, then 6 rounds checkpointed
+    at 3 and 6, a fresh trainer resumed from 6 to 9; prefetch depth 2,
+    an eval every 3. The stitched history and φ bitwise equal to the
+    uninterrupted run's. At FEMNIST width (`femnist_cnn(62, hidden=128)`)
+    and on the `lm` scenario's reduced SmolLM."""
+    import shutil
+    from repro_torch.checkpoint.io import latest_step
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.federated.async_engine import StalenessConfig
+    from repro_torch.federated.experiment import DATASETS
+    from repro_torch.federated.faults import FaultConfig
+    from repro_torch.federated.server import FederatedTrainer
+    from repro_torch.optim import adam
+
+    stale = StalenessConfig(delay=1, fraction=0.34, discount=0.5)
+    configs = {"stale": dict(staleness=stale),
+               "stale+faults+trimmed": dict(
+                   staleness=stale,
+                   faults=FaultConfig(dropout=0.25, byzantine=0.25, seed=5),
+                   aggregator="trimmed", trim=1)}
+    scen = {"femnist": dict(clients=100, inner_lr=0.05, outer_lr=1e-3,
+                            support_frac=0.2, support_size=16,
+                            query_size=16),
+            "lm": dict(clients=32, inner_lr=0.1, outer_lr=3e-3,
+                       support_frac=0.5, support_size=4, query_size=4)}
+    root = os.path.join(HERE, "build", "train_async_ckpt")
+    out, paths = {}, {}
+    for dataset, sc in scen.items():
+        su = DATASETS[dataset]
+        train, val, _ = su["data"](sc["clients"], 0).split_clients(0)
+        model = su["model"]("cuda")
+        loss = (su["loss"](model) if "loss" in su
+                else classification_loss(model.apply))
+
+        def trainer(ckpt=None, **kw):
+            algo = make_algorithm("fomaml", *loss, inner_lr=sc["inner_lr"])
+            if ckpt is not None:
+                kw.update(checkpoint_dir=ckpt, checkpoint_every=3)
+            tr = FederatedTrainer(
+                algo, adam(sc["outer_lr"]), train, clients_per_round=4,
+                support_frac=sc["support_frac"],
+                support_size=sc["support_size"],
+                query_size=sc["query_size"], seed=0, packed=True,
+                client_plane=True, device="cuda", prefetch_depth=2, **kw)
+            return tr, tr.init(0, model.init)
+
+        for name, kw in configs.items():
+            tag = f"{dataset} {name}"
+            ckpt = os.path.join(root, dataset, name.replace("+", "_"))
+            shutil.rmtree(ckpt, ignore_errors=True)
+            reset_launches()
+            full, st = trainer(**kw)
+            st = full.run(st, 9, eval_every=3, eval_clients=val)
+            saves = []
+            tr1, st1 = trainer(ckpt, **kw)
+            real_save = tr1.save_checkpoint
+
+            def timed_save(state, r, real_save=real_save, saves=saves,
+                           ckpt=ckpt):
+                t0 = time.perf_counter()
+                path = real_save(state, r)
+                saves.append({"round": r,
+                              "save_s": time.perf_counter() - t0,
+                              "bytes": sum(os.path.getsize(path + s)
+                                           for s in (".npz", ".manifest"))})
+
+            tr1.save_checkpoint = timed_save
+            tr1.run(st1, 6, eval_every=3, eval_clients=val)
+            tr2, _ = trainer(ckpt, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st2, start = tr2.resume()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            st2 = tr2.run(st2, 9, eval_every=3, eval_clients=val,
+                          start_round=start)
+            launches = read_launches()
+            paths[f"train_async[resume {tag}]"] = launches
+            res = {"checkpoints": saves, "latest": latest_step(ckpt),
+                   "resumed_from": start, "load_s": load_s,
+                   "history_equal": _same_history(tr2.history,
+                                                  full.history),
+                   "phi_bitwise": bool(torch.equal(st2["phi"], st["phi"])),
+                   "ring_bitwise": _same_state(torch, st2["stale"],
+                                               st["stale"]),
+                   "skipped": [r.get("skipped", 0.0) for r in full.history],
+                   "launches": {n: launches[n] for n in
+                                ("inner_update_plane", "weighted_aggregate",
+                                 "trimmed_mean", "adam_flat",
+                                 "flash_attention")}}
+            want_k5 = "trimmed" in name
+            if not (res["history_equal"] and res["phi_bitwise"]
+                    and res["ring_bitwise"] and start == 6
+                    and [c["round"] for c in saves] == [3, 6]
+                    and (launches["trimmed_mean"] > 0) == want_k5
+                    and launches["adam_flat"] > 0):
+                errors.append(f"{tag}: resume {res}")
+            out[tag] = res
+            shutil.rmtree(ckpt, ignore_errors=True)
+            del full, tr1, tr2, st, st1, st2
+        del train, val, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out, paths
+
+
+def phase_train_async(torch, cfg):
+    """The async round engine and crash-safe checkpoints: one JSON line
+    per part, each run's kernel launches counted from 0."""
+    paths, failed, ctx = {}, [], {}
+    for part in ("pipeline", "staleness", "resume"):
+        errors = []
+        t0 = time.perf_counter()
+        if part == "pipeline":
+            ctx["clients"] = async_lm_clients(cfg)
+            res, p = async_pipeline(torch, cfg, ctx["clients"], errors)
+            ctx["peak"] = res["sync"]["peak_mem_gb"] * 1e9
+            ctx["n"] = res["sync"]["n_plane"]
+        elif part == "staleness":
+            res, p = async_staleness(torch, cfg, ctx["clients"], errors,
+                                     ctx["peak"], ctx["n"])
+        else:
+            res, p = async_resume(torch, errors)
+        paths.update(p)
+        emit({"phase": "train_async", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0, **res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2886,6 +3267,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("train_scenarios")
         paths.update(phase_train_scenarios(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("train_async")
+        paths.update(phase_train_async(torch, cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
         mcfg = get_config("mamba2-370m")
         phase = mark("serve_ssm")
         launches, ctx = phase_serve_ssm(torch, mcfg)

@@ -24,13 +24,15 @@ Two parameter representations:
     ``client_plane=True`` the inner loop runs on the flat (C, N) plane
     through K1 as well.
 
-The bytes-on-the-wire knobs (``compression``, ``dp``) and the failure
-plane (``faults``, robust ``aggregator``s, the non-finite ``guard``) run
-on the packed vmap axis. The knobs of later slices (staleness, the
-sharded axis) raise `NotImplementedError` naming their slice.
+The bytes-on-the-wire knobs (``compression``, ``dp``), the failure
+plane (``faults``, robust ``aggregator``s, the non-finite ``guard``) and
+staleness-aware aggregation (``staleness``, its ring in the state) run
+on the packed vmap axis. The sharded axis raises `NotImplementedError`
+naming its slice.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.meta_update import ops as mu_ops
@@ -182,8 +184,16 @@ def make_meta_train_step(algo, optimizer, *, client_axis: str = "vmap",
 # ---- packed parameter plane pipeline ------------------------------------
 
 def init_packed_state(optimizer, plane: FlatPlane, phi, *, staleness=None,
+                      clients_per_round=None, block_dtype=None,
                       compression=None, num_clients=None):
     """φ tree -> {"phi": flat plane, "opt": flat optimizer state}.
+
+    With ``staleness`` (`StalenessConfig`) the state also carries the
+    in-flight straggler ring ``state["stale"]``: a ``(delay, k, N)``
+    block of not-yet-arrived gradient rows at the block dtype and their
+    ``(delay, k)`` f32 weights ``w``, zero at the start, so the warm-up
+    rounds aggregate fresh rows only; under ``jitter`` also each row's
+    remaining-rounds counter ``c`` and drawn delay ``d`` (int32).
 
     With ``compression`` set and error feedback on, the state also
     carries the per-client residual plane ``state["ef"]``: a
@@ -191,8 +201,6 @@ def init_packed_state(optimizer, plane: FlatPlane, phi, *, staleness=None,
     uploaded, zero at the start (a first upload compresses the raw
     gradient)."""
     from repro_torch.optim.optimizers import make_flat_optimizer
-    if staleness is not None:
-        raise _not_ported("staleness-aware aggregation", "async")
     flat = plane.pack(phi)
     state = {"phi": flat, "opt": make_flat_optimizer(optimizer).init(flat)}
     if compression is not None and compression.error_feedback:
@@ -201,6 +209,21 @@ def init_packed_state(optimizer, plane: FlatPlane, phi, *, staleness=None,
                              "train clients) to size the residual plane")
         state["ef"] = torch.zeros((num_clients, plane.n_padded),
                                   dtype=torch.float32, device=flat.device)
+    if staleness is not None:
+        if clients_per_round is None:
+            raise ValueError("staleness needs clients_per_round to size "
+                             "the straggler buffer")
+        k = staleness.num_stragglers(clients_per_round)
+        shape = (staleness.delay, k)
+        state["stale"] = {
+            "G": torch.zeros(shape + (plane.n_padded,),
+                             dtype=block_dtype or torch.float32,
+                             device=flat.device),
+            "w": torch.zeros(shape, dtype=torch.float32, device=flat.device)}
+        if staleness.jitter:
+            for key in ("c", "d"):
+                state["stale"][key] = torch.zeros(shape, dtype=torch.int32,
+                                                  device=flat.device)
     return state
 
 
@@ -250,6 +273,23 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
     With every failure knob off the step runs the default reduce, the
     same graph as without the knobs.
 
+    ``staleness`` (`StalenessConfig`; vmap axis only) turns on
+    staleness-aware aggregation: the step takes ``stale=``, a keyword,
+    the round's ``(straggler_idx, fresh_idx[, delays])`` pick. Straggler
+    rows of the (m, N) block detour through the state's ``(delay, k, N)``
+    ring; the rows that arrive this round join the fresh rows in one
+    aggregation block, built in the reference's order — fresh rows, then
+    (under jitter) this round's straggler rows, then the ring's rows —
+    at weight w·γ^s, and the weights renormalize over the block before
+    K2 (the robust aggregators take the same block). Fixed delay: the
+    ring's oldest slot arrives at γ^delay. Jitter: each ring row counts
+    down ``c`` and arrives when it reaches 0 at γ^d, γ^d computed in f32
+    as ``float32(discount) ** d``; an arrived row's weight turns 0 so it
+    cannot arrive twice, and a d = 0 straggler joins its own round at
+    γ^0. Faults corrupt the block before the detour, so corrupted rows
+    ride the ring like honest ones. The block is a new (m − k + delay·k
+    or m − k + 1, N) tensor each round, as the reference's concatenate.
+
     The bytes-on-the-wire plane (vmap axis only), both knobs bitwise
     no-ops when off:
 
@@ -282,6 +322,10 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
     if aggregator not in mu_ops.AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}; expected "
                          f"one of {mu_ops.AGGREGATORS}")
+    if staleness is not None and client_axis != "vmap":
+        raise ValueError("staleness-aware aggregation needs the full "
+                         "(m, N) gradient block before the reduce — "
+                         "client_axis='vmap' only")
     failure = faults is not None or aggregator != "mean"
     if failure and client_axis != "vmap":
         raise ValueError("fault injection / robust aggregation need the "
@@ -297,8 +341,6 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                              "but not with staleness, faults, or robust "
                              "aggregators — the codec/clip semantics of "
                              "ring rows and corrupted rows are undefined")
-    if staleness is not None:
-        raise _not_ported("staleness-aware aggregation", "async")
     impl = mu_ops.resolve_impl(impl)
     flat_opt = make_flat_optimizer(optimizer, impl=impl)
     bd = block_dtype or torch.float32
@@ -383,8 +425,63 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                                         trim=trim),
                 _weighted_metrics(w_rep, mets))
 
+    def aggregate(G, w_agg):
+        """The staleness block's reduce: mean normalizes the weights
+        over the block first (the reference's ``prenorm``)."""
+        if aggregator == "mean":
+            return mu_ops.weighted_aggregate(G, w_agg / torch.sum(w_agg),
+                                             impl=impl)
+        return mu_ops.robust_aggregate(G, w_agg, aggregator=aggregator,
+                                       impl=impl,
+                                       screen_factor=screen_factor,
+                                       trim=trim)
+
+    def stale_round(state, chunk_grads, support, query, w, stale, fault):
+        """The round's (m, N) block with its stragglers detoured through
+        the ring -> (meta-gradient, metrics, the state's new ring)."""
+        dev = w.device
+        sel = [torch.as_tensor(x, dtype=torch.long, device=dev)
+               for x in stale]
+        strag, fresh = sel[0], sel[1]
+        G, mets = chunk_grads(support, query)
+        w_rep = w
+        if faults is not None:
+            G, w, w_rep = apply_faults(faults, G, w, fault)
+        metrics = _weighted_metrics(w_rep, mets)
+        buf = state["stale"]
+        g_strag = G[strag]
+        if staleness.jitter:
+            delays = sel[2]
+            c = buf["c"] - 1
+            arrive = (c <= 0) & (buf["w"] > 0)
+            gamma_d = torch.pow(torch.tensor(staleness.discount,
+                                             dtype=torch.float32, device=dev),
+                                buf["d"].float())
+            dk = buf["G"].shape[0] * buf["G"].shape[1]
+            agg_G = torch.cat([G[fresh], g_strag,
+                               buf["G"].reshape(dk, buf["G"].shape[2])])
+            agg_w = torch.cat([
+                w[fresh], torch.where(delays == 0, w[strag], 0.0),
+                torch.where(arrive, buf["w"] * gamma_d, 0.0).reshape(dk)])
+            kept_w = torch.where(arrive, 0.0, buf["w"])
+            d32 = delays.to(torch.int32)[None]
+            ring = {"w": torch.cat([kept_w[1:], torch.where(
+                        delays > 0, w[strag], 0.0)[None]]),
+                    "c": torch.cat([c[1:], d32]),
+                    "d": torch.cat([buf["d"][1:], d32])}
+        else:
+            gamma = float(np.float32(staleness.discount ** staleness.delay))
+            agg_G = torch.cat([G[fresh], buf["G"][0]])
+            agg_w = torch.cat([w[fresh], buf["w"][0] * gamma])
+            ring = {"w": torch.cat([buf["w"][1:], w[strag][None]])}
+        del G
+        meta_g = aggregate(agg_G, agg_w)
+        del agg_G
+        ring["G"] = torch.cat([buf["G"][1:], g_strag[None]])
+        return meta_g, metrics, {"stale": ring}
+
     def step(state, support, query, weights=None, ef_idx=None,
-             dp_noise=None, *, fault=None):
+             dp_noise=None, *, fault=None, stale=None):
         phi = plane.unpack(state["phi"])
         m, device = _leading(support)
         w = _normalize_weights(weights, m, device)
@@ -415,6 +512,9 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
             return (mu_ops.weighted_aggregate(G, wc, impl=impl),
                     _weighted_metrics(wc, mets))
 
+        if staleness is not None:
+            return finish(state, *stale_round(state, chunk_grads, support,
+                                              query, w, stale, fault))
         if compression is not None or dp is not None:
             return finish(state, *wire(state, chunk_grads, support, query,
                                        w, ef_idx, dp_noise))

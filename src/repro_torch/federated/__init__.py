@@ -1,3 +1,8 @@
+from repro_torch.federated.async_engine import (AsyncRoundEngine,
+                                                PrefetchError, Prefetcher,
+                                                StalenessConfig, WorkerPool,
+                                                WorkerPoolError,
+                                                call_with_retry)
 from repro_torch.federated.serving import (AdaptationCache, ServeReport,
                                           ServeRequest, ServingEngine,
                                           TrafficModel, support_digest)

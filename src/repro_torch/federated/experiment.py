@@ -18,9 +18,11 @@ accounting. `run_comparison(plan)` enforces that:
 Scenarios: FEMNIST, Sent140, Shakespeare, the production recommender
 (FedMeta ships a 40-way local head over each client's own services,
 FedAvg a head over the whole catalogue: `_build_views`) and LM
-personalization on a reduced SmolLM. The knobs of later slices (the
-population plane, prefetching and fused rounds) raise, naming their
-slice. The plan's ``compression``, ``dp``, ``block_dtype`` and
+personalization on a reduced SmolLM. The plan's ``prefetch_depth``,
+``flush_every`` and ``fuse_rounds`` (packed pipelines only) run every
+trainer on the async round engine, bitwise equal to the synchronous
+loop; the knobs of a later slice (the population plane) raise, naming
+it. The plan's ``compression``, ``dp``, ``block_dtype`` and
 ``opt_state_dtype`` run the bytes-on-the-wire round; its ``faults``,
 ``aggregator``, ``screen_factor`` and ``trim`` the failure plane
 (packed pipelines only).
@@ -228,9 +230,9 @@ class ExperimentPlan:
     sustain_evals: int = 2
     pipeline: str = "tree"               # tree | packed | client_plane
     client_chunk: Optional[int] = None
-    prefetch_depth: int = 0              # async slice
+    prefetch_depth: int = 0
     flush_every: int = 1
-    fuse_rounds: int = 1                 # async slice
+    fuse_rounds: int = 1                 # fused round blocks (packed)
     aggregator: str = "mean"             # failure plane (packed only)
     screen_factor: float = 3.0
     trim: int = 1

@@ -38,7 +38,7 @@ from repro_torch.core.fedmeta import (_client, _normalize_weights,
                                       _scan_chunks, _stack_metrics,
                                       _weighted_metrics)
 from repro_torch.data.federated import TaskStream, sample_task_batch
-from repro_torch.federated.async_engine import AsyncRoundEngine
+from repro_torch.federated.async_engine import AsyncRoundEngine, DeviceStager
 from repro_torch.federated.comm import CommTracker, measure_client_flops
 from repro_torch.optim import adam, sgd
 from repro_torch.utils.pytree import (tree_add, tree_flatten, tree_map,
@@ -65,17 +65,14 @@ class FedAvgTrainer:
     finetune_batch_size: Optional[int] = None  # None = full support size
     meta_eval: bool = False         # FedAvg(Meta) scoring at eval time
     seed: int = 0
+    # ---- async round engine
+    prefetch_depth: int = 0         # staged rounds ahead; 0 = inline
     flush_every: int = 1            # drain deferred metrics every k rounds
     device: str = "cuda"            # where θ, the batches and the steps live
     # injected (reps, bs) fine-tune indices (the reference's draw)
     finetune_idx: Optional[np.ndarray] = None
-    prefetch_depth: int = 0         # the async slice's knob: must stay 0
 
     def __post_init__(self):
-        if self.prefetch_depth:
-            raise NotImplementedError(
-                "FedAvgTrainer(prefetch_depth=...) is not ported yet: it "
-                "joins the port with the async slice")
         if self.meta_eval and self.name == "fedavg":
             self.name = "fedavg(meta)"
         if torch.device(self.device).type == "cuda":
@@ -231,7 +228,11 @@ class FedAvgTrainer:
 
     def run(self, state, rounds: int, eval_every: int = 0,
             eval_clients=None, log: Callable = None):
-        """The round loop of `FederatedTrainer.run`: one record per
+        """The round loop of `FederatedTrainer.run` on the same async
+        round engine: task sampling AND the local minibatch draw run on
+        the prefetch thread when ``prefetch_depth > 0`` (both seeded
+        streams advance there in round order, as inline), and the
+        metrics readback waits for the flush points. One record per
         round, eval fields on eval rounds (FedAvg(Meta) fine-tunes at
         eval when ``meta_eval``)."""
         from repro_torch.federated.server import evaluate_global
@@ -239,19 +240,21 @@ class FedAvgTrainer:
         stream = TaskStream(self.train_clients, self.clients_per_round,
                             self.support_frac, self.support_size,
                             self.query_size, self._rng)
+        stager = DeviceStager(self.device,
+                              side_stream=self.prefetch_depth > 0)
+        put = stager.put
 
-        def dp(a):
-            return torch.as_tensor(a, device=self.device)
-
-        def stage():
+        def stage(k):
+            assert k == 1, "FedAvg has no fused-K mode"
             tb = stream.next()
             (bx, by), (px, py) = self._local_batches(tb)
-            w = _normalize_weights(dp(tb.weight) if self.weighted else None,
-                                   len(tb.weight), self.device)
-            return ((dp(bx), dp(by)), (dp(px), dp(py)), w)
+            w = put(tb.weight) if self.weighted else None
+            return stager.end(((put(bx), put(by)), (put(px), put(py)), w))
 
         def step(st, args):
-            theta, metrics = self._round(st["theta"], *args)
+            b, e, w = args
+            w = _normalize_weights(w, _leading_axis(b)[0], self.device)
+            theta, metrics = self._round(st["theta"], b, e, w)
             return {"theta": theta}, metrics
 
         evaluate = None
@@ -267,6 +270,7 @@ class FedAvgTrainer:
 
         engine = AsyncRoundEngine(stage=stage, step=step, comm=self.comm,
                                   history=self.history,
+                                  prefetch_depth=self.prefetch_depth,
                                   flush_every=self.flush_every)
         return engine.run(state, rounds, eval_every=eval_every,
                           evaluate=evaluate, log=log)

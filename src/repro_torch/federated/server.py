@@ -1,6 +1,6 @@
 """Federated training: the server round loop, client sampling,
-communication accounting and the paper's evaluation schemes.
-Counterpart of `repro/federated/server.py:49-122,126-405,548-629`.
+communication accounting, the paper's evaluation schemes and crash-safe
+checkpoints. Counterpart of `repro/federated/server.py:35-629`.
 
 Evaluation (paper §4.1 + A.2): accuracy w.r.t. all data points on
 held-out clients; each adapts on its support set (FedMeta, FedAvg(Meta))
@@ -8,7 +8,10 @@ or not (FedAvg) and is scored on its query set.
 
 Task batches are drawn with numpy from the trainer's seeded
 `RandomState`, call for call as in the reference, and moved to the
-trainer's ``device`` (default "cuda"; the tests pass "cpu").
+trainer's ``device`` (default "cuda"; the tests pass "cpu"). The rounds
+run on the async round engine (`async_engine.AsyncRoundEngine`):
+prefetching, deferred metrics, fused-K blocks, staleness picks and
+checkpoints at block boundaries, each bitwise neutral to the history.
 """
 from __future__ import annotations
 
@@ -21,13 +24,33 @@ import torch
 from repro_torch.core.fedmeta import (init_packed_state,
                                       make_meta_train_step,
                                       make_packed_meta_train_step)
-from repro_torch.data.federated import TaskStream, sample_task_batch
-from repro_torch.federated.async_engine import AsyncRoundEngine
+from repro_torch.data.federated import (TaskStream, sample_task_batch,
+                                        stack_task_batches)
+from repro_torch.federated.async_engine import (AsyncRoundEngine,
+                                                DeviceStager, WorkerPool)
 from repro_torch.federated.comm import CommTracker, measure_client_flops
 from repro_torch.kernels.meta_update import ops as mu_ops
 from repro_torch.optim import Optimizer
 from repro_torch.utils.flat import plane_for
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_size
+
+
+def _rng_state_payload(state):
+    """np.random.RandomState.get_state() tuple -> checkpointable dict
+    (the 624-word key vector as an array, scalars as python types): the
+    reference's payload."""
+    alg, keys, pos, has_gauss, cached = state
+    return {"alg": alg, "keys": np.asarray(keys, np.uint32),
+            "pos": int(pos), "has_gauss": int(has_gauss),
+            "cached": float(cached)}
+
+
+def _rng_state_from_payload(p):
+    keys = p["keys"]
+    if isinstance(keys, torch.Tensor):
+        keys = keys.cpu().numpy()
+    return (str(p["alg"]), np.asarray(keys, np.uint32),
+            int(p["pos"]), int(p["has_gauss"]), float(p["cached"]))
 
 
 def _batch_eval(eval_one, clients, m, support_frac, support_size, query_size,
@@ -136,12 +159,8 @@ def evaluate_global(eval_fn, theta, clients, *, support_frac, support_size,
 # (its default, the slice that ports it)
 _PENDING = {
     "mesh": (None, "multi-device"), "mesh_axis": (None, "multi-device"),
-    "prefetch_depth": (0, "async"), "fuse_rounds": (1, "async"),
-    "staleness": (None, "async"), "prefetch_retries": (0, "async"),
-    "checkpoint_every": (0, "async (checkpointing)"),
-    "checkpoint_dir": (None, "async (checkpointing)"),
     "unreliability": (None, "population"), "over_select": (0.0, "population"),
-    "round_deadline": (None, "population"), "pool_workers": (0, "population"),
+    "round_deadline": (None, "population"),
 }
 
 
@@ -165,8 +184,13 @@ class FederatedTrainer:
     impl: Optional[str] = None           # "cuda" | "torch" kernels (packed)
     block_dtype: Optional[object] = None  # client-grad block dtype (packed)
     client_plane: bool = False  # fused flat inner loop (packed only)
-    flush_every: int = 1        # drain deferred metrics every k rounds
     device: str = "cuda"        # where φ, the batches and the steps live
+    # ---- async round engine
+    prefetch_depth: int = 0     # staged round blocks ahead; 0 = inline
+    flush_every: int = 1        # drain deferred metrics every k rounds
+                                # (0 = only at eval rounds / run() exit)
+    fuse_rounds: int = 1        # rounds a fused block runs (packed)
+    staleness: Optional[object] = None  # StalenessConfig (packed + vmap)
     # ---- failure plane (packed + vmap axis only)
     aggregator: str = "mean"    # mean | masked_mean | screen | trimmed
     screen_factor: float = 3.0  # screen: clip rows > factor × median ‖g‖
@@ -177,21 +201,34 @@ class FederatedTrainer:
     # ---- bytes-on-the-wire plane (packed + vmap axis only)
     compression: Optional[object] = None  # CompressionConfig
     dp: Optional[object] = None           # DPConfig: central clip + noise
+    prefetch_retries: int = 0   # transient staging failures retried
+    checkpoint_every: int = 0   # rounds between checkpoints (0 = off)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3    # keep-last-k retention
+    pool_workers: int = 0       # client-materializing workers (0 = inline)
+    pool_retries: int = 2       # per-client retry-with-backoff budget
+    task_timeout: Optional[float] = None  # per-client pool timeout (s)
     # ---- knobs of later slices: they raise unless left at the default
     mesh: Optional[object] = None
     mesh_axis: Optional[str] = None
-    prefetch_depth: int = 0
-    fuse_rounds: int = 1
-    staleness: Optional[object] = None
-    prefetch_retries: int = 0
-    checkpoint_every: int = 0
-    checkpoint_dir: Optional[str] = None
     unreliability: Optional[object] = None
     over_select: float = 0.0
     round_deadline: Optional[float] = None
-    pool_workers: int = 0
 
     def __post_init__(self):
+        if self.client_plane and not self.packed:
+            raise ValueError("client_plane=True requires packed=True")
+        if self.fuse_rounds > 1 and not self.packed:
+            raise ValueError("fuse_rounds>1 (fused-K round blocks) is a "
+                             "packed-pipeline mode")
+        if self.staleness is not None:
+            if not self.packed or self.client_axis != "vmap":
+                raise ValueError("staleness-aware aggregation requires "
+                                 "packed=True and client_axis='vmap'")
+            if self.fuse_rounds > 1:
+                raise ValueError("staleness and fuse_rounds>1 are mutually "
+                                 "exclusive (stragglers need per-round "
+                                 "straggler picks)")
         if self.aggregator not in mu_ops.AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r}; "
                              f"expected one of {mu_ops.AGGREGATORS}")
@@ -234,12 +271,13 @@ class FederatedTrainer:
             raise NotImplementedError(
                 "client_axis='sharded' is not ported yet: it joins the port "
                 "with the multi-device slice")
-        if self.client_plane and not self.packed:
-            raise ValueError("client_plane=True requires packed=True")
         if self.guard is None:
             # auto: any failure-plane knob needs skip-round semantics
             self.guard = (self.faults is not None or
                           self.aggregator != "mean")
+        if self.guard and not self.packed:
+            raise ValueError("the non-finite guard is a flat-plane check "
+                             "— packed=True only")
         if torch.device(self.device).type == "cuda":
             # float32 convolutions and matmuls in full f32 (cuDNN would
             # take TF32 by default) and deterministic cuDNN algorithms,
@@ -247,20 +285,23 @@ class FederatedTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.deterministic = True
-        if self.guard and not self.packed:
-            raise ValueError("the non-finite guard is a flat-plane check "
-                             "— packed=True only")
         # the packed step needs φ's FlatPlane, built in init(); the tree
         # step has no such dependency and is built eagerly
         self._step = None if self.packed else make_meta_train_step(
             self.algo, self.optimizer, client_axis=self.client_axis,
             client_chunk=self.client_chunk)
+        self._fused = None
         self._plane = None
         self._rng = np.random.RandomState(self.seed)
-        # the fault picks draw from their own stream, so turning faults
-        # on never perturbs the task stream
+        # the straggler and fault picks draw from their own streams, so
+        # turning either on never perturbs the task stream
+        self._stale_rng = (np.random.RandomState(self.staleness.seed)
+                           if self.staleness is not None else None)
         self._fault_rng = (np.random.RandomState(self.faults.seed)
                            if self.faults is not None else None)
+        self._rng_snaps: dict = {}   # round -> rng states (prefetch-safe)
+        self._pool: Optional[WorkerPool] = None
+        self._stager: Optional[DeviceStager] = None
         self._evaluator = make_meta_evaluator(self.algo)
         self.comm: Optional[CommTracker] = None
         self.history: list = []
@@ -277,13 +318,18 @@ class FederatedTrainer:
                 self.algo, self.optimizer, self._plane,
                 client_axis=self.client_axis, client_chunk=self.client_chunk,
                 impl=self.impl, block_dtype=self.block_dtype,
-                client_plane=self.client_plane, aggregator=self.aggregator,
+                client_plane=self.client_plane, staleness=self.staleness,
+                aggregator=self.aggregator,
                 screen_factor=self.screen_factor, trim=self.trim,
                 faults=self.faults, guard=bool(self.guard),
                 compression=self.compression, dp=self.dp)
-            state = init_packed_state(self.optimizer, self._plane, phi,
-                                      compression=self.compression,
-                                      num_clients=len(self.train_clients))
+            if self.fuse_rounds > 1:
+                self._fused = self._fused_step
+            state = init_packed_state(
+                self.optimizer, self._plane, phi, staleness=self.staleness,
+                clients_per_round=self.clients_per_round,
+                block_dtype=self.block_dtype, compression=self.compression,
+                num_clients=len(self.train_clients))
         else:
             state = {"phi": phi, "opt": self.optimizer.init(phi)}
         self.comm = CommTracker.for_state(
@@ -299,6 +345,19 @@ class FederatedTrainer:
                 tree_size(phi), itemsize)
             self.comm.codec = self.compression.label()
         return state
+
+    def _fused_step(self, state, staged):
+        """K stacked rounds back to back on the device (the reference's
+        `lax.scan` over rounds): the same step as K single rounds, no
+        host sync between them; metrics stacked on a leading (K,) axis."""
+        (sx, sy), (qx, qy), w = staged
+        mets = []
+        for i in range(sx.shape[0]):
+            state, met = self._step(state, (sx[i], sy[i]), (qx[i], qy[i]),
+                                    None if w is None else w[i])
+            mets.append(met)
+        return state, {k: torch.stack([m[k] for m in mets])
+                       for k in mets[0]}
 
     def phi_tree(self, state):
         """φ as a tree regardless of parameter representation."""
@@ -330,48 +389,176 @@ class FederatedTrainer:
             self.comm.flops_per_client = fl
         return fl
 
-    def _stage(self, stream, round_):
-        """Host half of one round: sample, then move to the device ->
-        (positional inputs, keyword inputs) of the step.
+    def _stage_block(self, stream, put, k, round_):
+        """Host half of one round block: sample, then stage on the device
+        with ``put`` -> (positional inputs, keyword inputs) of the step.
+        Runs on the prefetch thread (in block order) when pipelined.
 
-        The step's optional inputs follow the batch positionally —
-        ``(ef_idx, dp_noise)``, trailing ``None``s dropped: this round's
-        picks (the rows of the EF plane) and its noise generator, a pure
-        function of ``round_``. With faults on, the round's failure pick
-        (host arrays, from the trainer's own fault stream) goes as the
-        keyword ``fault``."""
+        A fused block (k > 1) stages the k rounds' batches as one
+        stacked (k, m, ...) buffer. A single round's optional inputs
+        follow the batch positionally — ``(ef_idx, dp_noise)``, trailing
+        ``None``s dropped: this round's picks (the rows of the EF plane)
+        and its noise generator, a pure function of ``round_``. The
+        straggler pick (``stale``, from the trainer's staleness stream)
+        and the failure pick (``fault``, host arrays from the fault
+        stream) go as keywords."""
+        if k > 1:
+            tb = stack_task_batches(stream.take(k))
+            return ((put(tb.support_x), put(tb.support_y)),
+                    (put(tb.query_x), put(tb.query_y)),
+                    put(tb.weight) if self.weighted else None), {}
         tb = stream.next()
-
-        def dp(a):
-            return torch.as_tensor(a, device=self.device)
-
-        args = ((dp(tb.support_x), dp(tb.support_y)),
-                (dp(tb.query_x), dp(tb.query_y)),
-                dp(tb.weight) if self.weighted else None)
+        args = ((put(tb.support_x), put(tb.support_y)),
+                (put(tb.query_x), put(tb.query_y)),
+                put(tb.weight) if self.weighted else None)
+        kw = {}
+        if self.staleness is not None:
+            # (straggler_idx, fresh_idx[, delays]): delays only with
+            # jitter on, so the fixed path takes its own draws
+            kw["stale"] = tuple(
+                put(x, torch.long) for x in self.staleness.pick(
+                    self.clients_per_round, self._stale_rng))
+        if self.faults is not None:
+            kw["fault"] = self.faults.pick(self.clients_per_round,
+                                           self._fault_rng)
         ef_idx = None
         if self.compression is not None and \
                 self.compression.error_feedback:
-            ef_idx = dp(np.asarray(tb.client_idx, np.int64))
+            ef_idx = put(np.asarray(tb.client_idx, np.int64))
         noise = None
         if self.dp is not None and self.dp.noise_multiplier > 0:
             noise = self.dp.round_generator(round_, self.device)
         tail = [ef_idx, noise]
         while tail and tail[-1] is None:
             tail.pop()
-        kw = {}
-        if self.faults is not None:
-            kw["fault"] = self.faults.pick(self.clients_per_round,
-                                           self._fault_rng)
         return args + tuple(tail), kw
 
+    def _peek_picks(self):
+        """The upcoming task batch's client picks without consuming the
+        stream: the rng state is saved and restored, so the real draw
+        that follows replays them (pool cache pre-warming)."""
+        st = self._rng.get_state()
+        n = len(self.train_clients)
+        picks = self._rng.choice(n, size=self.clients_per_round,
+                                 replace=n < self.clients_per_round)
+        self._rng.set_state(st)
+        return picks
+
+    # ---- crash-safe checkpointing ------------------------------------
+    def _capture_rngs(self):
+        """Snapshot every seeded host stream the run consumes."""
+        snap = {"task": self._rng.get_state()}
+        if self._stale_rng is not None:
+            snap["stale"] = self._stale_rng.get_state()
+        if self._fault_rng is not None:
+            snap["fault"] = self._fault_rng.get_state()
+        return snap
+
+    def _restore_rngs(self, snap):
+        self._rng.set_state(snap["task"])
+        if self._stale_rng is not None:
+            self._stale_rng.set_state(snap["stale"])
+        if self._fault_rng is not None:
+            self._fault_rng.set_state(snap["fault"])
+
+    def save_checkpoint(self, state, round_: int, ckpt_dir=None) -> str:
+        """Write one atomic checkpoint holding everything a resumed run
+        needs for a bitwise equal history: the train state (φ, the
+        optimizer, the staleness ring, the EF plane), the rng states *as
+        of round ``round_``* (under prefetching the live streams are
+        already past it: the snapshot staged at that block boundary is
+        used), the CommTracker counters and the flushed history. The
+        payload's keys and layout are the reference's."""
+        from repro_torch.checkpoint.io import save_server_state
+        snap = self._rng_snaps.pop(round_, None) or self._capture_rngs()
+        self._rng_snaps = {r: s for r, s in self._rng_snaps.items()
+                           if r > round_}
+        payload = {
+            "round": int(round_),
+            "state": state,
+            "rng": {k: _rng_state_payload(snap[k])
+                    for k in ("task", "stale", "fault") if k in snap},
+            "comm_rounds": int(self.comm.rounds),
+            "flops_per_client": float(self.comm.flops_per_client or 0.0),
+            "history": list(self.history),
+        }
+        return save_server_state(ckpt_dir or self.checkpoint_dir,
+                                 round_, payload,
+                                 keep_last=self.checkpoint_keep)
+
+    def resume(self, ckpt_dir=None, step: int | None = None):
+        """Restore a killed run from its latest (or ``step``-numbered)
+        checkpoint, written by this package or by the reference's. Call
+        after ``init()``; returns ``(state, start_round)`` for
+        ``run(state, rounds, start_round=start_round)``, whose tail
+        reproduces the uninterrupted run's history record for record.
+        The state's tensors land on the trainer's device in their saved
+        dtypes (bf16 where the manifest lists them)."""
+        from repro_torch.checkpoint.io import load_server_state
+        payload = load_server_state(ckpt_dir or self.checkpoint_dir, step)
+        for name, rng in (("task", self._rng), ("stale", self._stale_rng),
+                          ("fault", self._fault_rng)):
+            if name in payload["rng"] and rng is not None:
+                rng.set_state(_rng_state_from_payload(
+                    payload["rng"][name]))
+        self.comm.rounds = int(payload["comm_rounds"])
+        if payload["flops_per_client"]:
+            self.comm.flops_per_client = payload["flops_per_client"]
+        self.history[:] = payload["history"]
+        state = tree_map(lambda t: t.to(self.device), payload["state"])
+        return state, int(payload["round"])
+
     def run(self, state, rounds: int, eval_every: int = 0,
-            eval_clients=None, log: Callable = None):
-        """Drive ``rounds`` rounds. A record is appended EVERY round;
-        eval fields only when evaluated (every ``eval_every`` rounds and
-        the last)."""
+            eval_clients=None, log: Callable = None,
+            start_round: int = 0):
+        """Drive rounds ``start_round + 1``..``rounds`` through the async
+        round engine. The default knobs (prefetch_depth=0, flush_every=1,
+        fuse_rounds=1) are the synchronous loop; every pipelined
+        configuration gives a bitwise equal history under the same seed.
+        A record is appended EVERY round; eval fields only when evaluated
+        (every ``eval_every`` rounds and the last). ``start_round``
+        continues a resumed run (see ``resume``)."""
         stream = TaskStream(self.train_clients, self.clients_per_round,
                             self.support_frac, self.support_size,
                             self.query_size, self._rng)
+        # pipelined on the card: pinned host buffers copied on a side
+        # stream, the step's stream waits on each block's event
+        self._stager = DeviceStager(self.device,
+                                    side_stream=self.prefetch_depth > 0)
+        put = self._stager.put
+        produced = {"r": start_round}   # the staging thread's cursor
+        if self.pool_workers > 0:
+            clients = self.train_clients
+            self._pool = WorkerPool(lambda i: clients[i],
+                                    workers=self.pool_workers,
+                                    max_retries=self.pool_retries,
+                                    task_timeout=self.task_timeout)
+
+        def stage(k):
+            # retry safety: a failed stage() must not leak partial stream
+            # draws, or the retry would see other tasks than the
+            # synchronous run
+            entry = self._capture_rngs()
+            try:
+                if self._pool is not None and k == 1:
+                    # pre-warm the client shards of the upcoming picks,
+                    # peeked without consuming the stream
+                    self._pool.map(
+                        sorted({int(p) for p in self._peek_picks()}),
+                        label=f"round {produced['r'] + 1} warm")
+                block = self._stage_block(stream, put, k,
+                                          produced["r"] + 1)
+            except BaseException:
+                self._stager.abort()
+                self._restore_rngs(entry)
+                raise
+            produced["r"] += k
+            if self.checkpoint_every:
+                # rng states *after* this block = the states a resume
+                # from its boundary round must start from
+                self._rng_snaps[produced["r"]] = self._capture_rngs()
+            return self._stager.end(block)
+
         evaluate = None
         if eval_every and eval_clients is not None:
             def evaluate(st):
@@ -383,16 +570,24 @@ class FederatedTrainer:
                     evaluator=self._evaluator)
                 return {"eval_acc": acc, "eval_loss": loss}
 
-        produced = {"r": 0}
-
-        def stage():
-            produced["r"] += 1
-            return self._stage(stream, produced["r"])
-
+        checkpoint = None
+        if self.checkpoint_every and self.checkpoint_dir:
+            checkpoint = self.save_checkpoint
         engine = AsyncRoundEngine(
             stage=stage,
             step=lambda st, a: self._step(st, *a[0], **a[1]),
             comm=self.comm, history=self.history,
-            flush_every=self.flush_every)
-        return engine.run(state, rounds, eval_every=eval_every,
-                          evaluate=evaluate, log=log)
+            fused_step=(None if self._fused is None else
+                        lambda st, a: self._fused(st, a[0])),
+            prefetch_depth=self.prefetch_depth,
+            flush_every=self.flush_every, fuse_rounds=self.fuse_rounds,
+            checkpoint=checkpoint, checkpoint_every=self.checkpoint_every,
+            prefetch_retries=self.prefetch_retries)
+        try:
+            return engine.run(state, rounds, eval_every=eval_every,
+                              evaluate=evaluate, log=log,
+                              start_round=start_round)
+        finally:
+            if self._pool is not None:
+                self._pool.close()   # no leaked worker threads, ever
+                self._pool = None

@@ -9,6 +9,8 @@ femnist|sent140|shakespeare|recommend|lm``), and of
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep sent140 \\
         --device cpu --pipeline tree --init-from init.npz --outdir /tmp/f
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep robustness
+    PYTHONPATH=src python -m repro_torch.launch.compare --sweep femnist \\
+        --pipeline packed --prefetch-depth 2 --fuse-rounds 2 --flush-every 4
 
 ``compression``: FOMAML on FEMNIST under four upload codecs — dense f32,
 a bf16 block, int8 with error feedback and top-5% with error feedback
@@ -80,16 +82,18 @@ SCENARIOS = ("femnist", "sent140", "shakespeare", "recommend", "lm")
 
 
 def comparison_plan(dataset: str, *, rounds=None, eval_every=None, seed=0,
-                    pipeline="client_plane"):
+                    pipeline="client_plane", **engine):
     """The committed comparison plan of ``dataset`` (five methods, the
     registry's hyperparameters and overrides), or the registry's
     defaults where no artifact exists; ``rounds`` and ``eval_every``
-    override either."""
+    override either. ``engine`` sets the async round engine's knobs
+    (``prefetch_depth``, ``flush_every``, ``fuse_rounds``)."""
     kw = dict(COMMITTED_PLANS.get(dataset, {}))
     kw.update({k: v for k, v in (("rounds", rounds),
                                  ("eval_every", eval_every))
                if v is not None})
-    return default_plan(dataset, seed=seed, pipeline=pipeline, **kw)
+    return default_plan(dataset, seed=seed, pipeline=pipeline, **kw,
+                        **engine)
 
 
 def upload_ratios(variants: dict, base: str = "bf16") -> dict:
@@ -280,6 +284,16 @@ def main(argv=None):
                     choices=("tree", "packed", "client_plane"))
     ap.add_argument("--init-from", default=None,
                     help=".npz of initial parameters (see load_init)")
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="scenarios: async round engine, staged round "
+                         "blocks ahead of the device (0 = synchronous "
+                         "loop; the history is bitwise equal either way)")
+    ap.add_argument("--flush-every", type=int, default=1,
+                    help="scenarios: deferred-metrics drain cadence (0 = "
+                         "at eval rounds and exit)")
+    ap.add_argument("--fuse-rounds", type=int, default=1,
+                    help="scenarios: rounds a fused block runs back to "
+                         "back (packed pipelines)")
     args = ap.parse_args(argv)
     init = load_init(args.init_from) if args.init_from else (None, None)
     if args.sweep == "robustness":
@@ -307,7 +321,10 @@ def main(argv=None):
     else:
         plan = comparison_plan(args.sweep, rounds=args.rounds,
                                eval_every=args.eval_every, seed=args.seed,
-                               pipeline=args.pipeline)
+                               pipeline=args.pipeline,
+                               prefetch_depth=args.prefetch_depth,
+                               flush_every=args.flush_every,
+                               fuse_rounds=args.fuse_rounds)
         out = run_comparison(plan, print, device=args.device,
                              init_params=init[0], finetune_idx=init[1])
         out.pop("states")

@@ -127,8 +127,18 @@ def test_method_overrides_and_trainer_knobs():
     tree = dataclasses.replace(plan, pipeline="tree")
     with pytest.raises(ValueError, match="packed"):
         tx.make_trainer(tree, "fomaml", lf, ef, [], device="cpu")
-    for knob in (dict(fuse_rounds=2), dict(prefetch_depth=2),
-                 dict(over_select=0.5)):
+    # the async engine's knobs reach both trainers (fused rounds the
+    # packed FedMeta trainers only); the population plane's still raise
+    engine = dataclasses.replace(plan, compression=None, block_dtype=None,
+                                 fuse_rounds=2, prefetch_depth=2,
+                                 flush_every=4)
+    fo = tx.make_trainer(engine, "fomaml", lf, ef, [], device="cpu")
+    assert (fo.fuse_rounds, fo.prefetch_depth, fo.flush_every) == (2, 2, 4)
+    fa = tx.make_trainer(engine, "fedavg", lf, ef, [], device="cpu")
+    assert (fa.prefetch_depth, fa.flush_every) == (2, 4)
+    assert tx.make_trainer(dataclasses.replace(engine, pipeline="tree"),
+                           "fomaml", lf, ef, [], device="cpu").fuse_rounds == 1
+    for knob in (dict(over_select=0.5), dict(round_deadline=2.0)):
         bad = dataclasses.replace(plan, compression=None, block_dtype=None,
                                   **knob)
         with pytest.raises(NotImplementedError, match="slice"):

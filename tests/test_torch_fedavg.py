@@ -179,10 +179,12 @@ def test_finetune_and_evaluate_global_match_reference(setup):
         np.testing.assert_allclose(tper, np.asarray(jper), **NET)
 
 
-def test_finetune_draws_and_async_knob():
+def test_finetune_draws_and_async_knob(setup):
     """Without injection the indices come from a generator seeded with
     `seed`: the same for every call (as the reference's fixed key), in
-    range; a wrongly shaped injection and prefetching raise."""
+    range; a wrongly shaped injection raises. A prefetching trainer
+    (prefetch_depth=2, flush_every=2) runs, and its history equals the
+    synchronous one record for record."""
     tt = FedAvgTrainer(lambda p, b: 0, lambda p, b: (0, {}), 1e-3,
                        device="cpu")
     a, b = tt.finetune_indices(8, 5, 4), tt.finetune_indices(8, 5, 4)
@@ -191,6 +193,14 @@ def test_finetune_draws_and_async_knob():
     tt.finetune_idx = np.zeros((2, 2), np.int64)
     with pytest.raises(ValueError, match="finetune_idx"):
         tt.finetune_indices(8, 5, 4)
-    with pytest.raises(NotImplementedError, match="async"):
-        FedAvgTrainer(lambda p, b: 0, lambda p, b: (0, {}), 1e-3,
-                      prefetch_depth=2, device="cpu")
+    _, tm, theta, _, (ttr, tval, _) = setup
+
+    def run(**kw):
+        tr = FedAvgTrainer(*classification_loss(tm.apply), train_clients=ttr,
+                           device="cpu", **KW, **kw)
+        tr.run(tr.init(0, tm.init, theta=from_numpy_tree(theta, "cpu")), 2,
+               eval_every=2, eval_clients=tval)
+        return tr.history
+
+    piped = run(prefetch_depth=2, flush_every=2)
+    assert len(piped) == 2 and piped == run()

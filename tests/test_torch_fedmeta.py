@@ -33,6 +33,8 @@ from repro_torch.convert import from_numpy_tree, to_numpy_tree
 from repro_torch.core import fedmeta as tfm
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.losses import classification_loss, lm_loss
+from repro_torch.federated.async_engine import StalenessConfig
+from repro_torch.kernels.meta_update.compress import CompressionConfig
 from repro_torch.launch.steps import make_apply_fn
 from repro_torch.models.paper import femnist_cnn
 from repro_torch.optim import adam
@@ -237,17 +239,21 @@ def test_guard_is_a_bitwise_noop_on_a_clean_round(cnn):
 
 
 def test_later_slice_knobs_raise(cnn):
-    """The knobs of later slices raise, naming their slice; the failure
-    plane's are refused off the vmap axis and for an unknown
-    aggregator, as in the reference."""
+    """The sharded axis (a later slice) raises, naming its slice; the
+    failure plane's and staleness's knobs are refused off the vmap axis,
+    staleness with compression and an unknown aggregator, as in the
+    reference."""
     _, ta = _algos(cnn, "fomaml")
     tp = plane_for(_t(_phi(cnn, "fomaml")))
-    for kw in ({"client_axis": "sharded"}, {"staleness": object()}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tfm.make_packed_meta_train_step(ta, adam(1e-2), tp, **kw)
+    with pytest.raises(NotImplementedError, match="slice"):
+        tfm.make_packed_meta_train_step(ta, adam(1e-2), tp,
+                                        client_axis="sharded")
     for kw in ({"aggregator": "median"},
                {"aggregator": "trimmed", "client_axis": "scan"},
-               {"faults": object(), "client_axis": "chunked"}):
+               {"faults": object(), "client_axis": "chunked"},
+               {"staleness": StalenessConfig(), "client_axis": "scan"},
+               {"staleness": StalenessConfig(),
+                "compression": CompressionConfig("int8")}):
         with pytest.raises(ValueError):
             tfm.make_packed_meta_train_step(ta, adam(1e-2), tp, **kw)
 

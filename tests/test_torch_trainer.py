@@ -125,19 +125,92 @@ def test_tree_and_packed_pipelines_agree_with_the_client_plane(runs, packed):
 
 
 def test_plan_blocks_match_reference_and_async_classes_raise():
+    """`plan_blocks` is the reference's; the async classes construct and
+    run (a prefetched block, a pool map, a straggler pick) and raise the
+    reference's `ValueError` on arguments it refuses."""
     for args in ((10, 4, 3), (10, 4, 3, 4), (7, 0, 1), (5, 5, 1, 5)):
         assert plan_blocks(*args) == jax_plan_blocks(*args)
-    for cls in (Prefetcher, StalenessConfig, WorkerPool):
-        with pytest.raises(NotImplementedError, match="async"):
-            cls(delay=1)
+    pf = Prefetcher(lambda k: k * 10, [1, 2], depth=1)
+    try:
+        assert (pf.get(), pf.get()) == (10, 20)
+    finally:
+        pf.close()
+    pool = WorkerPool(lambda i: -i, workers=2)
+    try:
+        assert pool.map([1, 2, 3], label="round 1") == [-1, -2, -3]
+    finally:
+        pool.close()
+    strag, fresh = StalenessConfig(fraction=0.25).pick(
+        4, np.random.RandomState(0))
+    assert sorted(strag.tolist() + fresh.tolist()) == [0, 1, 2, 3]
+    for make in (lambda: StalenessConfig(delay=0),
+                 lambda: StalenessConfig(fraction=1.0),
+                 lambda: WorkerPool(lambda i: i, workers=0)):
+        with pytest.raises(ValueError):
+            make()
 
 
-@pytest.mark.parametrize("kw", [{"prefetch_depth": 2}, {"fuse_rounds": 2},
-                                {"checkpoint_dir": "ckpt"},
-                                {"checkpoint_every": 5}, {"over_select": 0.5},
+@pytest.mark.parametrize("kw", [{"unreliability": object()},
+                                {"round_deadline": 2.0},
+                                {"mesh": object()}, {"mesh_axis": "data"},
+                                {"over_select": 0.5},
                                 {"client_axis": "sharded"}])
 def test_trainer_knobs_of_later_slices_raise(kw):
     algo = make_algorithm("fomaml", lambda p, b: 0, lambda p, b: (0, {}), 0.1)
     with pytest.raises(NotImplementedError, match="slice"):
         FederatedTrainer(algo, adam(1e-3), [], device="cpu",
                          **{**TRAIN, **kw})
+
+
+def _exclusions():
+    """(id, port knobs, reference knobs): configurations the reference's
+    trainer refuses with a ValueError (`server.py:175-240`)."""
+    from repro.federated.async_engine import StalenessConfig as JS
+    from repro.federated.faults import FaultConfig as JF
+    from repro.kernels.meta_update.compress import CompressionConfig as JC
+    from repro_torch.federated.faults import FaultConfig
+    from repro_torch.kernels.meta_update.compress import CompressionConfig
+    tree = dict(packed=False, client_plane=False)
+    chunked = dict(client_axis="chunked", client_chunk=2)
+    both = [
+        ("fuse-off-packed", dict(fuse_rounds=2, **tree)),
+        ("stale-fuse", dict(fuse_rounds=2), "stale"),
+        ("stale-off-packed", dict(**tree), "stale"),
+        ("stale-off-vmap", dict(**chunked), "stale"),
+        ("stale-compression", dict(), "stale", "int8"),
+        ("faults-fuse", dict(fuse_rounds=2), "faults"),
+        ("faults-off-vmap", dict(**chunked), "faults"),
+        ("trimmed-2trim", dict(aggregator="trimmed", trim=2)),
+        ("robust-off-packed", dict(aggregator="screen", **tree)),
+        ("compression-fuse", dict(fuse_rounds=2), "int8"),
+        ("compression-faults", dict(), "int8", "faults"),
+        ("compression-off-vmap", dict(**chunked), "int8"),
+        ("guard-off-packed", dict(guard=True, **tree)),
+        ("client-plane-off-packed", dict(packed=False, client_plane=True)),
+        ("unknown-aggregator", dict(aggregator="median")),
+    ]
+    port = {"stale": ("staleness", StalenessConfig()),
+            "faults": ("faults", FaultConfig(dropout=0.25)),
+            "int8": ("compression", CompressionConfig("int8"))}
+    ref = {"stale": ("staleness", JS()), "faults": ("faults", JF(dropout=0.25)),
+           "int8": ("compression", JC("int8"))}
+    out = []
+    for name, kw, *extra in both:
+        out.append(pytest.param({**kw, **dict(port[e] for e in extra)},
+                                {**kw, **dict(ref[e] for e in extra)},
+                                id=name))
+    return out
+
+
+@pytest.mark.parametrize("port_kw, ref_kw", _exclusions())
+def test_trainer_mutual_exclusions_match_reference(port_kw, ref_kw):
+    """Each knob combination the reference refuses with a ValueError, the
+    port refuses too."""
+    jalgo = jax_make_algorithm("fomaml", lambda p, b: 0,
+                               lambda p, b: (0, {}), 0.1)
+    with pytest.raises(ValueError):
+        JaxTrainer(jalgo, jax_adam(1e-3), [], **{**TRAIN, **ref_kw})
+    algo = make_algorithm("fomaml", lambda p, b: 0, lambda p, b: (0, {}), 0.1)
+    with pytest.raises(ValueError):
+        FederatedTrainer(algo, adam(1e-3), [], device="cpu",
+                         **{**TRAIN, **port_kw})
