@@ -13,8 +13,10 @@ Phases, each printing one JSON line:
            card at the main paths' shapes: K1–K6 bitwise (K2–K6 at the
            full SmolLM-360M plane; K6 also on a FEMNIST block with a zero
            row and exact .5 products; K2 on the int8 block with the
-           folded weights w·s and on the jittered staleness ring's
-           6-row block; K5 in f32 and bf16 with a NaN row made dead, on
+           folded weights w·s, on the jittered staleness ring's
+           6-row block, and as the population plane's masked mean (two
+           zero-weight rows, then the division by Σw); K5 in f32 and
+           bf16 with a NaN row made dead, on
            the trimmed resume cell's 4-row FEMNIST block with its ring
            row dead, on the FEMNIST block with adversarial rows and ties, on
            the degenerate rounds with their NaN and ±inf in place, and
@@ -86,19 +88,20 @@ Phases, each printing one JSON line:
            and the Adam state bitwise unchanged.
   train_scenarios  the paper's other scenarios through `run_comparison`
            on the client plane, five methods each: (i) the committed
-           Sent140 plan (`sent_lstm`, 8 clients a round; cut to 6
+           Sent140 plan (`sent_lstm`, 8 clients a round; cut to 4
            rounds), its comm-to-target table printed beside the
            artifact's, then 5 FOMAML rounds on the kernel route and on
            impl="torch" (equal NaN masks in φ, finite entries bitwise);
            (ii) the committed recommender plan (FedMeta on the 40-way
            local head, FedAvg on the 120-way global head; cut to 20
            rounds), θ's size by method equal to the artifact's, top-4 in
-           every eval record; (iii) the Shakespeare (`char_lstm`) and LM
-           (reduced SmolLM, K7 in f32) registry plans for 10 rounds, an
-           eval every 5. Bytes a round held exactly by method; K1, K2 and
-           K3 launched in each, K7 in the LM's; eval accuracy and loss
-           finite. (iv) Two FOMAML rounds of each LSTM at the paper's
-           widths (`char_lstm(70, 256, 8)`, `sent_lstm(2000, 100, 64)`;
+           every eval record; (iii) the Shakespeare (`char_lstm`) plan
+           for 4 rounds (an eval every 2) and the LM one (reduced
+           SmolLM, K7 in f32) for 10 (an eval every 5). Bytes a round
+           held exactly by method; K1, K2 and K3 launched in each, K7 in
+           the LM's; eval accuracy and loss finite. (iv) Two FOMAML
+           rounds of each LSTM at the paper's widths
+           (`char_lstm(70, 256, 8)`, `sent_lstm(2000, 100, 64)`;
            52,174,208 and 17,574,528 B a round), round 1 held against
            the all-plain route, the char-LSTM's round 2 traced.
   train_async  the async round engine and crash-safe checkpoints, through
@@ -121,6 +124,29 @@ Phases, each printing one JSON line:
            reduced SmolLM: 9 rounds against 6 checkpointed at 3 and 6 and
            a fresh trainer resumed to 9, prefetch 2, history and φ
            bitwise; each checkpoint's bytes, save and load seconds.
+  train_population  the population plane, through the entry points:
+           (i) the committed artifact's three cells through
+           `launch/compare.sweep_population` (FOMAML on Sent140, a lazy
+           registry of 100 clients behind a 32-client LRU and 2 pool
+           workers, 8 a round: clean, failures at 0.65 with a 0.75
+           deadline and over-selection ×5, the same without
+           over-selection; cut from 60 rounds to 30): skipped rounds,
+           arrivals, cohort fill, client updates and the comm totals
+           exactly the reference's first 30 rounds, the registry's
+           accesses the reference's and its peak under the cap;
+           (ii) a lazily generated fleet of 10^6 Sent140 clients (and
+           10^3) under the paper-width `sent_lstm(2000, 100, 64)` on the
+           client plane, m = 8, failures, a deadline, over-selection, 4
+           pool workers and the breaker: 6 rounds synchronous and 6
+           pipelined, history and state bitwise; round 1 bitwise equal to
+           impl="torch"; rounds/s, host RSS, the LRU's peak, K1–K3 a round
+           and bytes per candidate and arrival; (iii) SmolLM-360M at full
+           width over lazy clients, over-selection 1.0 and an arrival
+           model whose rounds 1–3 see 3, 0 and 2 arrivals: K2 on the
+           (4, N) block with zero-weight rows, round 1 bitwise equal to
+           impl="torch", the dead round skipped with φ, m, v and the step
+           bitwise unchanged, round 3 traced; (iv) kill and resume with
+           the breaker at FEMNIST width, history, φ and breaker bitwise.
   serve_ssm  the serving path of Mamba2-370M at full width (bf16, random
            weights, seed 0): 16 requests of the serve phase's traffic,
            supports of 128-token sequences, prompts of 200 tokens (two
@@ -416,7 +442,8 @@ def check_k1(torch, n_plane: int):
 def check_k2(torch, n_plane: int):
     """K2 against its plain version, bitwise: m = 4 at the full plane in
     f32 and bf16, m = 6 in f32 (the jittered staleness ring's block, m +
-    delay·k), then m = 1, 7 and an int8 block at a small N."""
+    delay·k), then m = 1, 7 and an int8 block at a small N, then the
+    population plane's masked mean (`check_k2_masked`)."""
     from repro_torch.kernels.meta_update import aggregate
     gen = torch.Generator(device="cuda").manual_seed(12)
     small = 1 << 20
@@ -462,7 +489,46 @@ def check_k2(torch, n_plane: int):
         if not bitwise:
             raise PhaseFailed(f"K2 not bitwise equal to plain: {row['case']} "
                               f"err {err}")
+    rows.append(check_k2_masked(torch, n_plane, gen))
     return rows, summary
+
+
+def check_k2_masked(torch, n_plane: int, gen):
+    """The population plane's masked mean at the full plane: a (4, N)
+    f32 block whose rows 1 and 3 carry weight 0 (clients that did not
+    arrive), K2 and then the renormalization by Σw, bitwise equal to
+    `masked_mean_ref` (the eager loop, then the same division)."""
+    from repro_torch.kernels.meta_update import aggregate
+    G = torch.randn((4, n_plane), device="cuda", generator=gen)
+    # data counts of the two arrivals, unnormalized, so Σw is not 1
+    w = torch.tensor([37.0, 0.0, 52.0, 0.0], device="cuda")
+    out = aggregate.masked_mean_flat(G, w)
+    plain = aggregate.masked_mean_ref(G, w)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, plain))
+    err = float((out - plain).abs().max())
+    del out, plain
+    kernel = lambda: aggregate.masked_mean_flat(G, w)
+    library = lambda: torch.mv(G.t(), w) / torch.sum(w)
+    ms = time_ms(kernel, torch)
+    plain_ms = time_ms(lambda: aggregate.masked_mean_ref(G, w), torch)
+    lib_ms = library_time_ms(library, torch)
+    dev = device_times(torch, kernel, library if lib_ms else None)
+    b_ms, b_by = bound_ms(nbytes(G, w) + 4 * n_plane, 2.0 * 4 * n_plane
+                          + n_plane, "float32")
+    row = {"name": "weighted_aggregate",
+           "case": f"masked mean m=4 N={n_plane} float32, rows 1 and 3 at "
+                   "w = 0",
+           "bitwise_equal": bitwise, "max_abs_err": err, "tol": 0.0,
+           "call_ms": ms, **dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "torch.mv (cuBLAS GEMV) / Σw", "bound_ms": b_ms,
+           "bound_by": b_by}
+    del G, w
+    torch.cuda.empty_cache()
+    if not bitwise:
+        raise PhaseFailed(f"K2 masked mean not bitwise equal to "
+                          f"masked_mean_ref: err {err}")
+    return row
 
 
 def check_k3(torch, n_plane: int):
@@ -2616,12 +2682,13 @@ SCENARIO_ROUND_BYTES = {
 # rounds and eval cadence run here. The committed plans (sent140,
 # recommend) run 60 rounds with an eval every 2; the registry's
 # (shakespeare, lm) 100 with an eval every 10. Cut to keep the phase near
-# 150 s: rounds are host-bound (eager dispatch), and a round of the five
-# methods with its evals took 6.4 s for Sent140, 8.4 s for Shakespeare
-# and 0.68 s for the recommender on the H100. Each cut is printed on the
-# part's line.
-SCENARIO_RUNS = {"sent140": (6, 2), "recommend": (20, 2),
-                 "shakespeare": (10, 5), "lm": (10, 5)}
+# 130 s and the script well inside its time limit as phases are added:
+# rounds are host-bound (eager dispatch), and a round of the five methods
+# with its evals took 8.7 s for Sent140, 10.3 s for Shakespeare and
+# 0.9 s for the recommender on an H100 80GB HBM3 at 700 W. Each cut is
+# printed on the part's line.
+SCENARIO_RUNS = {"sent140": (4, 2), "recommend": (20, 2),
+                 "shakespeare": (4, 2), "lm": (10, 5)}
 # the paper's widths (the reference's defaults): LEAF's Shakespeare
 # char-LSTM and the Sent140 LSTM with a learned 64-wide embedding;
 # bytes of one FOMAML round of 8 clients
@@ -3203,6 +3270,473 @@ def phase_train_async(torch, cfg):
     return paths
 
 
+# ------------------------------------------------------- train_population
+
+# the committed artifact's three cells (results/experiments/
+# population_sent140.json) cut from its 60 rounds to their first 30 (an
+# eval every 3, as there): the 60 took 143 s on the H100 (host-bound
+# LSTM rounds); the whole 60 are replayed by `launch.compare --sweep
+# population` and held by `tools/compare_population.py`. The accounting
+# of the first 30 rounds is the reference's, from two CPU runs of
+#   PYTHONPATH=src python examples/population_scale.py --rounds 30 \
+#       --outdir D
+# which agree with each other field for field and in the registry's
+# counts (hits 643, misses 306, evictions 374)
+POP_ROUNDS = 30
+POP_CELL_FIELDS = ("rounds", "skipped_rounds", "dead_round_frac",
+                   "mean_arrived", "cohort_fill", "client_updates")
+POP_COMM_FIELDS = ("selected_total", "arrived_total", "quarantined",
+                   "download_MB", "upload_MB", "comm_MB", "phi_MB")
+POP_CUT = {
+    "clean": dict(rounds=30, skipped_rounds=0, dead_round_frac=0.0,
+                  mean_arrived=8.0, cohort_fill=1.0, client_updates=240,
+                  comm=dict(download_MB=44.79168, upload_MB=44.79168,
+                            comm_MB=89.58336, phi_MB=0.186632)),
+    "overselect": dict(rounds=30, skipped_rounds=10,
+                       dead_round_frac=0.3333333333333333,
+                       mean_arrived=3.066666666666667,
+                       cohort_fill=0.38333333333333336, client_updates=92,
+                       comm=dict(selected_total=1200, arrived_total=92,
+                                 quarantined=62, download_MB=223.9584,
+                                 upload_MB=17.170144, comm_MB=241.128544,
+                                 phi_MB=0.186632)),
+    "baseline": dict(rounds=30, skipped_rounds=17,
+                     dead_round_frac=0.5666666666666667,
+                     mean_arrived=0.6666666666666666,
+                     cohort_fill=0.08333333333333333, client_updates=20,
+                     comm=dict(selected_total=240, arrived_total=20,
+                               quarantined=12, download_MB=44.79168,
+                               upload_MB=3.73264, comm_MB=48.52432,
+                               phi_MB=0.186632)),
+}
+POP_CUT_ACCESSES = 643 + 306     # the registry's hits + misses
+# the deployment scale: a lazily generated Sent140 fleet at the paper's
+# LSTM width, m = 8 on the client plane, the arrival model below
+POP_FLEETS = (1_000_000, 1_000)
+POP_SCALE_ROUNDS = 6
+POP_SCALE_ARRIVALS = dict(fail_rate=0.2, chronic_frac=0.05, seed=0)
+POP_SCALE_KNOBS = dict(over_select=0.5, round_deadline=1.6, pool_workers=4)
+POP_SCALE_CACHE = 64
+# SmolLM-360M at full width, 8 lazy clients, over_select 1.0 (all 8
+# candidates every round): with this arrival model and deadline the
+# first 3 rounds see 3, 0 and 2 arrivals — a partial cohort, a dead
+# round, a partial cohort (found by a search over seeds with
+# `population.plan_round`, printed on the part's line)
+POP_LM_ARRIVALS = dict(fail_rate=0.6, seed=10)
+POP_LM_DEADLINE = 1.0
+POP_LM_ARRIVED = [3, 0, 2]
+# `tests/test_worker_pool.py::test_population_checkpoint_resume_bit_identical`
+POP_RESUME_KNOBS = dict(over_select=0.5, round_deadline=2.0,
+                        breaker_threshold=2, breaker_cooldown=3)
+POP_RESUME_ARRIVALS = dict(fail_rate=0.4, seed=11)
+
+
+def _rss_mb() -> float:
+    """This process's resident set now (`/proc/self/statm`), in MB:
+    `ru_maxrss` is the whole script's peak, not the phase's."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e6
+
+
+def population_artifact(torch, errors):
+    """(i) The committed artifact's three cells (clean, overselect,
+    baseline) through `launch.compare.sweep_population` on the card:
+    FOMAML on Sent140, a lazy registry of 100 clients behind a 32-client
+    LRU and 2 pool workers, 8 a round, an eval every 3, packed on the
+    vmap axis, cut to the first `POP_ROUNDS` rounds. Each cell's skipped
+    rounds, dead round share, mean arrivals, cohort fill, client updates
+    and comm totals exactly the reference's first `POP_ROUNDS` rounds
+    (`POP_CUT`); the registry's accesses (hits + misses) the
+    reference's and its peak under the cap; K2 and K3 once a round in
+    every cell. The artifact's 60-round values are printed beside."""
+    from repro_torch.launch.compare import sweep_population
+    artifact = {c["cell"]: c for c in
+                _committed("population_sent140.json")["cells"]}
+    counts, walls = {}, {}
+
+    def around(name, run):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = read_launches()
+        return out
+
+    t0 = time.perf_counter()
+    out = sweep_population(device="cuda", log=None, around=around,
+                           rounds=POP_ROUNDS)
+    wall = time.perf_counter() - t0
+    res, paths = {"rounds": POP_ROUNDS, "wall_s": wall, "cells": {}}, {}
+    for cell in out["cells"]:
+        name, w = cell["cell"], POP_CUT[cell["cell"]]
+        diff = {k: [cell[k], w[k]] for k in POP_CELL_FIELDS
+                if cell[k] != w[k]}
+        diff.update({f"comm.{k}": [cell["comm"].get(k), w["comm"].get(k)]
+                     for k in POP_COMM_FIELDS
+                     if cell["comm"].get(k) != w["comm"].get(k)})
+        launches = counts[name]
+        paths[f"train_population[{name}]"] = launches
+        if diff:
+            errors.append(f"{name}: accounting differs from the "
+                          f"reference's first {POP_ROUNDS} rounds: {diff}")
+        if not (launches["weighted_aggregate"] == launches["adam_flat"]
+                == POP_ROUNDS):
+            errors.append(f"{name}: K2/K3 launches {launches}")
+        evals = [a for _, a in cell["eval_curve"]]
+        if not all(math.isfinite(a) for a in evals):
+            errors.append(f"{name}: non-finite eval accuracy")
+        res["cells"][name] = {
+            **{k: cell[k] for k in POP_CELL_FIELDS},
+            "comm": cell["comm"], "accounting_equal": not diff,
+            "wall_s": walls[name],
+            "round_wall_ms": walls[name] / POP_ROUNDS * 1e3,
+            "final_val_acc": cell["final_val_acc"],
+            "final_test_acc": cell["final_test_acc"],
+            "artifact_60_rounds": {
+                k: artifact[name][k] for k in
+                POP_CELL_FIELDS + ("final_val_acc", "final_test_acc")},
+            "launches": {k: launches[k] for k in FED_KERNELS}}
+    got = out["registry_cache"]
+    res["registry_cache"] = {"got": got, "want_accesses": POP_CUT_ACCESSES}
+    if got["hits"] + got["misses"] != POP_CUT_ACCESSES:
+        errors.append(f"registry accesses {got}: want {POP_CUT_ACCESSES}")
+    if got["peak_resident"] > got["cache_clients"]:
+        errors.append(f"registry peak over its cap: {got}")
+    return res, paths
+
+
+def population_scale(torch, errors):
+    """(ii) The deployment scale: `make_sent140(n, lazy=True,
+    independent=True, cache_clients=64)` for n = 10^6 and 10^3, the
+    paper-width `sent_lstm(2000, 100, 64)`, FOMAML on the client plane,
+    m = 8, `UnreliabilityConfig(fail_rate=0.2, chronic_frac=0.05)`,
+    over_select 0.5, deadline 1.6, 4 pool workers, the breaker on. At
+    10^6: 6 rounds synchronous, then 6 pipelined (prefetch 2): history
+    and state bitwise equal; round 1 again on impl="torch": φ bitwise.
+    At 10^3: the same 6 synchronous rounds. Rounds/s, host RSS before
+    and after the registry and after the rounds, the LRU's peak, K1, K2
+    and K3 launches a round, and download = candidates × φ bytes,
+    upload = arrivals × φ bytes."""
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.data import make_sent140
+    from repro_torch.federated.population import UnreliabilityConfig
+    from repro_torch.federated.server import FederatedTrainer
+    from repro_torch.models.paper import sent_lstm
+    from repro_torch.optim import adam
+    model = sent_lstm(vocab=2000, hidden=100, embed_dim=64, device="cuda")
+    loss = classification_loss(model.apply)
+    rounds = POP_SCALE_ROUNDS
+
+    def trainer(train, **kw):
+        algo = make_algorithm("fomaml", *loss, inner_lr=0.01)
+        tr = FederatedTrainer(
+            algo, adam(1e-3), train, 8, support_frac=0.2, support_size=16,
+            query_size=16, seed=0, packed=True, client_plane=True,
+            device="cuda",
+            unreliability=UnreliabilityConfig(**POP_SCALE_ARRIVALS),
+            **POP_SCALE_KNOBS, **kw)
+        return tr, tr.init(0, model.init)
+
+    def timed(tr, state, start=0):
+        t0 = time.perf_counter()
+        state = tr.run(state, rounds, start_round=start)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    res, paths = {}, {}
+    for n in POP_FLEETS:
+        rss0 = _rss_mb()
+        t0 = time.perf_counter()
+        reg = make_sent140(n, lazy=True, independent=True,
+                           cache_clients=POP_SCALE_CACHE)
+        train, _, _ = reg.split_clients(seed=0)
+        build_s = time.perf_counter() - t0
+        rss1 = _rss_mb()
+        tr, state = trainer(train)
+        reset_launches()
+        t0 = time.perf_counter()
+        state = tr.run(state, 1)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        phi1 = state["phi"].clone()
+        state, wall = timed(tr, state, start=1)
+        launches = read_launches()
+        rss2 = _rss_mb()
+        paths[f"train_population[sent140 {n:.0e} sync]"] = launches
+        hist = tr.history
+        phi_b = tr.comm.phi_bytes
+        sel = sum(r["selected"] for r in hist)
+        arr = sum(r["arrived"] for r in hist)
+        skipped = [r.get("skipped", 0.0) for r in hist]
+        bytes_ok = (tr.comm.download_bytes == sel * phi_b
+                    and tr.comm.upload_bytes == arr * phi_b
+                    and all(r["selected"] == 12 for r in hist))
+        row = {"clients": n, "train_clients": len(train),
+               "registry_build_s": build_s,
+               "rss_mb": {"before_registry": rss0, "after_registry": rss1,
+                          "after_rounds": rss2},
+               "round1_wall_ms": wall1 * 1e3,
+               "rounds_per_s": (rounds - 1) / wall,
+               "arrived": [r["arrived"] for r in hist],
+               "quarantined": [r["quarantined"] for r in hist],
+               "skipped": skipped, "phi_bytes": phi_b,
+               "download_bytes": tr.comm.download_bytes,
+               "upload_bytes": tr.comm.upload_bytes,
+               "bytes_equal_counts": bytes_ok,
+               "launches": {k: launches[k] for k in FED_KERNELS},
+               "query_loss": [r["query_loss"] for r in hist]}
+        if not bytes_ok:
+            errors.append(f"{n}: bytes {row}")
+        if any(launches[k] != rounds for k in FED_KERNELS):
+            errors.append(f"{n}: launches {launches} (want {rounds} each)")
+        if n == POP_FLEETS[0]:
+            sync_hist, sync_state = list(hist), state
+            trp, stp = trainer(train, prefetch_depth=2)
+            reset_launches()
+            stp, wall_p = timed(trp, stp)
+            paths[f"train_population[sent140 {n:.0e} pipelined]"] = \
+                read_launches()
+            row["pipelined_wall_s"] = wall_p
+            row["sync_wall_s"] = wall1 + wall
+            row["pipelined_side_stream"] = trp._stager.side is not None
+            row["pipelined_history_equal"] = _same_history(trp.history,
+                                                           sync_hist)
+            row["pipelined_state_bitwise"] = _same_state(torch, stp,
+                                                         sync_state)
+            if not (row["pipelined_history_equal"]
+                    and row["pipelined_state_bitwise"]
+                    and row["pipelined_side_stream"]):
+                errors.append(f"{n}: pipelined vs sync: history "
+                              f"{row['pipelined_history_equal']}, state "
+                              f"{row['pipelined_state_bitwise']}")
+            del trp, stp
+            trt, stt = trainer(train, impl="torch")
+            stt = trt.run(stt, 1)
+            row["round1_plain_bitwise"] = bool(torch.equal(stt["phi"],
+                                                           phi1))
+            if not row["round1_plain_bitwise"]:
+                errors.append(f"{n}: round 1 vs impl='torch' not bitwise")
+            del trt, stt
+        if not bool(torch.isfinite(state["phi"]).all()):
+            errors.append(f"{n}: non-finite φ")
+        # after every run on this fleet (at 10^6: three runs, more
+        # distinct clients than the cache holds)
+        row["registry_cache"] = reg.cache_stats()
+        if row["registry_cache"]["peak_resident"] > POP_SCALE_CACHE:
+            errors.append(f"{n}: registry peak {row['registry_cache']}")
+        res[f"{n}"] = row
+        del tr, state, reg, train, phi1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res, paths
+
+
+def population_lm(torch, cfg, errors):
+    """(iii) SmolLM-360M at full width on the client plane through
+    `FederatedTrainer.run` with the SmolLM round's settings (m = 4, 4 + 4
+    sequences of 128 tokens) over `make_lm_clients(..., lazy=True)` at
+    the model's vocabulary, over_select 1.0 and `POP_LM_ARRIVALS` with
+    deadline `POP_LM_DEADLINE`: rounds 1–3 see 3, 0 and 2 arrivals. K2
+    runs on the (4, N) block with zero-weight rows; round 1 is bitwise
+    equal to impl="torch" (K1, K2, K3 plain; K7 on both); the dead round
+    2 is skipped by the guard with φ, m, v and the step bitwise
+    unchanged; round 3 is traced. The predicted peak (the synchronous
+    round's, plus a copy of φ, m and v for the dead-round check) is
+    checked against the card's memory first."""
+    from repro_torch.data import make_lm_clients
+    from repro_torch.federated.population import UnreliabilityConfig
+    from repro_torch.kernels.meta_update import aggregate
+    clients = make_lm_clients(num_clients=8, mean_seqs=8, seq_len=128,
+                              vocab=cfg.vocab_size, seed=0, lazy=True,
+                              cache_clients=8)
+    kw = dict(unreliability=UnreliabilityConfig(**POP_LM_ARRIVALS),
+              over_select=1.0, round_deadline=POP_LM_DEADLINE)
+    total = torch.cuda.get_device_properties(0).total_memory
+    res = {"arrivals": {**POP_LM_ARRIVALS, "deadline": POP_LM_DEADLINE,
+                        "over_select": 1.0}}
+
+    trp, stp = async_lm_trainer(cfg, clients, impl="torch", **kw)
+    n_plane = trp._plane.n_padded
+    # the synchronous round's peak (15.1 GB in `train_async` on an H100
+    # 80GB HBM3) and a copy of φ, m and v
+    need = 15.1e9 + 3 * 4 * n_plane
+    res.update(n_plane=n_plane, predicted_peak_gb=need / 1e9,
+               device_gb=total / 1e9)
+    if need > total:
+        errors.append(f"{need / 1e9:.1f} GB will not fit")
+        return res, {}
+    stp = trp.run(stp, 1)
+    phi_plain = stp["phi"].clone()
+    del trp, stp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seen, real_k2 = [], aggregate.weighted_aggregate_flat
+
+    def k2(gs, w):
+        seen.append([int(gs.shape[0]), int((w == 0).sum())])
+        return real_k2(gs, w)
+
+    tr, state = async_lm_trainer(cfg, clients, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    aggregate.weighted_aggregate_flat = k2
+    reset_launches()
+    walls = []
+    try:
+        t0 = time.perf_counter()
+        state = tr.run(state, 1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        res["round1_plain_bitwise"] = bool(torch.equal(state["phi"],
+                                                       phi_plain))
+        del phi_plain
+        before = {"phi": state["phi"].clone(),
+                  "opt": {k: v.clone() for k, v in state["opt"].items()}}
+        t0 = time.perf_counter()
+        state = tr.run(state, 2, start_round=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        res["dead_round_state_bitwise"] = _same_state(
+            torch, {"phi": state["phi"], "opt": state["opt"]}, before)
+        del before
+        box = {}
+
+        def third():
+            box["s"] = tr.run(state, 3, start_round=2)
+
+        wall3, trace = _traced(torch, third)
+        walls.append(wall3)
+        state = box["s"]
+    finally:
+        aggregate.weighted_aggregate_flat = real_k2
+    launches = read_launches()
+    hist = tr.history
+    res.update(
+        arrived=[r["arrived"] for r in hist],
+        skipped=[r.get("skipped", 0.0) for r in hist],
+        k2_rows_zero_weight=seen, round_wall_ms=[w * 1e3 for w in walls],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        held_gb=held / 1e9, trace_round3=trace,
+        launches={k: launches[k] for k in ASYNC_FED},
+        query_loss=[r["query_loss"] for r in hist],
+        comm=tr.comm.summary())
+    if res["arrived"] != POP_LM_ARRIVED or res["skipped"] != [0.0, 1.0,
+                                                               0.0]:
+        errors.append(f"arrivals {res['arrived']} (want {POP_LM_ARRIVED}), "
+                      f"skipped {res['skipped']}")
+    # round 2's weights normalize to NaN (0 / 0), so no row reads 0
+    if seen != [[4, 1], [4, 0], [4, 2]]:
+        errors.append(f"K2 blocks (rows, zero-weight rows) {seen}: want "
+                      "[[4, 1], [4, 0], [4, 2]]")
+    if not res["round1_plain_bitwise"]:
+        errors.append("round 1 vs impl='torch' not bitwise")
+    if not res["dead_round_state_bitwise"]:
+        errors.append("the dead round changed the state")
+    if launches["flash_attention"] <= 0 or any(
+            launches[k] != 3 for k in FED_KERNELS):
+        errors.append(f"launches {launches}")
+    if not bool(torch.isfinite(state["phi"]).all()):
+        errors.append("non-finite φ")
+    del tr, state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, {"train_population[smollm]": launches}
+
+
+def population_resume(torch, errors):
+    """(iv) Kill and resume with the breaker, the configuration of
+    `tests/test_worker_pool.py::test_population_checkpoint_resume_bit_identical`
+    (fail_rate 0.4, over_select 0.5, deadline 2.0, breaker 2 / 3) at
+    FEMNIST width (`femnist_cnn(62, hidden=128)`, FOMAML on the client
+    plane, m = 4, 2 pool workers, prefetch 2): 9 rounds uninterrupted,
+    then 6 checkpointed at 3 and 6 and a fresh trainer resumed to 9; the
+    stitched history, φ and the breaker's state bitwise equal to the
+    uninterrupted run's."""
+    import shutil
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.federated.experiment import DATASETS
+    from repro_torch.federated.population import UnreliabilityConfig
+    from repro_torch.federated.server import FederatedTrainer
+    from repro_torch.optim import adam
+    su = DATASETS["femnist"]
+    train, val, _ = su["data"](100, 0).split_clients(0)
+    model = su["model"]("cuda")
+    loss = classification_loss(model.apply)
+    ckpt = os.path.join(HERE, "build", "train_population_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def trainer(**kw):
+        algo = make_algorithm("fomaml", *loss, inner_lr=0.05)
+        tr = FederatedTrainer(
+            algo, adam(1e-3), train, clients_per_round=4, support_frac=0.2,
+            support_size=16, query_size=16, seed=0, packed=True,
+            client_plane=True, device="cuda", prefetch_depth=2,
+            pool_workers=2,
+            unreliability=UnreliabilityConfig(**POP_RESUME_ARRIVALS),
+            **POP_RESUME_KNOBS, **kw)
+        return tr, tr.init(0, model.init)
+
+    reset_launches()
+    full, st = trainer()
+    st = full.run(st, 9, eval_every=3, eval_clients=val)
+    tr1, st1 = trainer(checkpoint_dir=ckpt, checkpoint_every=3)
+    tr1.run(st1, 6, eval_every=3, eval_clients=val)
+    tr2, _ = trainer(checkpoint_dir=ckpt, checkpoint_every=3)
+    st2, start = tr2.resume()
+    resumed_log = len(tr2.comm.participation)
+    st2 = tr2.run(st2, 9, eval_every=3, eval_clients=val, start_round=start)
+    launches = read_launches()
+    res = {"resumed_from": start, "participation_restored": resumed_log,
+           "history_equal": _same_history(tr2.history, full.history),
+           "phi_bitwise": bool(torch.equal(st2["phi"], st["phi"])),
+           "breaker_equal": (tr2._breaker.state_dict()
+                             == full._breaker.state_dict()),
+           "breaker": full._breaker.state_dict(),
+           "arrived": [r["arrived"] for r in full.history],
+           "skipped": [r.get("skipped", 0.0) for r in full.history],
+           "launches": {k: launches[k] for k in FED_KERNELS}}
+    if not (res["history_equal"] and res["phi_bitwise"]
+            and res["breaker_equal"] and start == 6 and resumed_log == 6):
+        errors.append(f"resume {res}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del full, tr1, tr2, st, st1, st2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, {"train_population[resume]": launches}
+
+
+def phase_train_population(torch, cfg):
+    """The population plane: one JSON line per part, each run's kernel
+    launches counted from 0."""
+    paths, failed = {}, []
+    for part in ("artifact", "scale", "lm", "resume"):
+        errors = []
+        t0 = time.perf_counter()
+        if part == "artifact":
+            res, p = population_artifact(torch, errors)
+        elif part == "scale":
+            res, p = population_scale(torch, errors)
+        elif part == "lm":
+            res, p = population_lm(torch, cfg, errors)
+        else:
+            res, p = population_resume(torch, errors)
+        paths.update(p)
+        emit({"phase": "train_population", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0, **res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -3271,6 +3805,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("train_async")
         paths.update(phase_train_async(torch, cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("train_population")
+        paths.update(phase_train_population(torch, cfg))
         gc.collect()
         torch.cuda.empty_cache()
         mcfg = get_config("mamba2-370m")

@@ -1,5 +1,5 @@
 """Federated dataset abstraction (numpy), the port's own copy of
-`repro/data/federated.py:22-187`.
+`repro/data/federated.py`.
 
 A federated dataset is a list of clients, each holding local (x, y)
 arrays. Every client doubles as a meta-learning *task*: its data is split
@@ -10,9 +10,9 @@ fraction p per client.
 
 The sampling code is the reference's, call for call, so a given seed
 gives the same arrays and advances a `RandomState` the same way. Batches
-are padded to fixed shapes. `FederatedDataset.stats`, the lazy client
-registry and `assemble_task_batch` (population plane) wait for their
-slices: the generators' ``lazy=True`` raises (`refuse_lazy`).
+are padded to fixed shapes. `assemble_task_batch` builds the population
+plane's partial round: the arrived clients, zero-weight padded to m rows.
+The lazy population (`data/registry.py`) has the same read surface.
 """
 from __future__ import annotations
 
@@ -93,15 +93,18 @@ class FederatedDataset:
         return FederatedDataset(clients, num_classes or self.num_classes,
                                 name=name or self.name)
 
-
-def refuse_lazy(lazy: bool) -> None:
-    """The generators take the reference's ``lazy=``, ``independent=``
-    and ``cache_clients=`` keywords; a lazy `ClientRegistry` is not
-    ported yet."""
-    if lazy:
-        raise NotImplementedError("lazy=True (a ClientRegistry) is not "
-                                  "ported yet: it joins the port with the "
-                                  "population slice")
+    def stats(self) -> dict:
+        ns = np.array([c.n for c in self.clients])
+        classes = np.array([len(np.unique(c.y)) for c in self.clients])
+        return {
+            "clients": len(self.clients),
+            "samples": int(ns.sum()),
+            "classes": self.num_classes,
+            "samples_per_client_mean": float(ns.mean()),
+            "samples_per_client_std": float(ns.std()),
+            "classes_per_client_min": int(classes.min()),
+            "classes_per_client_max": int(classes.max()),
+        }
 
 
 def support_query_split(client: ClientData, support_frac: float,
@@ -177,3 +180,46 @@ def sample_task_batch(clients: list[ClientData], m: int, support_frac: float,
     return TaskBatch(np.stack(sx), np.stack(sy), np.stack(qx), np.stack(qy),
                      w / w.sum(), np.asarray(qc, np.int64),
                      np.asarray(picks, np.int64))
+
+
+def assemble_task_batch(shards, m: int, support_frac: float,
+                        support_size: int, query_size: int,
+                        rng: np.random.RandomState,
+                        weighted: bool = True, probe=None) -> TaskBatch:
+    """Fixed-shape TaskBatch from pre-picked *arrived* client shards,
+    zero-weight padded to ``m`` rows (the population plane's partial
+    round).
+
+    The first ``len(shards)`` rows are the arrived clients in arrival
+    order, weighted by data count (or uniformly with ``weighted=False``)
+    and renormalized over the arrived set; the remaining rows are copies
+    of row 0 with weight 0, which the `masked_mean` aggregation (Σ w·g /
+    Σ w over w > 0 rows) and the weighted metrics ignore. An empty
+    arrived set (``probe`` supplies the row shapes: any client of the
+    same dataset) gives an all-zero weight vector: the step's weight
+    normalization then goes non-finite and the guard skips the round.
+    The draws are the reference's, call for call.
+    """
+    a = len(shards)
+    if a > m:
+        raise ValueError(f"need at most {m} arrived shards, got {a}")
+    if a == 0 and probe is None:
+        raise ValueError("empty arrived set needs a shape probe client")
+    sx, sy, qx, qy, w, qc = [], [], [], [], [], []
+    for c in (shards if a else [probe]):
+        (s_x, s_y), (q_x, q_y) = support_query_split(c, support_frac, rng)
+        qc.append(len(q_y))
+        s_x, s_y = _resample_to(s_x, s_y, support_size, rng)
+        q_x, q_y = _resample_to(q_x, q_y, query_size, rng)
+        sx.append(s_x); sy.append(s_y); qx.append(q_x); qy.append(q_y)
+        w.append(c.n if weighted else 1.0)
+    if a == 0:                   # the probe row is itself a zero-weight pad
+        w[0] = 0.0; qc[0] = 0
+    for _ in range(m - max(a, 1)):  # zero-weight pads (copies of row 0)
+        sx.append(sx[0]); sy.append(sy[0])
+        qx.append(qx[0]); qy.append(qy[0])
+        w.append(0.0); qc.append(0)
+    w = np.asarray(w, np.float32)
+    s = w.sum()
+    return TaskBatch(np.stack(sx), np.stack(sy), np.stack(qx), np.stack(qy),
+                     w / s if s > 0 else w, np.asarray(qc, np.int64))

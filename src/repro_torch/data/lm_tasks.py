@@ -21,8 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-from repro_torch.data.federated import (ClientData, FederatedDataset,
-                                        refuse_lazy)
+from repro_torch.data.federated import ClientData, FederatedDataset
+from repro_torch.data.registry import registry_from_body
 
 
 class LMTaskBatch(NamedTuple):
@@ -76,14 +76,22 @@ def _lm_client(mean_seqs, seq_len, vocab, rng) -> ClientData:
 def make_lm_clients(num_clients: int = 32, mean_seqs: int = 24,
                     seq_len: int = 16, vocab: int = 64, seed: int = 0,
                     *, lazy: bool = False, independent: bool = False,
-                    cache_clients=None) -> FederatedDataset:
+                    cache_clients=None):
     """Per-client dialect corpora as a `FederatedDataset`: ``x`` is the
     (n, seq_len) int32 token matrix, ``y`` each sequence's last token (a
     stand-in label: `lm_pair_loss` trains on the shifted sequence and
     never reads it). ``n`` is in [mean_seqs, 2·mean_seqs). ``lazy=True``
-    raises (`refuse_lazy`)."""
-    refuse_lazy(lazy)
+    gives a `ClientRegistry` over the same per-client body (see
+    `make_femnist`)."""
     rng = np.random.RandomState(seed)
-    clients = [_lm_client(mean_seqs, seq_len, vocab, rng)
-               for _ in range(num_clients)]
+
+    def body(r):
+        return _lm_client(mean_seqs, seq_len, vocab, r)
+
+    if lazy:
+        return registry_from_body(body, num_clients, vocab,
+                                  "synth-lm-dialects", rng=rng, seed=seed,
+                                  independent=independent,
+                                  cache_clients=cache_clients)
+    clients = [body(rng) for _ in range(num_clients)]
     return FederatedDataset(clients, vocab, name="synth-lm-dialects")

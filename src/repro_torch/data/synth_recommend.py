@@ -20,8 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.data.federated import (ClientData, FederatedDataset,
-                                        refuse_lazy)
+from repro_torch.data.federated import ClientData, FederatedDataset
+from repro_torch.data.registry import (ClientRegistry, RegistryView,
+                                       registry_from_body)
 
 
 def _recommend_client(U, V, num_services, ctx_dim, mean_records, rank,
@@ -56,16 +57,24 @@ def make_recommend(num_clients: int = 200, num_services: int = 120,
                    ctx_dim: int = 24, mean_records: int = 160,
                    rank: int = 8, seed: int = 0, *, lazy: bool = False,
                    independent: bool = False,
-                   cache_clients=None) -> FederatedDataset:
-    """Eager `FederatedDataset` labelled with global service ids.
-    ``lazy=True`` raises (`refuse_lazy`)."""
-    refuse_lazy(lazy)
+                   cache_clients=None):
+    """Eager `FederatedDataset` labelled with global service ids, or with
+    ``lazy=True`` a `ClientRegistry` over the same per-client body (see
+    `make_femnist`)."""
     rng = np.random.RandomState(seed)
     U = rng.normal(0, 1, size=(ctx_dim, rank)).astype(np.float32)
     V = rng.normal(0, 1, size=(rank, num_services)).astype(np.float32)
-    clients = [_recommend_client(U, V, num_services, ctx_dim, mean_records,
-                                 rank, rng)
-               for _ in range(num_clients)]
+
+    def body(r):
+        return _recommend_client(U, V, num_services, ctx_dim, mean_records,
+                                 rank, r)
+
+    if lazy:
+        return registry_from_body(body, num_clients, num_services,
+                                  "synth-recommend", rng=rng, seed=seed,
+                                  independent=independent,
+                                  cache_clients=cache_clients)
+    clients = [body(rng) for _ in range(num_clients)]
     return FederatedDataset(clients, num_services, name="synth-recommend")
 
 
@@ -88,8 +97,14 @@ def localize_clients(clients, head_size: int = 40):
     ``head_size``-way model covers every client. Client order, features
     and example counts are kept, so the seeded sampling streams are the
     global view's. Raises ValueError if a client uses more than
-    ``head_size`` services. (The reference also takes a lazy registry
-    here; that waits for the population slice.)"""
+    ``head_size`` services.
+
+    A list gives the localized list; a `ClientRegistry` or `RegistryView`
+    gives a lazy view (the remap runs on each access, nothing
+    materializes)."""
+    if isinstance(clients, (ClientRegistry, RegistryView)):
+        return clients.view(lambda c: _localize_one(c, head_size),
+                            num_classes=head_size)
     return [_localize_one(c, head_size) for c in clients]
 
 

@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.data.federated import (ClientData, FederatedDataset,
-                                        refuse_lazy)
+from repro_torch.data.federated import ClientData, FederatedDataset
+from repro_torch.data.registry import registry_from_body
 
 
 def _sent140_client(word_score, base, vocab, seq_len, mean_samples,
@@ -42,14 +42,22 @@ def make_sent140(num_clients: int = 150, seq_len: int = 25,
                  vocab: int = 2000, mean_samples: int = 45,
                  seed: int = 0, *, lazy: bool = False,
                  independent: bool = False,
-                 cache_clients=None) -> FederatedDataset:
+                 cache_clients=None):
     """Eager `FederatedDataset` of (n, seq_len) int32 token rows and
-    binary labels. ``lazy=True`` raises (`refuse_lazy`)."""
-    refuse_lazy(lazy)
+    binary labels, or with ``lazy=True`` a `ClientRegistry` over the same
+    per-client body (see `make_femnist`)."""
     rng = np.random.RandomState(seed)
     word_score = rng.normal(0, 1, size=vocab).astype(np.float32)
     base = np.ones(vocab) / vocab
-    clients = [_sent140_client(word_score, base, vocab, seq_len,
-                               mean_samples, rng)
-               for _ in range(num_clients)]
+
+    def body(r):
+        return _sent140_client(word_score, base, vocab, seq_len,
+                               mean_samples, r)
+
+    if lazy:
+        return registry_from_body(body, num_clients, 2, "synth-sent140",
+                                  rng=rng, seed=seed,
+                                  independent=independent,
+                                  cache_clients=cache_clients)
+    clients = [body(rng) for _ in range(num_clients)]
     return FederatedDataset(clients, 2, name="synth-sent140")

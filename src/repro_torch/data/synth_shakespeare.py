@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.data.federated import (ClientData, FederatedDataset,
-                                        refuse_lazy)
+from repro_torch.data.federated import ClientData, FederatedDataset
+from repro_torch.data.registry import registry_from_body
 
 VOCAB = 70
 
@@ -29,9 +29,9 @@ def make_shakespeare(num_clients: int = 60, seq_len: int = 40,
                      mean_samples: int = 300, vocab: int = VOCAB,
                      seed: int = 0, *, lazy: bool = False,
                      independent: bool = False,
-                     cache_clients=None) -> FederatedDataset:
-    """Eager `FederatedDataset`. ``lazy=True`` raises (`refuse_lazy`)."""
-    refuse_lazy(lazy)
+                     cache_clients=None):
+    """Eager `FederatedDataset`, or with ``lazy=True`` a `ClientRegistry`
+    over the same per-client body (see `make_femnist`)."""
     rng = np.random.RandomState(seed)
     # the global language: each symbol has 2-4 likely successors with
     # ~85% of the mass
@@ -41,8 +41,16 @@ def make_shakespeare(num_clients: int = 60, seq_len: int = 40,
         peaks = rng.choice(vocab, size=k, replace=False)
         base[r, peaks] += rng.dirichlet(np.ones(k)) * 6.0
     base = _row_normalize(base)
-    clients = [_shakespeare_client(base, vocab, seq_len, mean_samples, rng)
-               for _ in range(num_clients)]
+
+    def body(r):
+        return _shakespeare_client(base, vocab, seq_len, mean_samples, r)
+
+    if lazy:
+        return registry_from_body(body, num_clients, vocab,
+                                  "synth-shakespeare", rng=rng, seed=seed,
+                                  independent=independent,
+                                  cache_clients=cache_clients)
+    clients = [body(rng) for _ in range(num_clients)]
     return FederatedDataset(clients, vocab, name="synth-shakespeare")
 
 

@@ -1,5 +1,5 @@
 """Byte accounting for the federated protocol (counterpart of
-`repro/federated/comm.py:31-141`).
+`repro/federated/comm.py`).
 
   per round: download = m · bytes(φ), upload = m · bytes(g_u)
 
@@ -11,7 +11,11 @@ the codec's label. Byte counts equal the reference's exactly. Client
 FLOPs are counted by `measure_client_flops` (PyTorch's
 `FlopCounterMode`: matmuls and convolutions only), where the reference
 uses XLA's cost analysis, so ``client_GFLOPs`` differs between the two.
-The population plane's participation log joins with its slice.
+
+Under the population plane the trainer records each round's
+participation (selected, arrived, quarantined): download then charges
+every selected candidate (φ went to each), upload and client FLOPs only
+the arrivals.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ class CommTracker:
     # codec tag ("int8+ef", "topk0.05+ef") in summaries; None = a dense
     # upload (the key is then left out)
     codec: Optional[str] = None
+    # population plane: one (selected, arrived, quarantined) entry a
+    # round, appended when the round is staged (possibly rounds ahead of
+    # `tick` under prefetching); empty = the fixed cohort (rounds · m)
+    participation: list = dataclasses.field(default_factory=list)
 
     @classmethod
     def for_state(cls, phi, clients_per_round: int,
@@ -48,15 +56,34 @@ class CommTracker:
     def tick(self, rounds: int = 1):
         self.rounds += rounds
 
+    def record_round(self, selected: int, arrived: int,
+                     quarantined: int = 0):
+        """Record one round's participation. `summary_at` reads only the
+        first ``rounds`` entries, so the accounting stays a pure function
+        of the round index."""
+        self.participation.append((int(selected), int(arrived),
+                                   int(quarantined)))
+
+    def _counts_at(self, rounds: int):
+        """(selected, arrived) client-round totals as of ``rounds``."""
+        if not self.participation:
+            n = rounds * self.clients_per_round
+            return n, n
+        k = min(rounds, len(self.participation))
+        sel = sum(p[0] for p in self.participation[:k])
+        arr = sum(p[1] for p in self.participation[:k])
+        extra = max(0, rounds - k) * self.clients_per_round
+        return sel + extra, arr + extra
+
     @property
     def download_bytes(self) -> int:
-        return self.rounds * self.clients_per_round * self.phi_bytes
+        return self._counts_at(self.rounds)[0] * self.phi_bytes
 
     @property
     def upload_bytes(self) -> int:
         per_client = (self.grad_bytes if self.grad_bytes is not None
                       else self.phi_bytes)
-        return self.rounds * self.clients_per_round * per_client
+        return self._counts_at(self.rounds)[1] * per_client
 
     @property
     def total_bytes(self) -> int:
@@ -64,7 +91,7 @@ class CommTracker:
 
     @property
     def total_flops(self) -> float:
-        return self.rounds * self.clients_per_round * self.flops_per_client
+        return self._counts_at(self.rounds)[1] * self.flops_per_client
 
     def summary_at(self, rounds: int) -> dict:
         """The cumulative summary as of round ``rounds`` — a pure
@@ -81,6 +108,14 @@ class CommTracker:
         }
         if self.codec is not None:
             out["codec"] = self.codec
+        if self.participation and rounds >= 1:
+            r = min(rounds, len(self.participation)) - 1
+            sel_r, arr_r, quar_r = self.participation[r]
+            cum_sel, cum_arr = self._counts_at(rounds)
+            # this round's participation and the running totals
+            out.update(selected=sel_r, arrived=arr_r,
+                       quarantined=quar_r, selected_total=cum_sel,
+                       arrived_total=cum_arr)
         return out
 
     def summary(self) -> dict:

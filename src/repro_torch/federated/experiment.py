@@ -21,11 +21,17 @@ FedAvg a head over the whole catalogue: `_build_views`) and LM
 personalization on a reduced SmolLM. The plan's ``prefetch_depth``,
 ``flush_every`` and ``fuse_rounds`` (packed pipelines only) run every
 trainer on the async round engine, bitwise equal to the synchronous
-loop; the knobs of a later slice (the population plane) raise, naming
-it. The plan's ``compression``, ``dp``, ``block_dtype`` and
-``opt_state_dtype`` run the bytes-on-the-wire round; its ``faults``,
-``aggregator``, ``screen_factor`` and ``trim`` the failure plane
-(packed pipelines only).
+loop. The population plane: ``lazy_population`` builds the dataset as a
+bounded-memory `ClientRegistry` (sequential mode bitwise equal to the
+eager one; ``independent_population`` seeds clients in O(1) for 10^5+
+populations; ``cache_clients`` bounds the resident set),
+``eval_clients_cap`` bounds the val/test cohorts, and ``unreliability``,
+``over_select`` and ``round_deadline`` (the FedMeta methods on a packed
+pipeline) decide who arrives each round. The plan's ``compression``,
+``dp``, ``block_dtype`` and ``opt_state_dtype`` run the
+bytes-on-the-wire round; its ``faults``, ``aggregator``,
+``screen_factor`` and ``trim`` the failure plane (packed pipelines
+only).
 
 Injection: `run_comparison` takes the reference's initial parameters
 (``init_params``) and FedAvg(Meta)'s fine-tune indices
@@ -50,9 +56,10 @@ FEDAVG_METHODS = ("fedavg", "fedavg(meta)")
 DEFAULT_METHODS = FEDAVG_METHODS + ("maml", "fomaml", "meta-sgd")
 
 
-def _femnist_data(num_clients, seed):
+def _femnist_data(num_clients, seed, **lazy_kw):
     from repro_torch.data import make_femnist
-    return make_femnist(num_clients=num_clients, mean_samples=60, seed=seed)
+    return make_femnist(num_clients=num_clients, mean_samples=60, seed=seed,
+                        **lazy_kw)
 
 
 def _femnist_model(device):
@@ -60,9 +67,9 @@ def _femnist_model(device):
     return femnist_cnn(num_classes=62, hidden=128, device=device)
 
 
-def _sent140_data(num_clients, seed):
+def _sent140_data(num_clients, seed, **lazy_kw):
     from repro_torch.data import make_sent140
-    return make_sent140(num_clients=num_clients, seed=seed)
+    return make_sent140(num_clients=num_clients, seed=seed, **lazy_kw)
 
 
 def _sent140_model(device):
@@ -70,10 +77,10 @@ def _sent140_model(device):
     return sent_lstm(vocab=2000, hidden=32, embed_dim=16, device=device)
 
 
-def _shakespeare_data(num_clients, seed):
+def _shakespeare_data(num_clients, seed, **lazy_kw):
     from repro_torch.data import make_shakespeare
     return make_shakespeare(num_clients=num_clients, mean_samples=150,
-                            seed=seed)
+                            seed=seed, **lazy_kw)
 
 
 def _shakespeare_model(device):
@@ -90,10 +97,10 @@ REC_SERVICES, REC_CTX, REC_HEAD = 120, 24, 40
 REC_FEAT = REC_CTX + REC_SERVICES
 
 
-def _recommend_data(num_clients, seed):
+def _recommend_data(num_clients, seed, **lazy_kw):
     from repro_torch.data import make_recommend
     return make_recommend(num_clients=num_clients, num_services=REC_SERVICES,
-                          ctx_dim=REC_CTX, seed=seed)
+                          ctx_dim=REC_CTX, seed=seed, **lazy_kw)
 
 
 def _recommend_model(device):
@@ -127,10 +134,10 @@ def _recommend_loss(model):
 LM_VOCAB, LM_SEQ = 64, 16
 
 
-def _lm_data(num_clients, seed):
+def _lm_data(num_clients, seed, **lazy_kw):
     from repro_torch.data import make_lm_clients
     return make_lm_clients(num_clients=num_clients, seq_len=LM_SEQ,
-                           vocab=LM_VOCAB, seed=seed)
+                           vocab=LM_VOCAB, seed=seed, **lazy_kw)
 
 
 def _lm_model(device):
@@ -237,13 +244,16 @@ class ExperimentPlan:
     screen_factor: float = 3.0
     trim: int = 1
     faults: Optional[object] = None      # FaultConfig (packed only)
-    lazy_population: bool = False        # population slice
+    # population plane: a lazy registry (sequential: bitwise eager;
+    # independent: O(1) per client), an LRU cap, a cap on the eval
+    # cohorts, and the FedMeta methods' arrival model (packed only)
+    lazy_population: bool = False
     independent_population: bool = False
     cache_clients: Optional[int] = None
     eval_clients_cap: Optional[int] = None
-    over_select: float = 0.0             # population slice
+    over_select: float = 0.0
     round_deadline: Optional[float] = None
-    unreliability: Optional[object] = None
+    unreliability: Optional[object] = None   # UnreliabilityConfig
     pool_workers: int = 0
     # bytes-on-the-wire plane: upload compression and central DP for the
     # FedMeta methods (packed pipelines only; FedAvg ships dense models).
@@ -387,15 +397,17 @@ def _build_views(plan: ExperimentPlan, su: dict, device="cuda"):
     baselines keep the global one. Views preserve client order and sizes,
     so both consume the same seeded sampling streams."""
     from repro_torch.core.losses import classification_loss
-    if plan.lazy_population:
-        raise NotImplementedError("plan.lazy_population is not ported yet: "
-                                  "it joins the port with the population "
-                                  "slice")
     data_fn = plan.data_fn or su["data"]
     model_fn = plan.model_fn or su["model"]
     loss_builder = plan.loss_builder or su.get("loss") or (
         lambda model: classification_loss(model.apply))
-    ds = data_fn(plan.num_clients, plan.seed)
+    lazy_kw = {}
+    if plan.lazy_population:
+        # the registry's builders pass these to make_*; a custom
+        # plan.data_fn must take the same keywords
+        lazy_kw = dict(lazy=True, independent=plan.independent_population,
+                       cache_clients=plan.cache_clients)
+    ds = data_fn(plan.num_clients, plan.seed, **lazy_kw)
     train, val, test = ds.split_clients(seed=plan.seed)
     model = model_fn(device)
     gview = _View(train, val, test, model, *loss_builder(model))
@@ -406,6 +418,8 @@ def _build_views(plan: ExperimentPlan, su: dict, device="cuda"):
         return gview, gview
     mmodel = meta_model_fn(plan, device) if meta_model_fn else model
     if meta_data_fn:
+        # lists when eager, RegistryViews when lazy: neither is
+        # materialized again
         mtrain, mval, mtest = (meta_data_fn(c, plan)
                                for c in (train, val, test))
     else:
@@ -414,7 +428,9 @@ def _build_views(plan: ExperimentPlan, su: dict, device="cuda"):
 
 
 def _cap_clients(clients, cap: Optional[int]):
-    """Bound an eval cohort to its first ``cap`` clients."""
+    """Bound an eval cohort to its first ``cap`` clients: a list and a
+    `RegistryView` both slice to a prefix, the view without
+    materializing."""
     return clients[:cap] if cap and len(clients) > cap else clients
 
 

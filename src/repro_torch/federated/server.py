@@ -12,6 +12,14 @@ trainer's ``device`` (default "cuda"; the tests pass "cpu"). The rounds
 run on the async round engine (`async_engine.AsyncRoundEngine`):
 prefetching, deferred metrics, fused-K blocks, staleness picks and
 checkpoints at block boundaries, each bitwise neutral to the history.
+
+The population plane (``unreliability``, ``over_select``,
+``round_deadline``) replaces the plain task stream: each round samples
+m·(1+over_select) candidates that the circuit breaker has not
+quarantined, `population.plan_round` decides who arrives before the
+deadline, and the arrived clients fill the (m, N) block with zero-weight
+pad rows that the `masked_mean` aggregator (K2, then one division)
+leaves out.
 """
 from __future__ import annotations
 
@@ -24,11 +32,13 @@ import torch
 from repro_torch.core.fedmeta import (init_packed_state,
                                       make_meta_train_step,
                                       make_packed_meta_train_step)
-from repro_torch.data.federated import (TaskStream, sample_task_batch,
+from repro_torch.data.federated import (TaskStream, assemble_task_batch,
+                                        sample_task_batch,
                                         stack_task_batches)
 from repro_torch.federated.async_engine import (AsyncRoundEngine,
                                                 DeviceStager, WorkerPool)
 from repro_torch.federated.comm import CommTracker, measure_client_flops
+from repro_torch.federated.population import CircuitBreaker, plan_round
 from repro_torch.kernels.meta_update import ops as mu_ops
 from repro_torch.optim import Optimizer
 from repro_torch.utils.flat import plane_for
@@ -159,8 +169,6 @@ def evaluate_global(eval_fn, theta, clients, *, support_frac, support_size,
 # (its default, the slice that ports it)
 _PENDING = {
     "mesh": (None, "multi-device"), "mesh_axis": (None, "multi-device"),
-    "unreliability": (None, "population"), "over_select": (0.0, "population"),
-    "round_deadline": (None, "population"),
 }
 
 
@@ -208,12 +216,15 @@ class FederatedTrainer:
     pool_workers: int = 0       # client-materializing workers (0 = inline)
     pool_retries: int = 2       # per-client retry-with-backoff budget
     task_timeout: Optional[float] = None  # per-client pool timeout (s)
-    # ---- knobs of later slices: they raise unless left at the default
+    # ---- population plane (packed + vmap axis only)
+    unreliability: Optional[object] = None  # UnreliabilityConfig
+    over_select: float = 0.0    # sample m·(1+over_select) candidates
+    round_deadline: Optional[float] = None  # latency cutoff
+    breaker_threshold: int = 3  # consecutive failures before quarantine
+    breaker_cooldown: int = 10  # quarantine length in rounds
+    # ---- knobs of a later slice: they raise unless left at the default
     mesh: Optional[object] = None
     mesh_axis: Optional[str] = None
-    unreliability: Optional[object] = None
-    over_select: float = 0.0
-    round_deadline: Optional[float] = None
 
     def __post_init__(self):
         if self.client_plane and not self.packed:
@@ -229,6 +240,27 @@ class FederatedTrainer:
                 raise ValueError("staleness and fuse_rounds>1 are mutually "
                                  "exclusive (stragglers need per-round "
                                  "straggler picks)")
+        if self.over_select < 0:
+            raise ValueError("over_select must be >= 0")
+        if self._population_active:
+            if not self.packed or self.client_axis != "vmap":
+                raise ValueError("the population plane (unreliability / "
+                                 "over_select / round_deadline) needs "
+                                 "the full (m, N) client block — "
+                                 "packed=True and client_axis='vmap'")
+            if self.fuse_rounds > 1:
+                raise ValueError("the population plane and fuse_rounds>1 "
+                                 "are mutually exclusive (arrival plans "
+                                 "are per-round)")
+            if self.staleness is not None:
+                raise ValueError("staleness simulation and the population "
+                                 "plane are mutually exclusive — the "
+                                 "deadline model already decides who "
+                                 "arrives late")
+            if self.aggregator == "mean":
+                # partial rounds need the renormalizing aggregator: the
+                # zero-weight pad rows must be exact no-ops
+                self.aggregator = "masked_mean"
         if self.aggregator not in mu_ops.AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r}; "
                              f"expected one of {mu_ops.AGGREGATORS}")
@@ -252,8 +284,7 @@ class FederatedTrainer:
                                  "client_axis='vmap'")
             if (self.staleness is not None or self.faults is not None
                     or self.aggregator != "mean"
-                    or self.unreliability is not None
-                    or self.over_select or self.round_deadline is not None):
+                    or self._population_active):
                 raise ValueError("compression / DP compose with each "
                                  "other but not with staleness, faults, "
                                  "robust aggregators, or the population "
@@ -300,11 +331,23 @@ class FederatedTrainer:
         self._fault_rng = (np.random.RandomState(self.faults.seed)
                            if self.faults is not None else None)
         self._rng_snaps: dict = {}   # round -> rng states (prefetch-safe)
+        self._breaker = (CircuitBreaker(self.breaker_threshold,
+                                        self.breaker_cooldown)
+                         if self._population_active else None)
         self._pool: Optional[WorkerPool] = None
         self._stager: Optional[DeviceStager] = None
         self._evaluator = make_meta_evaluator(self.algo)
         self.comm: Optional[CommTracker] = None
         self.history: list = []
+
+    @property
+    def _population_active(self) -> bool:
+        """Arrival staging replaces the plain task stream. A bare pool
+        (``pool_workers > 0``, the rest off) is not population mode: it
+        only pre-warms the clients of the upcoming picks, so staging
+        stays bitwise the pool-less path."""
+        return (self.unreliability is not None or self.over_select > 0
+                or self.round_deadline is not None)
 
     def init(self, key, model_init, phi=None):
         """The initial train state. ``phi`` (a tree on ``device``) stands
@@ -444,14 +487,72 @@ class FederatedTrainer:
         self._rng.set_state(st)
         return picks
 
+    def _stage_population(self, put, round_):
+        """Host half of one population round: sample ``m·(1+over_select)``
+        candidates the breaker has not quarantined, plan their arrivals,
+        materialize the arrived clients (through the worker pool when
+        there is one) and stage the zero-weight padded batch the
+        `masked_mean` step renormalizes -> (positional inputs, keyword
+        inputs) of the step. Runs on the prefetch thread (in round
+        order) when pipelined; every draw is the reference's."""
+        clients = self.train_clients
+        m = self.clients_per_round
+        rng = self._rng
+        n_cand = m + int(round(self.over_select * m))
+        quar = self._breaker.blocked(round_)
+        n_total = len(clients)
+        if quar and len(quar) < n_total:
+            avail = np.setdiff1d(np.arange(n_total, dtype=np.int64),
+                                 np.fromiter(quar, np.int64, len(quar)))
+            cand = avail[rng.choice(len(avail), size=n_cand,
+                                    replace=len(avail) < n_cand)]
+        else:
+            cand = rng.choice(n_total, size=n_cand,
+                              replace=n_total < n_cand).astype(np.int64)
+        plan = plan_round(cand, round_, self.unreliability,
+                          self.round_deadline, m)
+        for c in plan.failed:
+            self._breaker.record_failure(int(c), round_)
+        for c in plan.arrived:
+            self._breaker.record_success(int(c))
+        idxs = [int(c) for c in plan.arrived]
+        label = f"round {round_}"
+        if self._pool is not None:
+            shards = self._pool.map(idxs, label=label)
+            probe = (None if idxs else
+                     self._pool.map([int(cand[0])], label=label)[0])
+        else:
+            shards = [clients[i] for i in idxs]
+            probe = None if idxs else clients[int(cand[0])]
+        tb = assemble_task_batch(shards, m, self.support_frac,
+                                 self.support_size, self.query_size, rng,
+                                 weighted=self.weighted, probe=probe)
+        # download: φ went to every candidate; upload: the arrivals only
+        self.comm.record_round(len(cand), len(idxs), len(quar))
+        # the weights are always staged: the zero rows are the arrivals'
+        # mask
+        args = ((put(tb.support_x), put(tb.support_y)),
+                (put(tb.query_x), put(tb.query_y)), put(tb.weight))
+        kw = {}
+        if self.faults is not None:
+            kw["fault"] = self.faults.pick(m, self._fault_rng)
+        return args, kw
+
     # ---- crash-safe checkpointing ------------------------------------
     def _capture_rngs(self):
-        """Snapshot every seeded host stream the run consumes."""
+        """Snapshot every seeded host stream the run consumes; the
+        breaker and the participation log ride along (they change when a
+        round is staged, so a retry or a resume rolls them back with the
+        rngs)."""
         snap = {"task": self._rng.get_state()}
         if self._stale_rng is not None:
             snap["stale"] = self._stale_rng.get_state()
         if self._fault_rng is not None:
             snap["fault"] = self._fault_rng.get_state()
+        if self._breaker is not None:
+            snap["breaker"] = self._breaker.state_dict()
+            snap["participation"] = (list(self.comm.participation)
+                                     if self.comm is not None else [])
         return snap
 
     def _restore_rngs(self, snap):
@@ -460,6 +561,10 @@ class FederatedTrainer:
             self._stale_rng.set_state(snap["stale"])
         if self._fault_rng is not None:
             self._fault_rng.set_state(snap["fault"])
+        if self._breaker is not None and "breaker" in snap:
+            self._breaker.load_state(snap["breaker"])
+            if self.comm is not None:
+                self.comm.participation[:] = snap.get("participation", [])
 
     def save_checkpoint(self, state, round_: int, ckpt_dir=None) -> str:
         """Write one atomic checkpoint holding everything a resumed run
@@ -467,7 +572,8 @@ class FederatedTrainer:
         optimizer, the staleness ring, the EF plane), the rng states *as
         of round ``round_``* (under prefetching the live streams are
         already past it: the snapshot staged at that block boundary is
-        used), the CommTracker counters and the flushed history. The
+        used), the CommTracker counters, the flushed history and, under
+        the population plane, the breaker and the participation log. The
         payload's keys and layout are the reference's."""
         from repro_torch.checkpoint.io import save_server_state
         snap = self._rng_snaps.pop(round_, None) or self._capture_rngs()
@@ -482,6 +588,10 @@ class FederatedTrainer:
             "flops_per_client": float(self.comm.flops_per_client or 0.0),
             "history": list(self.history),
         }
+        if "breaker" in snap:      # the population plane's host state
+            payload["breaker"] = snap["breaker"]
+            payload["participation"] = [list(p) for p in
+                                        snap.get("participation", [])]
         return save_server_state(ckpt_dir or self.checkpoint_dir,
                                  round_, payload,
                                  keep_last=self.checkpoint_keep)
@@ -504,6 +614,11 @@ class FederatedTrainer:
         self.comm.rounds = int(payload["comm_rounds"])
         if payload["flops_per_client"]:
             self.comm.flops_per_client = payload["flops_per_client"]
+        if self._breaker is not None and payload.get("breaker") is not None:
+            self._breaker.load_state(payload["breaker"])
+        self.comm.participation[:] = [
+            tuple(int(x) for x in p)
+            for p in payload.get("participation", [])]
         self.history[:] = payload["history"]
         state = tree_map(lambda t: t.to(self.device), payload["state"])
         return state, int(payload["round"])
@@ -540,14 +655,17 @@ class FederatedTrainer:
             # synchronous run
             entry = self._capture_rngs()
             try:
-                if self._pool is not None and k == 1:
-                    # pre-warm the client shards of the upcoming picks,
-                    # peeked without consuming the stream
-                    self._pool.map(
-                        sorted({int(p) for p in self._peek_picks()}),
-                        label=f"round {produced['r'] + 1} warm")
-                block = self._stage_block(stream, put, k,
-                                          produced["r"] + 1)
+                if self._population_active:
+                    block = self._stage_population(put, produced["r"] + 1)
+                else:
+                    if self._pool is not None and k == 1:
+                        # pre-warm the client shards of the upcoming
+                        # picks, peeked without consuming the stream
+                        self._pool.map(
+                            sorted({int(p) for p in self._peek_picks()}),
+                            label=f"round {produced['r'] + 1} warm")
+                    block = self._stage_block(stream, put, k,
+                                              produced["r"] + 1)
             except BaseException:
                 self._stager.abort()
                 self._restore_rngs(entry)

@@ -2,8 +2,9 @@
 `examples/compression_femnist.py` (``--sweep compression``), of the
 comparison plans behind ``results/experiments/{femnist,sent140,
 recommend}_compare.json`` and the registry's other scenarios (``--sweep
-femnist|sent140|shakespeare|recommend|lm``), and of
-`examples/robustness_femnist.py` (``--sweep robustness``).
+femnist|sent140|shakespeare|recommend|lm``), of
+`examples/robustness_femnist.py` (``--sweep robustness``) and of
+`examples/population_scale.py` (``--sweep population``).
 
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep compression
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep sent140 \\
@@ -11,6 +12,10 @@ femnist|sent140|shakespeare|recommend|lm``), and of
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep robustness
     PYTHONPATH=src python -m repro_torch.launch.compare --sweep femnist \\
         --pipeline packed --prefetch-depth 2 --fuse-rounds 2 --flush-every 4
+    PYTHONPATH=src python -m repro_torch.launch.compare --sweep population
+    PYTHONPATH=src python -m repro_torch.launch.compare --sweep sent140 \\
+        --pipeline packed --lazy-population --over-select 0.5 \\
+        --unreliable-fail-rate 0.25 --round-deadline 1.5 --pool-workers 2
 
 ``compression``: FOMAML on FEMNIST under four upload codecs — dense f32,
 a bf16 block, int8 with error feedback and top-5% with error feedback
@@ -27,7 +32,20 @@ sign-flip ×10 Byzantine at 0.125 and 0.25, non-finite 0.125 — each with
 the mean, screened and trimmed (trim 2) aggregators on the packed
 pipeline, the committed `results/experiments/robustness_femnist.json`'s
 settings; it writes that file's JSON shape (``--rounds``,
-``--eval-every`` and ``--clients`` cut it down).
+``--eval-every`` and ``--clients`` cut it down). ``population``: FOMAML
+on Sent140 (100 clients served from a lazy registry with a 32-client
+LRU through 2 pool workers, 8 a round, 60 rounds, eval every 3) in three
+cells on one split and task stream — ``clean`` (everyone arrives),
+``overselect`` (per-round failures at 0.65 and a 0.75 deadline,
+countered by over-selection ×5 candidates) and ``baseline`` (the same
+failures, no over-selection) — the committed
+`results/experiments/population_sent140.json`'s settings and JSON shape
+(``--rounds``, ``--eval-every`` and ``--clients`` cut it down). The
+scenario sweeps take the population flags of
+`examples/compare_fedmeta_fedavg.py` (``--lazy-population``,
+``--cache-clients``, ``--over-select``, ``--round-deadline``,
+``--unreliable-fail-rate``, ``--pool-workers``, ``--eval-clients-cap``;
+the arrival knobs reach the FedMeta methods on a packed pipeline).
 JSON is written only where ``--outdir`` says. Runs on the card unless
 ``--device cpu``. ``--init-from`` starts every method from the initial
 parameters in an ``.npz`` (keys ``method|path|to|leaf``, plus
@@ -262,10 +280,158 @@ def sweep_robustness(*, device="cuda", impl=None, init=(None, None),
     return {"config": config, "headline": headline, "cells": out_cells}
 
 
+# the committed population artifact (`examples/population_scale.py`):
+# FOMAML on Sent140 under an unreliable fleet
+POPULATION = dict(dataset="sent140", rounds=60, eval_every=3, clients=100,
+                  clients_per_round=8, support_frac=0.2, support_size=16,
+                  query_size=16, inner_lr=0.01, outer_lr=1e-3,
+                  fail_rate=0.65, round_deadline=0.75, over_select=4.0,
+                  cache_clients=32, pool_workers=2, seed=0)
+POPULATION_CELLS = ("clean", "overselect", "baseline")
+
+
+def population_cell(name, *, data, model, cfg, device="cuda", impl=None,
+                    init_phi=None, around=None):
+    """One cell of the population sweep, as the reference's `run_cell`:
+    a packed FOMAML `FederatedTrainer` on the vmap axis with the cell's
+    arrival model, over-selection and deadline (``clean``: none), its
+    eval curve, loss curve, cohort accounting and comm block.
+    ``init_phi``, a numpy φ tree, replaces the port's own initial
+    parameters; ``around(name, run)``, where given, is called in place of
+    ``run()`` (which returns (trainer, final state))."""
+    from repro_torch.convert import initial_params
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import classification_loss
+    from repro_torch.federated.population import UnreliabilityConfig
+    from repro_torch.federated.server import FederatedTrainer, evaluate_meta
+    from repro_torch.optim import adam
+    train, val, test = data
+    m = cfg["clients_per_round"]
+    unrel = (None if name == "clean" else
+             UnreliabilityConfig(fail_rate=cfg["fail_rate"],
+                                 seed=cfg["seed"]))
+    over_select = cfg["over_select"] if name == "overselect" else 0.0
+    deadline = None if name == "clean" else cfg["round_deadline"]
+    loss_fn, eval_fn = classification_loss(model.apply)
+    algo = make_algorithm("fomaml", loss_fn, eval_fn,
+                          inner_lr=cfg["inner_lr"])
+    tr = FederatedTrainer(
+        algo, adam(cfg["outer_lr"]), train, m,
+        support_frac=cfg["support_frac"], support_size=cfg["support_size"],
+        query_size=cfg["query_size"], seed=cfg["seed"], packed=True,
+        unreliability=unrel, over_select=over_select,
+        round_deadline=deadline, pool_workers=cfg["pool_workers"],
+        impl=impl, device=device)
+
+    def run():
+        phi = (None if init_phi is None
+               else initial_params("fomaml", init_phi, device))
+        state = tr.init(cfg["seed"], model.init, phi=phi)
+        return tr, tr.run(state, cfg["rounds"],
+                          eval_every=cfg["eval_every"], eval_clients=val)
+
+    _, state = around(name, run) if around else run()
+    test_acc, _, test_loss = evaluate_meta(
+        algo, tr.phi_tree(state), test, support_frac=cfg["support_frac"],
+        support_size=cfg["support_size"], query_size=cfg["query_size"],
+        seed=cfg["seed"], evaluator=tr.evaluator())
+    curve = [[r["round"], r["eval_acc"]] for r in tr.history
+             if "eval_acc" in r]
+    arrived = [r["arrived"] for r in tr.history if "arrived" in r]
+    skipped = int(sum(r.get("skipped", 0.0) for r in tr.history))
+    mean_arr = (sum(arrived) / len(arrived)) if arrived else float(m)
+    rounds = cfg["rounds"]
+    return {
+        "cell": name, "over_select": over_select,
+        "round_deadline": deadline,
+        "fail_rate": unrel.fail_rate if unrel else 0.0,
+        "final_val_acc": curve[-1][1] if curve else None,
+        "best_val_acc": max((a for _, a in curve), default=None),
+        "final_test_acc": test_acc, "final_test_loss": test_loss,
+        "eval_curve": curve,
+        # the per-round meta query loss; a guard-skipped round has none
+        "loss_curve": [[r["round"], r["query_loss"]] for r in tr.history
+                       if "query_loss" in r
+                       and r["query_loss"] == r["query_loss"]],
+        "rounds": rounds, "skipped_rounds": skipped,
+        "dead_round_frac": skipped / rounds,
+        "mean_arrived": mean_arr, "cohort_fill": mean_arr / m,
+        # the client updates that reached the aggregator
+        "client_updates": (int(round(sum(arrived))) if arrived
+                           else m * rounds),
+        "comm": tr.comm.summary(),
+    }
+
+
+def sweep_population(*, device="cuda", impl=None, init=(None, None),
+                     log=print, around=None, **overrides):
+    """The three population cells on one lazy Sent140 registry, split and
+    task stream -> the committed artifact's JSON shape (``config``,
+    ``headline``, ``registry_cache``, ``cells``). ``overrides`` replace
+    `POPULATION` settings; ``init`` is `load_init`'s pair (the FOMAML φ
+    is used)."""
+    from repro_torch.federated.experiment import DATASETS
+    cfg = {**POPULATION, **overrides}
+    su = DATASETS[cfg["dataset"]]
+    # the lazy sequential registry: bitwise the eager dataset, clients
+    # materialized on demand into a bounded LRU
+    reg = su["data"](cfg["clients"], cfg["seed"], lazy=True,
+                     cache_clients=cfg["cache_clients"])
+    data = reg.split_clients(seed=cfg["seed"])
+    model = su["model"](device)
+    init_phi = init[0]["fomaml"] if init[0] is not None else None
+    cells = []
+    for name in POPULATION_CELLS:
+        cell = population_cell(name, data=data, model=model, cfg=cfg,
+                               device=device, impl=impl, init_phi=init_phi,
+                               around=around)
+        cells.append(cell)
+        if log:
+            log(f"[{name:10s}] final_val={cell['final_val_acc']:.4f} "
+                f"fill={cell['cohort_fill']:.2f} "
+                f"dead={cell['skipped_rounds']}/{cfg['rounds']} "
+                f"updates={cell['client_updates']}")
+    headline = {c["cell"]: {
+        "final_val_acc": c["final_val_acc"],
+        "best_val_acc": c["best_val_acc"],
+        "cohort_fill": round(c["cohort_fill"], 3),
+        "dead_round_frac": round(c["dead_round_frac"], 3),
+        "client_updates": c["client_updates"],
+    } for c in cells}
+    config = {"method": "fomaml", **cfg,
+              "regen": "PYTHONPATH=src python -m repro_torch.launch.compare "
+                       "--sweep population"}
+    return {"config": config, "headline": headline,
+            "registry_cache": reg.cache_stats(), "cells": cells}
+
+
+def population_overrides(args) -> dict:
+    """The scenario sweeps' population flags -> `ExperimentPlan` fields
+    (as `examples/compare_fedmeta_fedavg.py` maps them)."""
+    over = {}
+    if args.lazy_population:
+        over.update(lazy_population=True,
+                    cache_clients=args.cache_clients or None)
+    if args.over_select:
+        over["over_select"] = args.over_select
+    if args.round_deadline:
+        over["round_deadline"] = args.round_deadline
+    if args.unreliable_fail_rate:
+        from repro_torch.federated.population import UnreliabilityConfig
+        over["unreliability"] = UnreliabilityConfig(
+            fail_rate=args.unreliable_fail_rate, seed=args.seed)
+    if args.pool_workers:
+        over["pool_workers"] = args.pool_workers
+    if args.eval_clients_cap:
+        over["eval_clients_cap"] = args.eval_clients_cap
+    return over
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sweep", choices=("compression", "robustness")
-                    + SCENARIOS, default="compression")
+    ap.add_argument("--sweep", choices=("compression", "robustness",
+                                        "population") + SCENARIOS,
+                    default="compression")
     ap.add_argument("--rounds", type=int, default=None,
                     help="default: 30 (compression), 40 (robustness), the "
                          "committed plan's or else the registry's "
@@ -275,7 +441,8 @@ def main(argv=None):
                          "committed plan's or else the registry's "
                          "(scenarios)")
     ap.add_argument("--clients", type=int, default=None,
-                    help="robustness: the client population (default 60)")
+                    help="robustness / population: the client population "
+                         "(default 60 / 100)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--outdir", default=None,
                     help="write the JSON record here (default: none)")
@@ -294,6 +461,29 @@ def main(argv=None):
     ap.add_argument("--fuse-rounds", type=int, default=1,
                     help="scenarios: rounds a fused block runs back to "
                          "back (packed pipelines)")
+    ap.add_argument("--lazy-population", action="store_true",
+                    help="scenarios: serve clients from the lazy "
+                         "ClientRegistry (sequential mode: bitwise the "
+                         "eager dataset)")
+    ap.add_argument("--cache-clients", type=int, default=0,
+                    help="scenarios: LRU cap on resident lazy clients "
+                         "(0 = unbounded)")
+    ap.add_argument("--over-select", type=float, default=0.0,
+                    help="scenarios: sample m·(1+x) candidates a round, "
+                         "aggregate the first m arrivals (FedMeta "
+                         "methods; a packed pipeline)")
+    ap.add_argument("--round-deadline", type=float, default=0.0,
+                    help="scenarios: arrival latency cutoff, in the "
+                         "arrival model's units (0 = no deadline)")
+    ap.add_argument("--unreliable-fail-rate", type=float, default=0.0,
+                    help="scenarios: per-(client, round) transient "
+                         "failure probability of the arrival model")
+    ap.add_argument("--pool-workers", type=int, default=0,
+                    help="scenarios: client-materializing worker threads "
+                         "(0 = inline)")
+    ap.add_argument("--eval-clients-cap", type=int, default=0,
+                    help="scenarios: cap on the val/test cohorts (large "
+                         "lazy populations)")
     args = ap.parse_args(argv)
     init = load_init(args.init_from) if args.init_from else (None, None)
     if args.sweep == "robustness":
@@ -305,6 +495,15 @@ def main(argv=None):
                                seed=args.seed, **over)
         print(json.dumps(out["headline"], indent=1))
         name = "robustness_femnist.json"
+    elif args.sweep == "population":
+        over = {k: v for k, v in (("rounds", args.rounds),
+                                  ("eval_every", args.eval_every),
+                                  ("clients", args.clients))
+                if v is not None}
+        out = sweep_population(device=args.device, init=init,
+                               seed=args.seed, **over)
+        print(json.dumps(out["headline"], indent=1))
+        name = f"population_{out['config']['dataset']}.json"
     elif args.sweep == "compression":
         out = sweep_compression(rounds=args.rounds or 30,
                                 eval_every=args.eval_every or 2,
@@ -324,7 +523,8 @@ def main(argv=None):
                                pipeline=args.pipeline,
                                prefetch_depth=args.prefetch_depth,
                                flush_every=args.flush_every,
-                               fuse_rounds=args.fuse_rounds)
+                               fuse_rounds=args.fuse_rounds,
+                               **population_overrides(args))
         out = run_comparison(plan, print, device=args.device,
                              init_params=init[0], finetune_idx=init[1])
         out.pop("states")

@@ -128,7 +128,8 @@ def test_method_overrides_and_trainer_knobs():
     with pytest.raises(ValueError, match="packed"):
         tx.make_trainer(tree, "fomaml", lf, ef, [], device="cpu")
     # the async engine's knobs reach both trainers (fused rounds the
-    # packed FedMeta trainers only); the population plane's still raise
+    # packed FedMeta trainers only); the population plane's reach the
+    # packed FedMeta trainers and upgrade the mean to the masked mean
     engine = dataclasses.replace(plan, compression=None, block_dtype=None,
                                  fuse_rounds=2, prefetch_depth=2,
                                  flush_every=4)
@@ -139,10 +140,16 @@ def test_method_overrides_and_trainer_knobs():
     assert tx.make_trainer(dataclasses.replace(engine, pipeline="tree"),
                            "fomaml", lf, ef, [], device="cpu").fuse_rounds == 1
     for knob in (dict(over_select=0.5), dict(round_deadline=2.0)):
-        bad = dataclasses.replace(plan, compression=None, block_dtype=None,
-                                  **knob)
-        with pytest.raises(NotImplementedError, match="slice"):
-            tx.make_trainer(bad, "fomaml", lf, ef, [], device="cpu")
+        pop = dataclasses.replace(plan, compression=None, block_dtype=None,
+                                  pool_workers=2, **knob)
+        fo = tx.make_trainer(pop, "fomaml", lf, ef, [], device="cpu")
+        assert (fo.aggregator, fo.guard, fo.pool_workers) == \
+            ("masked_mean", True, 2)
+        assert (fo.over_select, fo.round_deadline) == \
+            (pop.over_select, pop.round_deadline)
+        with pytest.raises(ValueError, match="packed"):
+            tx.make_trainer(dataclasses.replace(pop, pipeline="tree"),
+                            "fomaml", lf, ef, [], device="cpu")
     # the failure plane's knobs reach the trainer (packed pipelines only)
     robust = dataclasses.replace(plan, compression=None, block_dtype=None,
                                  aggregator="trimmed", trim=1,
@@ -154,9 +161,19 @@ def test_method_overrides_and_trainer_knobs():
     with pytest.raises(ValueError, match="packed"):
         tx.make_trainer(dataclasses.replace(robust, pipeline="tree"),
                         "fomaml", lf, ef, [], device="cpu")
-    with pytest.raises(NotImplementedError, match="population slice"):
-        tx.run_comparison(tx.default_plan("femnist", lazy_population=True),
-                          device="cpu")
+    # a lazy plan runs: the sequential registry is the eager dataset (and
+    # the FedMeta methods' local-head view a lazy view of it), so the
+    # histories are the eager plan's, record for record
+    small = dict(methods=("fedavg", "fomaml"), rounds=2, eval_every=2,
+                 num_clients=12, pipeline="packed", eval_clients_cap=2)
+    lazy = tx.run_comparison(tx.default_plan(
+        "recommend", lazy_population=True, cache_clients=3, **small),
+        device="cpu")
+    eager = tx.run_comparison(tx.default_plan("recommend", **small),
+                              device="cpu")
+    assert lazy["plan"]["lazy_population"] is True
+    for m, rec in eager["methods"].items():
+        assert lazy["methods"][m]["history"] == rec["history"], m
 
 
 # ---- a reduced comparison, both packages --------------------------------------

@@ -113,3 +113,12 @@ def test_every_kernel_has_a_source_a_counter_and_a_plain_version():
         for part in plain.split("."):
             obj = getattr(obj, part)
         assert callable(obj), (mod, plain)
+
+
+def test_compare_population_reads_json_only():
+    """`tools/compare_population.py` imports neither package (nor torch,
+    numpy or jax): it reads JSON records."""
+    names = {n.split(".")[0] for n in
+             _imports(REPO / "tools" / "compare_population.py")}
+    assert not names & {"jax", "jaxlib", "repro", "repro_torch", "torch",
+                        "numpy"}, names

@@ -7,8 +7,8 @@ gives the reference's arrays bit for bit: same client count, same
 dtypes, same x and y, and the same `split_clients`. The local-label view
 keeps client order, features and sizes (so the seeded sampling streams
 are the global view's), `FederatedDataset.view` refuses a transform
-that changes a client's size, and ``lazy=True`` names the population
-slice that brings the lazy registry."""
+that changes a client's size, and ``lazy=True`` gives a lazy registry
+bitwise equal to the eager dataset."""
 import numpy as np
 import pytest
 
@@ -69,10 +69,22 @@ def test_lm_task_batch_bitwise_equal_to_reference():
 @pytest.mark.parametrize("name", ["make_sent140", "make_shakespeare",
                                   "make_recommend", "make_lm_clients",
                                   "make_femnist"])
-def test_lazy_population_names_its_slice(name):
-    with pytest.raises(NotImplementedError, match="population slice"):
-        getattr(T, name)(num_clients=4, lazy=True)
-    # the eager path takes the reference's keywords and ignores them
+def test_lazy_population_matches_eager(name):
+    """``lazy=True`` gives a `ClientRegistry` bitwise equal to the eager
+    dataset (the sequential mode, through a cache of 2), with its name,
+    class count and splits; the eager path takes the reference's
+    keywords and ignores them."""
+    kw = dict(num_clients=6, seed=1)
+    if name == "make_femnist":
+        kw["mean_samples"] = 12
+    eager = getattr(T, name)(**kw)
+    lazy = getattr(T, name)(lazy=True, cache_clients=2, **kw)
+    assert (len(lazy), lazy.num_classes, lazy.name) == \
+        (len(eager.clients), eager.num_classes, eager.name)
+    _same_clients(eager.clients, [lazy[i] for i in range(len(lazy))])
+    for a, b in zip(eager.split_clients(0), lazy.split_clients(0)):
+        _same_clients(a, list(b))
+    assert lazy.cache_stats()["peak_resident"] <= 2
     ds = getattr(T, name)(num_clients=3, lazy=False, independent=True,
                           cache_clients=2)
     assert len(ds.clients) == 3

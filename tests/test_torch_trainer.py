@@ -156,7 +156,16 @@ def test_plan_blocks_match_reference_and_async_classes_raise():
                                 {"over_select": 0.5},
                                 {"client_axis": "sharded"}])
 def test_trainer_knobs_of_later_slices_raise(kw):
+    """The multi-device slice's knobs raise naming it. The population
+    plane's are ported: off the packed pipeline they raise the
+    reference's ValueError naming the population plane."""
     algo = make_algorithm("fomaml", lambda p, b: 0, lambda p, b: (0, {}), 0.1)
+    if {"unreliability", "round_deadline", "over_select"} & set(kw):
+        with pytest.raises(ValueError, match="population plane"):
+            FederatedTrainer(algo, adam(1e-3), [], device="cpu",
+                             **{**TRAIN, "packed": False,
+                                "client_plane": False, **kw})
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         FederatedTrainer(algo, adam(1e-3), [], device="cpu",
                          **{**TRAIN, **kw})

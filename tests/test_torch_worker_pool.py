@@ -10,9 +10,8 @@ dead pool, and leaks no thread whatever fails. On the trainer: a bare
 pool (``pool_workers > 0``, the population plane off) only pre-warms the
 upcoming picks, so the history equals the pool-less run bitwise, under
 prefetch too; a failing client surfaces as `WorkerPoolError` naming the
-round and the pool is shut down. The reference's population-plane cases
-(unreliability, deadlines, the circuit breaker) wait for the population
-slice; its knobs raise naming it."""
+round and the pool is shut down. The population plane's knobs run
+beside a pool (its own cases are in `tests/test_torch_population.py`)."""
 import threading
 
 import jax
@@ -282,14 +281,25 @@ def test_bare_pool_run_matches_reference():
     assert _no_pool_threads()
 
 
-@pytest.mark.parametrize("kw", [{"unreliability": object()},
+@pytest.mark.parametrize("kw", [{"unreliability": "model"},
                                 {"over_select": 0.5},
                                 {"round_deadline": 2.0}],
                          ids=["unreliability", "over_select",
                               "round_deadline"])
-def test_population_knobs_name_their_slice(kw):
-    """The population plane (arrival model, over-selection, deadlines,
-    the circuit breaker) is a later slice: its knobs raise naming it,
-    beside a pool that runs."""
-    with pytest.raises(NotImplementedError, match="population"):
-        _trainer(pool_workers=2, **kw)
+def test_population_knobs_run_beside_a_pool(kw):
+    """Each of the population plane's three knobs is accepted beside a
+    pool, upgrades the mean to the masked mean with the guard on (as the
+    reference does), and a run records every round's participation and
+    leaks no thread."""
+    from repro_torch.federated.population import UnreliabilityConfig
+    if "unreliability" in kw:
+        kw = {"unreliability": UnreliabilityConfig(fail_rate=0.3, seed=7)}
+    tr = _trainer(pool_workers=2, **kw)
+    assert (tr.aggregator, tr.guard) == ("masked_mean", True)
+    assert tr._breaker is not None
+    tr.run(tr.init(0, _TinyModel.init), 3)
+    n_cand = 6 if "over_select" in kw else 4
+    assert [r["selected"] for r in tr.history] == [n_cand] * 3
+    assert all(0 <= r["arrived"] <= 4 for r in tr.history)
+    assert tr.comm.summary()["selected_total"] == 3 * n_cand
+    assert _no_pool_threads()
