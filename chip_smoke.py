@@ -164,6 +164,32 @@ Phases, each printing one JSON line:
   decode_launcher  `repro_torch.launch.serve.main(["--arch",
            "mamba2-370m", "--steps", "4"])`: decode_32k's batch of 128
            at full width; finite logits, ms per step, peak memory.
+  train_launcher  the LM training launcher (`launch/train.py`, the
+           reference's `make_train_step`, layer remat): (i)
+           `train.main(["--arch", "smollm-360m", "--reduced", "--steps",
+           "2"])`; (ii) SmolLM-360M at full width and train_4k's 4,096
+           tokens, cut in sequences a client and clients (`LAUNCH_CUT`):
+           2 FOMAML steps and 1 MAML step through `train.train`, K1 and
+           K7 launched, finite loss, φ moved, per-step ms and peak GB;
+           FOMAML's step 1 against the plain route (K1, K7 plain, neither
+           launched) in bf16 (the meta-gradient, Adam's first moment,
+           within 1/8; φ within 2·lr plus one bf16 ulp, a sanity bound)
+           and, at the small cut, in float32 (within 1e-3); the small
+           cut's peak with remat on and off; (iii) MAML's and Meta-SGD's
+           meta-gradients on the client plane through K7 (the `lm`
+           scenario's f32 shape) and K9 (Mamba2 reduced, f32) against the
+           plain route, within 1e-5 of the largest entry (the
+           second-order backward through the kernels' Functions); (iv)
+           granite-3-2b and qwen2.5-3b served at full width
+           (`DENSE_SERVE`; adapt_batch cut to 1: a miss, then a hit),
+           K1, K7 and K8 launched, finite rows and prefill logits, adapt
+           and decode ms, peak GB.
+
+`python3 chip_smoke.py --launch-cuts fomaml:2,fomaml:16,maml:2` runs no
+phase: it builds the kernels and prints, for each cut `algo:S` (S
+sequences of 4,096 tokens, half support and half query, one client),
+one launcher step's ms, peak GB and launches, or that the card ran out
+of memory. That is how `LAUNCH_CUT` was chosen.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and last `{"ok": true, "device": {...}}`. Any failed
@@ -172,6 +198,7 @@ phase exits nonzero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -887,6 +914,9 @@ def check_k7(torch):
         (2, 8, 1, 70, 128, 64, "bfloat16", True, 20, 5),     # G = 8, hd_v < hd
         (2, 6, 2, 50, 40, 24, "bfloat16", True, None, 0),    # element staging
         (4, 2, 1, 16, 32, 32, "float32", True, None, 0),     # the lm scenario
+        (LAUNCH_CUT["fomaml"][0] // 2, 15, 5, 4096, 64, 64, "bfloat16",
+         True, None, 0),                         # the launcher at L=4096
+        (2, 16, 2, 64, 128, 128, "bfloat16", True, None, 0),  # qwen2.5 adapt
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1035,6 +1065,7 @@ def check_k8(torch):
         (16, 4096, 5, 3, 64, "bfloat16", "ragged"),    # split, dead splits
         (4, 4096, 5, 3, 64, "bfloat16", "zero_row"),   # a 0 row through the combine
         (4, 100, 2, 4, 64, "float32", "zero_row"),     # a 0 row, one split
+        (1, 64, 2, 8, 128, "bfloat16", "int"),         # qwen2.5's decode step
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1684,8 +1715,9 @@ LM_ROUND = dict(M=4, S=4, Q=4, L=128, LR=1e-3)
 
 
 def lm_round_setup(torch, cfg, rounds):
-    """The LM round's pieces: FOMAML (inner lr 0.05) over `lm_loss`, φ
-    from seed 0 on the card, Adam, the packed state, and `rounds` seeded
+    """The LM round's pieces: FOMAML (inner lr 0.05) over `lm_loss` (no
+    remat: 128-token sequences fit the card without it), φ from seed 0
+    on the card, Adam, the packed state, and `rounds` seeded
     batches of M clients × (S support, Q query) sequences of L tokens."""
     import numpy as np
     from repro_torch.core import make_algorithm
@@ -1697,7 +1729,8 @@ def lm_round_setup(torch, cfg, rounds):
     from repro_torch.utils.flat import plane_for
 
     M, S, Q, L = (LM_ROUND[k] for k in "MSQL")
-    algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
+    algo = make_algorithm("fomaml",
+                          *lm_loss(make_apply_fn(cfg, remat=False)), 0.05)
     phi = {"theta": init_lm(0, cfg, device="cuda")}
     plane = plane_for(phi)
     opt = adam(LM_ROUND["LR"])
@@ -1962,6 +1995,420 @@ def phase_decode_launcher(torch):
     return launches
 
 
+# ------------------------------------------------------- train_launcher
+
+# SmolLM-360M at full width and train_4k's 4,096 tokens, cut in sequences
+# a client (support + query) and clients, never in width or length:
+# (S_support + S_query, clients) for each run of the phase. train_4k has 8
+# clients of 16 + 16; the clients run one after another, so only the
+# sequences set the peak. `--launch-cuts` on an H100 80GB
+# HBM3 at 700 W: FOMAML 13.3 / 20.1 / 34.8 / 49.6 / 64.4 GB at 1 + 1 /
+# 2 + 2 / 4 + 4 / 6 + 6 / 8 + 8, MAML 42.7 / 78.7 GB at 1 + 1 / 2 + 2, of
+# the card's 85 GB; MAML stays at 1 + 1 for margin
+LAUNCH_CUT = {"fomaml": (16, 1), "maml": (2, 1), "small": (2, 1)}
+LAUNCH_LR = dict(inner_lr=0.01, outer_lr=1e-4)    # the launcher's defaults
+# granite and qwen2.5 served at full width: 2 requests of one client (a
+# miss, then a cache hit), supports of 2 sequences of 64 tokens, 64-token
+# prompts, 8 new tokens. adapt_batch is cut from 4 to 1: an f32 plane row
+# of a 2.5 / 3.1 B model is 10.1 / 12.3 GB, and each row of the batch
+# holds θ and its gradient. Granite at 2 peaked at 66.0 GB with remat and
+# ran out of the card's memory without it (serving runs without remat)
+DENSE_SERVE = dict(requests=2, sup_len=64, prompt_len=64, new_tokens=8,
+                   adapt_batch=1)
+
+
+@contextlib.contextmanager
+def all_plain():
+    """Attention (K7), the SSD (K9) and the tree meta-update (K1) on
+    their plain versions."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.meta_update import ops as mu_ops
+    with attn_ops.use_impl("torch"), ssd_torch_route(), \
+            mu_ops.use_impl("torch"):
+        yield
+
+
+def _tree_rel_gap(a, b):
+    """max |a − b| over max |b|, across the leaves of two trees."""
+    from repro_torch.utils.pytree import tree_leaves
+    xs, ys = tree_leaves(a), tree_leaves(b)
+    return (max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(xs, ys))
+            / max(float(y.float().abs().max()) for y in ys))
+
+
+def _check_plain(launches, what, errors):
+    """A plain-route run launched neither K1 nor K7."""
+    for name in ("inner_update_plane", "flash_attention"):
+        if launches[name]:
+            errors.append(f"{what}: {name} launched {launches[name]} times")
+
+
+def launch_reduced(torch, errors):
+    """`train.main([... "--reduced", "--steps", "2"])` on the card."""
+    from repro_torch.launch import train as tl
+    reset_launches()
+    out = tl.main(["--arch", "smollm-360m", "--reduced", "--steps", "2"])
+    launches = read_launches()
+    if not all(math.isfinite(r["query_loss"]) for r in out["records"]):
+        errors.append(f"reduced launcher: non-finite loss {out['records']}")
+    for name in ("inner_update_plane", "flash_attention"):
+        if launches[name] <= 0:
+            errors.append(f"reduced launcher: {name} not launched")
+    return {"records": out["records"], "launches": launches}
+
+
+def _launch_run(torch, cfg, algo, cut, steps, phi, *, remat=True,
+                keep_step1=False):
+    """`train.train` on a cut of train_4k (L = 4,096): per-step ms, peak
+    GB over what was held before, launches from 0, the final state, and
+    (keep_step1) φ and the first moment after step 1."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import train as tl
+    from repro_torch.utils.pytree import tree_map
+    S, C = cut
+    shape = tl.cut_shape(INPUT_SHAPES["train_4k"], seqs_per_client=S,
+                         clients=C)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    box = {}
+
+    def on_step(it, state, _):
+        if keep_step1 and it == 0:
+            box["phi"] = tree_map(torch.clone, state["phi"])
+            box["m"] = tree_map(torch.clone, state["opt"]["m"])
+
+    reset_launches()
+    state, recs = tl.train(cfg, shape, algo=algo, steps=steps, remat=remat,
+                           device="cuda", phi=phi, log_every=10 ** 9,
+                           on_step=on_step, **LAUNCH_LR)
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res = {"algo": algo, "seq_len": shape.seq_len, "support": S // 2,
+           "query": S - S // 2, "clients": C, "remat": remat,
+           "step_ms": [r["wall_s"] * 1e3 for r in recs],
+           "metrics": [{k: v for k, v in r.items() if k not in
+                        ("step", "wall_s")} for r in recs],
+           "peak_gb": peak, "held_gb": held / 1e9, "launches": launches}
+    return res, state, box
+
+
+def launch_cuts(torch, cuts):
+    """One launcher step of SmolLM-360M at full width (bf16, seed 0) at
+    each cut `algo:S` of `cuts`: step ms, peak GB, launches, or the
+    first line of the out-of-memory error. One JSON line a cut."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    cfg = get_config("smollm-360m")
+    phi = {"theta": init_lm(0, cfg, device="cuda")}
+    for cut in cuts.split(","):
+        algo, S = cut.split(":")
+        row = {"phase": "launch_cuts", "algo": algo,
+               "seqs_per_client": int(S), "clients": 1}
+        try:
+            res, state, _ = _launch_run(torch, cfg, algo, (int(S), 1), 1,
+                                        phi)
+            del state
+            row.update(step_ms=res["step_ms"][0], peak_gb=res["peak_gb"],
+                       held_gb=res["held_gb"], launches={
+                           k: v for k, v in res["launches"].items() if v})
+        except torch.cuda.OutOfMemoryError as e:
+            row["out_of_memory"] = str(e).splitlines()[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(row)
+
+
+def launch_traced_step(torch, cfg, phi):
+    """One FOMAML step of the launcher's `make_train_step` at the FOMAML
+    cut under torch.profiler (device activity by kernel group)."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.steps import make_train_step
+    S, C = LAUNCH_CUT["fomaml"]
+    shape = tl.cut_shape(INPUT_SHAPES["train_4k"], seqs_per_client=S,
+                         clients=C)
+    step, init_state, _, _ = make_train_step(cfg, algo_name="fomaml",
+                                             **LAUNCH_LR)
+    state = init_state(phi=phi, device="cuda")
+    batch = tl.task_batch(cfg, shape, 0, "cuda")
+    _, trace = _traced(torch, lambda: step(state, batch))
+    del state, batch
+    return trace
+
+
+def launch_full_width(torch, cfg, errors):
+    """SmolLM-360M at full width, L = 4,096, through `train.train`: 2
+    FOMAML steps and 1 MAML step (K1 and K7 launched, finite loss, φ
+    moved), FOMAML's step 1 against the plain route in bf16 (φ within
+    2·lr plus one bf16 ulp, the meta-gradient within 1/8 of its largest
+    entry, the train phase's limits), one traced FOMAML step, one step
+    in float32 on both routes at the small cut (the meta-gradient within
+    1e-3), and the peak memory with remat at the small cut and without
+    it."""
+    from repro_torch.models import init_lm
+    from repro_torch.utils.pytree import tree_leaves
+    phi0 = {"theta": init_lm(0, cfg, device="cuda")}
+    first0 = tree_leaves(phi0)[0].clone()
+    runs = {}
+
+    res, state, box = _launch_run(torch, cfg, "fomaml", LAUNCH_CUT["fomaml"],
+                                  2, phi0, keep_step1=True)
+    moved = any(not torch.equal(a, b) for a, b in
+                zip(tree_leaves(state["phi"]), tree_leaves(phi0)))
+    del state
+    with all_plain():
+        plain, pstate, _ = _launch_run(torch, cfg, "fomaml",
+                                       LAUNCH_CUT["fomaml"], 1, phi0)
+    _check_plain(plain["launches"], "FOMAML plain route (bf16)", errors)
+    # φ is the bf16 tree: Adam's first step moves each entry by at most
+    # lr, so the routes' pre-rounding values differ by at most 2·lr, and
+    # rounding to bf16 adds at most one ulp, 2^-7·|φ|. This holds for
+    # any gradient (a sanity bound); the first moment m is the check
+    lr = LAUNCH_LR["outer_lr"]
+    d_phi = phi_share = 0.0
+    for a, b in zip(tree_leaves(box["phi"]), tree_leaves(pstate["phi"])):
+        d = (a.float() - b.float()).abs()
+        d_phi = max(d_phi, float(d.max()))
+        phi_share = max(phi_share, float(
+            (d / (2 * lr + 2.0 ** -7 * b.float().abs())).max()))
+    d_g = _tree_rel_gap(box["m"], pstate["opt"]["m"])
+    del box, pstate
+    g_tol = 0.125
+    res.update(moved=moved, plain_route_step1={
+        "max_abs_dphi": d_phi, "phi_tol": "per entry: 2·lr + 2^-7·|φ|",
+        "phi_worst_of_limit": phi_share, "meta_grad_rel": d_g,
+        "meta_grad_tol": g_tol, "plain_step_ms": plain["step_ms"],
+        "plain_peak_gb": plain["peak_gb"]})
+    runs["fomaml"] = res
+    if not moved:
+        errors.append("FOMAML at L=4096: φ did not move")
+    if not (phi_share <= 1.0 and d_g <= g_tol):
+        errors.append(f"FOMAML step 1 vs the plain route: |dφ| {d_phi} "
+                      f"({phi_share} of 2·lr + 2^-7·|φ|), meta-gradient "
+                      f"{d_g} (limit {g_tol})")
+
+    runs["fomaml_traced_step"] = launch_traced_step(torch, cfg, phi0)
+
+    res, state, _ = _launch_run(torch, cfg, "maml", LAUNCH_CUT["maml"], 1,
+                                phi0)
+    res["moved"] = any(not torch.equal(a, b) for a, b in
+                       zip(tree_leaves(state["phi"]), tree_leaves(phi0)))
+    del state
+    runs["maml"] = res
+    if not res["moved"]:
+        errors.append("MAML at L=4096: φ did not move")
+
+    for remat in (True, False):
+        res, state, _ = _launch_run(torch, cfg, "fomaml", LAUNCH_CUT["small"],
+                                    1, phi0, remat=remat)
+        del state
+        runs[f"fomaml_small_remat_{'on' if remat else 'off'}"] = res
+
+    # float32 at the small cut: both routes compute one function
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    phi32 = {"theta": init_lm(0, cfg32, device="cuda")}
+    ms = []
+    for plain_route in (False, True):
+        with (all_plain() if plain_route else contextlib.nullcontext()):
+            res, state, box = _launch_run(torch, cfg32, "fomaml",
+                                          LAUNCH_CUT["small"], 1, phi32,
+                                          keep_step1=True)
+        if plain_route:
+            _check_plain(res["launches"], "FOMAML plain route (f32)", errors)
+        ms.append(box["m"])
+        del state, box
+    f32 = {"meta_grad_rel": _tree_rel_gap(ms[0], ms[1]),
+           "meta_grad_tol": 1e-3}
+    del ms, phi32
+    runs["plain_route_step1_f32"] = f32
+    if not f32["meta_grad_rel"] <= f32["meta_grad_tol"]:
+        errors.append(f"f32 step 1 vs the plain route: {f32}")
+
+    for name, r in runs.items():
+        if "metrics" not in r:
+            continue
+        if not all(math.isfinite(m["query_loss"]) for m in r["metrics"]):
+            errors.append(f"{name}: non-finite loss {r['metrics']}")
+        for k in ("inner_update_plane", "flash_attention"):
+            if r["launches"][k] <= 0:
+                errors.append(f"{name}: {k} not launched")
+    if not torch.equal(tree_leaves(phi0)[0], first0):
+        errors.append("the launcher wrote into the initial φ")
+    return runs
+
+
+def second_order_checks(torch, errors):
+    """The repair of K7's and K9's backward on the card: one MAML and one
+    Meta-SGD meta-gradient on the client plane, kernel route against
+    the plain route (impl="torch", attention or the SSD plain), within
+    1e-5 of the largest entry: at the `lm` scenario's f32 shape through
+    K7 (4 clients × 4 + 4 sequences of 16 tokens, the scenario's reduced
+    SmolLM), and on Mamba2's reduced config in f32 through K9 (32
+    tokens, two chunks). Both kernels must launch under the kernel
+    route. A backward that returned constants would drop the Hessian
+    terms, several % of the largest entry."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import make_algorithm
+    from repro_torch.core.losses import lm_loss
+    from repro_torch.launch.steps import make_apply_fn
+    from repro_torch.models import init_lm
+    from repro_torch.utils.flat import plane_for
+    lm_cfg = dataclasses.replace(
+        reduced_config(get_config("smollm-360m")), num_layers=2, d_model=64,
+        num_heads=2, num_kv_heads=1, head_dim=32, d_ff=128, vocab_size=64,
+        dtype="float32")
+    cases = (("smollm lm scenario", lm_cfg, 16, "flash_attention", 0.1),
+             ("mamba2 reduced", reduced_config(get_config("mamba2-370m")),
+              32, "ssd_chunk", 0.05))
+    out = []
+    for label, cfg, L, kernel, inner_lr in cases:
+        rng = np.random.RandomState(0)
+        sup, qry = (torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                                (4, 4, L)),
+                                    dtype=torch.int32, device="cuda")
+                    for _ in range(2))
+        for name in ("maml", "meta-sgd"):
+            algo = make_algorithm(name, *lm_loss(make_apply_fn(cfg)),
+                                  inner_lr)
+            phi = algo.init_state(0, lambda k: init_lm(k, cfg,
+                                                       device="cuda"))
+            pplane, tplane = plane_for(phi), plane_for(phi["theta"])
+            reset_launches()
+            G, _ = algo.client_grad_chunk_packed(pplane, tplane, phi, sup,
+                                                 qry, impl="cuda")
+            launched = read_launches()[kernel]
+            reset_launches()
+            with all_plain():
+                G_p, _ = algo.client_grad_chunk_packed(
+                    pplane, tplane, phi, sup, qry, impl="torch")
+            plain_launched = read_launches()[kernel]
+            rel = float((G - G_p).abs().max() / G_p.abs().max())
+            row = {"case": label, "algo": name, "kernel": kernel,
+                   "launches": launched, "plain_launches": plain_launched,
+                   "meta_grad_rel": rel, "tol": 1e-5}
+            if name == "maml":
+                fo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)),
+                                    inner_lr)
+                G_fo, _ = fo.client_grad_chunk_packed(pplane, tplane, phi,
+                                                      sup, qry, impl="cuda")
+                row["second_order_share"] = float(
+                    (G - G_fo).abs().max() / G_p.abs().max())
+            out.append(row)
+            if not (rel <= 1e-5 and launched > 0 and plain_launched == 0):
+                errors.append(f"second order through {kernel}: {row}")
+    return out
+
+
+def serve_dense(torch, arch, errors):
+    """`build_engine` + `ServingEngine.serve` of a dense config at full
+    width (bf16, random weights, seed 0): a warm-up request, then
+    DENSE_SERVE's two requests with every kernel's count from 0; K1, K7
+    and K8 launched, one miss and one hit, finite rows, tokens in range,
+    finite prefill logits of the adapted row, adapt and decode ms, peak
+    GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.federated.serving import TrafficModel
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = get_config(arch)
+    d = DENSE_SERVE
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, algo_name="fomaml", inner_lr=0.05,
+                          adapt_batch=d["adapt_batch"],
+                          cache_capacity=1, device="cuda")
+    init_s = time.perf_counter() - t0
+
+    def mk(rng, size):
+        return torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                           (size, d["sup_len"])),
+                               dtype=torch.int32)
+
+    def mp(rng):
+        return torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                           (d["prompt_len"],)),
+                               dtype=torch.int32)
+
+    traffic = dict(num_clients=1, rate=32.0, support_sizes=(2,))
+    engine.serve(TrafficModel(seed=99, **traffic).requests(1, mk, mp),
+                 max_new_tokens=2)
+    engine.cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = TrafficModel(seed=0, **traffic).requests(d["requests"], mk, mp)
+    reset_launches()
+    report = engine.serve(reqs, max_new_tokens=d["new_tokens"])
+    launches = read_launches()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    summary = report.summary()
+    miss = next(r for r in report.records if not r["hit"])
+    with torch.no_grad():
+        logits, _ = make_prefill_step(cfg)(engine.unpack_row(miss["row"]),
+                                           reqs[0].prompt[None].cuda())
+    finite = bool(torch.isfinite(logits).all())
+    for name in ("inner_update_plane", "flash_attention", "flash_decode"):
+        if launches[name] <= 0:
+            errors.append(f"{arch} serve: {name} not launched")
+    for rec in report.records:
+        toks = rec.get("tokens")
+        if not bool(torch.isfinite(rec["row"]).all()):
+            errors.append(f"{arch} serve: non-finite adapted row")
+        if toks is None or toks.shape != (d["new_tokens"],) or not (
+                (toks >= 0).all() and (toks < cfg.vocab_size).all()):
+            errors.append(f"{arch} serve: bad tokens {toks}")
+    if not finite:
+        errors.append(f"{arch} serve: non-finite prefill logits")
+    if (summary["misses"], summary["hits"]) != (1, 1):
+        errors.append(f"{arch} serve: {summary['misses']} misses and "
+                      f"{summary['hits']} hits, not one of each")
+    res = {"arch": arch, "n_plane": engine.plane.n_padded,
+           "init_s": init_s, **d, "summary": summary,
+           "adapt_ms": miss["adapt_ms"], "decode_ms": miss["decode_ms"],
+           "prefill_logits_finite": finite, "logits_shape": list(
+               logits.shape), "peak_mem_gb": peak, "launches": launches}
+    del engine, report, miss, logits
+    return res, launches
+
+
+def phase_train_launcher(torch):
+    """The LM training launcher on the card: one JSON line per part,
+    each with its seconds."""
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm-360m")
+    paths, failed = {}, []
+    parts = (("reduced", lambda e: launch_reduced(torch, e)),
+             ("full_width", lambda e: launch_full_width(torch, cfg, e)),
+             ("second_order", lambda e: second_order_checks(torch, e)),
+             ("serve_granite", lambda e: serve_dense(torch, "granite-3-2b",
+                                                     e)),
+             ("serve_qwen", lambda e: serve_dense(torch, "qwen2.5-3b", e)))
+    for part, fn in parts:
+        errors = []
+        t0 = time.perf_counter()
+        res = fn(errors)
+        if part == "full_width":
+            paths["train_launcher"] = res["fomaml"]["launches"]
+        elif part.startswith("serve_"):
+            res, paths[part] = res
+        emit({"phase": "train_launcher", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0, "result": res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
 # ------------------------------------------------------------ train_comm
 
 # bytes of one FEMNIST round at m = 4 (download + upload) by upload
@@ -2206,7 +2653,8 @@ def comm_lm(torch, cfg, errors):
     M, S, Q, L, LR, CLIENTS = 4, 4, 4, 128, 1e-3, 8
     comp = CompressionConfig("int8")
     dp = DPConfig(clip_norm=1.0, noise_multiplier=0.1, seed=0)
-    algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
+    algo = make_algorithm("fomaml",
+                          *lm_loss(make_apply_fn(cfg, remat=False)), 0.05)
     phi = {"theta": init_lm(0, cfg, device="cuda")}
     plane = plane_for(phi)
     opt = adam(LR)
@@ -2557,7 +3005,8 @@ def faults_lm(torch, cfg, errors):
     from repro_torch.utils.pytree import tree_map
 
     M, S, Q, L, LR = 4, 4, 4, 128, 1e-3
-    algo = make_algorithm("fomaml", *lm_loss(make_apply_fn(cfg)), 0.05)
+    algo = make_algorithm("fomaml",
+                          *lm_loss(make_apply_fn(cfg, remat=False)), 0.05)
     phi = {"theta": init_lm(0, cfg, device="cuda")}
     plane = plane_for(phi)
     opt = adam(LR)
@@ -2967,7 +3416,8 @@ def async_lm_trainer(cfg, clients, **kw):
     from repro_torch.launch.steps import make_apply_fn
     from repro_torch.models import init_lm
     from repro_torch.optim import adam
-    algo = make_algorithm("fomaml", *lm_pair_loss(make_apply_fn(cfg)), 0.05)
+    algo = make_algorithm(
+        "fomaml", *lm_pair_loss(make_apply_fn(cfg, remat=False)), 0.05)
     tr = FederatedTrainer(algo, adam(1e-3), clients, clients_per_round=4,
                           support_frac=0.5, support_size=4, query_size=4,
                           seed=0, packed=True, client_plane=True,
@@ -3738,7 +4188,10 @@ def phase_train_population(torch, cfg):
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--launch-cuts", metavar="ALGO:S,...", default=None,
+                    help="only measure the launcher's step at these cuts")
+    args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "kernels", "csrc")):
         emit({"phase": "device", "ok": False,
@@ -3759,6 +4212,12 @@ def main(argv=None) -> int:
     emit({"phase": "device", "ok": True, "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if args.launch_cuts:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        launch_cuts(torch, args.launch_cuts)
+        return 0
 
     t_start = time.perf_counter()
     starts = {}
@@ -3826,6 +4285,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("decode_launcher")
         paths["decode_launcher"] = phase_decode_launcher(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("train_launcher")
+        paths.update(phase_train_launcher(torch))
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})

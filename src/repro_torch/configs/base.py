@@ -98,7 +98,10 @@ class ModelConfig:
 
 
 _ARCH_MODULES = {
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
 }
 

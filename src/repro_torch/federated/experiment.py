@@ -149,8 +149,10 @@ def _lm_model(device):
                               num_layers=2, d_model=64, num_heads=2,
                               num_kv_heads=1, head_dim=32, d_ff=128,
                               vocab_size=LM_VOCAB, dtype="float32")
+    # no remat: the scenario's 128-token clients fit without it, and
+    # eager remat would run every forward twice
     return Model(lambda key: init_lm(key, cfg, device=device),
-                 make_apply_fn(cfg), f"lm-{cfg.name}")
+                 make_apply_fn(cfg, remat=False), f"lm-{cfg.name}")
 
 
 def _lm_loss(model):

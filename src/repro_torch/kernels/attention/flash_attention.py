@@ -12,10 +12,11 @@ of the models' (B, L, H, hd) tensors and gets back a view over a
 (B, Lq, H, hd_v) buffer: no transpose copies either way.
 
 The reference kernel has no VJP and the reference never differentiates
-through it. The port's serving adaptation does (its forward runs
+through it. The port's adaptation and training do (its forward runs
 attention), so the kernel sits in an ``autograd.Function`` whose
-backward recomputes attention with the plain version under autograd;
-a backward kernel belongs to the training slice.
+backward recomputes attention with the plain version under autograd
+(`kernels/_recompute.py`). That backward is itself differentiable, so
+MAML's and Meta-SGD's second-order terms reach through it.
 
 On a CPU tensor the wrapper runs the plain version (`ref.py`); on a
 CUDA tensor it launches the kernel or raises.
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import get_ext
+from repro_torch.kernels._recompute import recompute_vjp
 from repro_torch.kernels.attention import ref
 
 launches = 0   # kernel launches; only `_launch` adds to it
@@ -64,12 +66,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
-            out = _plain_bhld(qd, kd, vd, *ctx.args)
-            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), ct)
-        return dq, dk, dv, None, None, None
+        args = ctx.args
+        grads = recompute_vjp(lambda q, k, v: _plain_bhld(q, k, v, *args),
+                              ctx.saved_tensors, (ct,),
+                              ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
 
 
 def flash_attention_bhld(q, k, v, *, causal: bool = True, window=None,

@@ -6,10 +6,12 @@ K2, the trimmed mean on K5).
 
 impl: "cuda" (default; the kernels for CUDA tensors, their plain
 versions for CPU tensors) or "torch" (the plain version everywhere),
-selected per call — the port's counterpart of the reference's
-xla/pallas switch (`repro/kernels/meta_update/ops.py:43-60`).
+selected per call or scoped with `use_impl` — the port's counterpart of
+the reference's xla/pallas switch (`repro/kernels/meta_update/ops.py:43-60`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,6 +35,18 @@ from repro_torch.utils.flat import plane_for
 
 _IMPLS = ("torch", "cuda")
 _DEFAULT_IMPL = "cuda"
+
+
+@contextlib.contextmanager
+def use_impl(impl: str):
+    """Scoped default-impl override (restores on exit)."""
+    global _DEFAULT_IMPL
+    assert impl in _IMPLS, impl
+    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
+    try:
+        yield
+    finally:
+        _DEFAULT_IMPL = prev
 
 
 def resolve_impl(impl: str | None) -> str:

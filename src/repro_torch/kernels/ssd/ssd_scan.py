@@ -15,7 +15,8 @@ The reference kernel has no VJP and the reference never differentiates
 through it. The port's serving adaptation and training round do, so
 under a gradient the kernel sits in an ``autograd.Function`` whose
 backward recomputes the plain version (`ref.ssd_intra_chunk_plain`)
-under autograd; a backward kernel is later work.
+under autograd (`kernels/_recompute.py`), differentiable again for
+the second-order meta-learners; a backward kernel is later work.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import get_ext
+from repro_torch.kernels._recompute import recompute_vjp
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
 
 launches = 0   # kernel launches; only `_launch` adds to it
@@ -58,14 +60,11 @@ class _SsdIntraChunk(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gS):
-        ins = ctx.saved_tensors
-        need = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
-            y, S = ssd_intra_chunk_plain(*leaves, chunk=ctx.chunk)
-            wrt = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad((y, S), wrt, (gy, gS)))
-        return (*(next(grads) if n else None for n in need), None)
+        chunk = ctx.chunk
+        grads = recompute_vjp(
+            lambda *ins: ssd_intra_chunk_plain(*ins, chunk=chunk),
+            ctx.saved_tensors, (gy, gS), ctx.needs_input_grad[:4])
+        return (*grads, None)
 
 
 def ssd_intra_chunk(xdt, a, Bm, Cm, *, chunk: int):

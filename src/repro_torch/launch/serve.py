@@ -44,7 +44,8 @@ def build_engine(cfg, phi=None, *, algo_name: str = "fomaml",
     `lm_loss`, prefill/decode steps, bounded adaptation cache. `phi`
     defaults to a fresh init from `seed` on `device`. `adapt_impl` picks
     the inner-update route ("cuda" | "torch") and is passed through to
-    the engine (the reference accepts it and drops it).
+    the engine (the reference accepts it and drops it). Adaptation runs
+    without remat, as the reference's serving does.
 
     float32 matmuls stay in full float32 on the card
     (``allow_tf32 = False``, PyTorch's default, set here explicitly)."""
@@ -53,7 +54,7 @@ def build_engine(cfg, phi=None, *, algo_name: str = "fomaml",
     from repro_torch.federated.serving import AdaptationCache, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    loss_fn, eval_fn = lm_loss(make_apply_fn(cfg))
+    loss_fn, eval_fn = lm_loss(make_apply_fn(cfg, remat=False))
     algo = make_algorithm(algo_name, loss_fn, eval_fn, inner_lr, inner_steps)
     if phi is None:
         def model_init(k):

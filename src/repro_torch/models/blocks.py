@@ -1,6 +1,6 @@
 """Decoder blocks. Counterpart of `repro/models/blocks.py` for the dense
-("attn", "mlp") spec that SmolLM-360M runs and the ("mamba", "none")
-spec that Mamba2-370M runs. MoE, MLA and cross-attention blocks raise
+("attn", "mlp") spec that SmolLM-360M and the dense configs run and the
+("mamba", "none") spec that Mamba2-370M runs. MoE, MLA and cross-attention blocks raise
 until their slices land.
 """
 from __future__ import annotations

@@ -67,23 +67,28 @@ def rmsnorm(params, x, eps: float = 1e-5):
 
 # ---------------------------------------------------------------- MLPs
 
-def _check_act(act: str):
-    if act != "swiglu":
-        raise NotImplementedError(f"mlp_act {act!r} is not ported yet; it "
-                                  "joins with the granite / nemotron slice")
-
-
 def mlp_init(rng: Rng, d: int, d_ff: int, act: str, dtype):
-    _check_act(act)
-    return {"w_down": dense_init(rng, d_ff, d, dtype),
-            "w_gate": dense_init(rng, d, d_ff, dtype),
-            "w_up": dense_init(rng, d, d_ff, dtype)}
+    """SwiGLU has a gate; relu2 and gelu have only w_up and w_down
+    (`repro/models/layers.py:53-60`, in the reference's draw order)."""
+    p = {"w_down": dense_init(rng, d_ff, d, dtype)}
+    if act == "swiglu":
+        p["w_gate"] = dense_init(rng, d, d_ff, dtype)
+    p["w_up"] = dense_init(rng, d, d_ff, dtype)
+    return p
 
 
 def mlp_apply(params, x, act: str):
-    """SwiGLU MLP: (silu(x W_gate) * x W_up) W_down."""
-    _check_act(act)
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    """swiglu: (silu(x W_gate) * x W_up) W_down; relu2 (nemotron):
+    relu(x W_up)² W_down; gelu: gelu(x W_up) W_down with the tanh
+    approximation, `jax.nn.gelu`'s default."""
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif act == "relu2":
+        h = torch.square(F.relu(x @ params["w_up"]))
+    elif act == "gelu":
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown act {act}")
     return h @ params["w_down"]
 
 

@@ -1,6 +1,7 @@
 """Causal LM assembly: embeddings -> layer stack -> final norm -> logits.
 Counterpart of `repro/models/lm.py` for decoder-only archs whose blocks
-are dense attention (SmolLM-360M) or Mamba2 (Mamba2-370M).
+are dense attention (SmolLM-360M, granite-3-2b, qwen2.5-3b,
+nemotron-4-340b) or Mamba2 (Mamba2-370M).
 
 The parameter tree is the reference's: the repeating layer period is
 stored stacked, ``stack/pos{j}`` leaves with a leading ``n_reps`` axis,
@@ -22,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import _unported
 from repro_torch.models.blocks import (block_decode, block_forward, block_init,
@@ -97,13 +99,31 @@ def _logits(params, cfg, x):
     return (x @ head).float()
 
 
-def lm_apply(params, cfg, tokens, *, collect_cache: bool = False,
-             cache_capacity: int | None = None, logits_mode: str = "all"):
+def _rep_forward(rep, cfg, period, x, aux, positions):
+    """One repetition of the layer period: the reference's scan body,
+    (x, aux) -> (x, aux)."""
+    for j, spec in enumerate(period):
+        x, a = block_forward(rep[f"pos{j}"], cfg, spec, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def lm_apply(params, cfg, tokens, *, remat: bool = True,
+             collect_cache: bool = False, cache_capacity: int | None = None,
+             logits_mode: str = "all"):
     """Training / prefill forward. tokens: (B, L) int.
 
-    Returns (logits, aux_loss[, cache]). The reference's `remat` and
-    `unroll_layers` have no counterpart: eager PyTorch keeps every
-    activation and always runs the layers as a loop."""
+    Returns (logits, aux_loss[, cache]). With ``remat`` each repetition
+    of the layer period runs under a non-reentrant
+    `torch.utils.checkpoint`, where the reference puts
+    ``jax.checkpoint(body)`` (`repro/models/lm.py:206-216`): a backward
+    pass keeps only each repetition's input and recomputes its forward,
+    and a second-order pass (MAML) differentiates through the
+    recomputation. The forward draws no random numbers, so the
+    checkpoint stashes no RNG state. The ``lead_*`` blocks and the
+    prefill path (``collect_cache``) are never checkpointed, as in the
+    reference. The reference's ``unroll_layers`` has no counterpart: the
+    layers always run as a Python loop."""
     _check_text_only(cfg)
     B, L = tokens.shape
     lead, period, n_reps = layer_groups(cfg)
@@ -124,13 +144,18 @@ def lm_apply(params, cfg, tokens, *, collect_cache: bool = False,
 
     outs = []
     for rep in _reps(params["stack"], n_reps):
+        if not collect_cache:
+            if remat and torch.is_grad_enabled():
+                x, aux = checkpoint(_rep_forward, rep, cfg, period, x, aux,
+                                    positions, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = _rep_forward(rep, cfg, period, x, aux, positions)
+            continue
         rep_caches = {}
         for j, spec in enumerate(period):
-            if collect_cache:
-                x, a, rep_caches[f"pos{j}"] = block_prefill(
-                    rep[f"pos{j}"], cfg, spec, x, positions, capacity)
-            else:
-                x, a = block_forward(rep[f"pos{j}"], cfg, spec, x, positions)
+            x, a, rep_caches[f"pos{j}"] = block_prefill(
+                rep[f"pos{j}"], cfg, spec, x, positions, capacity)
             aux = aux + a
         outs.append(rep_caches)
 
