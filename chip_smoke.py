@@ -23,8 +23,16 @@ Phases, each printing one JSON line:
            at m > 16; K1 in its scalar, shared and per-client α modes),
            K7 and K8 within a stated bf16 tolerance (K7 also at the LM
            round's shape and, in f32, the lm scenario's (4, 2 heads, 1 kv
-           head, L 16, hd 32), and ragged kv_length on the card: the oracle,
-           bitwise equal to impl="torch", no K7 launch; K8 also on a
+           head, L 16, hd 32), at the MoE prefills' shapes — mixtral's
+           sliding window over 4,608 tokens, jamba's 4,096, deepseek's
+           MLA at qk dim 192 and value dim 128, timed against the SDPA
+           backend that takes that (named in the row) — in f32 at hd
+           192, refusing hd 256 with no launch, and ragged kv_length on
+           the card: the oracle,
+           bitwise equal to impl="torch", no K7 launch; K8 also on
+           mixtral's and jamba's decode_32k caches (128 rows of 4,096 and
+           32,768 slots, hd 128; the plain version row block by row
+           block), on a
            32K-slot cache split across blocks, ragged 4K-slot caches,
            rows with kv_length 0 against the mean of V, and a Python-int
            kv_length that launches K8 alone), K9 and its plain version
@@ -184,6 +192,24 @@ Phases, each printing one JSON line:
            (`DENSE_SERVE`; adapt_batch cut to 1: a miss, then a hit),
            K1, K7 and K8 launched, finite rows and prefill logits, adapt
            and decode ms, peak GB.
+  serve_moe  the MoE and MLA families at full width, depth cut to one
+           card (`MOE_CUTS`), one JSON line a part with its seconds and
+           peak GB: (i) `moe_apply` at mixtral-8x22b's serve shape, at
+           the config's capacity factor and at 0.5, forward and backward
+           twice, bitwise equal, the dropped entries equal to a count
+           from the router logits alone; (ii) mixtral-8x22b served at 1
+           layer as `serve_dense` serves granite (K1, K7, K8; a miss, a
+           hit), with torch.profiler spans over one adaptation and its
+           decode; (iii) mixtral-8x22b (4 layers), jamba-v0.1-52b (one
+           period of 8) and deepseek-v2-236b (the lead dense layer and
+           one MoE layer): a 4,096-token prefill through
+           `make_prefill_step` (K7, and K9 in jamba; deepseek's K7 at qk
+           192 / value 128), the prefill -> decode handoff at capacity
+           factor E/K in bf16 within twice the bf16 rounding spread (a
+           4,608-token prompt past mixtral's window), and decode_32k's
+           batch of 128 through `launch/serve.decode_steps` (K8 on
+           mixtral's 4,096-slot ring and jamba's 32,768 slots; deepseek's
+           absorbed MLA decode launches no kernel).
 
 `python3 chip_smoke.py --launch-cuts fomaml:2,fomaml:16,maml:2` runs no
 phase: it builds the kernels and prints, for each cut `algo:S` (S
@@ -917,6 +943,15 @@ def check_k7(torch):
         (LAUNCH_CUT["fomaml"][0] // 2, 15, 5, 4096, 64, 64, "bfloat16",
          True, None, 0),                         # the launcher at L=4096
         (2, 16, 2, 64, 128, 128, "bfloat16", True, None, 0),  # qwen2.5 adapt
+        (2, 48, 8, 64, 128, 128, "bfloat16", True, 4096, 0),  # mixtral adapt
+        (1, 48, 8, 4608, 128, 128, "bfloat16", True, 4096, 0),  # mixtral
+        # handoff prompt, past the window
+        (1, 32, 8, 4096, 128, 128, "bfloat16", True, None, 0),  # jamba prefill
+        (1, 128, 128, 4096, 192, 128, "bfloat16", True, None, 0),  # deepseek
+        # MLA prefill: <192, 128>
+        (2, 8, 8, 130, 192, 128, "bfloat16", False, None, 0),  # <192, 128>,
+        # ragged tile, no mask
+        (2, 4, 2, 100, 192, 128, "float32", True, 20, 3),  # f32 at hd 192
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -942,8 +977,11 @@ def check_k7(torch):
         own_causal = causal and window is None and qoff == 0
         mask = (None if own_causal or not (causal or window)
                 else attention_mask(torch, L, L + qoff, causal, window, qoff))
-        library = lambda: F.scaled_dot_product_attention(
+        sdpa = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=own_causal, enable_gqa=True)
+        backend = sdpa_backend(torch, sdpa) if hd > 128 else None
+        library = (sdpa if backend is None
+                   else lambda: backend_call(torch, backend, sdpa))
         lib_ms = library_time_ms(library, torch)
         dev = device_times(torch, kernel, library if lib_ms else None)
         pairs = attention_pairs(L, L + qoff, causal, window, qoff)
@@ -955,16 +993,65 @@ def check_k7(torch):
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
                "call_ms": ms, **dev, "plain_ms": plain_ms,
                "library_ms": lib_ms,
-               "library": "F.scaled_dot_product_attention",
+               "library": "F.scaled_dot_product_attention"
+                          + (f" ({backend})" if backend else ""),
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         if summary is None:
             summary = row
+        del q, k, v, out, plain, qt, kt, vt
+        torch.cuda.empty_cache()
         if not worst <= 1.0:
             raise PhaseFailed(f"K7 disagrees with plain: {row['case']} "
                               f"err {err}, {worst} of the limit ({tol})")
     rows += check_k7_kv_length(torch, gen)
+    rows.append(check_k7_refuses(torch))
     return rows, summary
+
+
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def backend_call(torch, name, fn):
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([getattr(SDPBackend, name)]):
+        return fn()
+
+
+def sdpa_backend(torch, fn):
+    """The first SDPA backend (in `SDPA_BACKENDS`' order) that takes
+    this call, e.g. one with a value dim other than the qk dim; None if
+    none does."""
+    for name in SDPA_BACKENDS:
+        try:
+            backend_call(torch, name, fn)
+            torch.cuda.synchronize()
+            return name
+        except RuntimeError:
+            continue
+    return None
+
+
+def check_k7_refuses(torch):
+    """On CUDA tensors K7 launches or raises: a bf16 qk dim of 256 (past
+    `flash_attention_mma_kernel<192, 128>`) raises in the wrapper,
+    launches nothing and never falls back to the plain version."""
+    from repro_torch.kernels.attention import flash_attention as k7
+    from repro_torch.kernels.attention import ops as attn_ops
+    q = torch.zeros((1, 8, 2, 256), device="cuda", dtype=torch.bfloat16)
+    before = k7.launches
+    try:
+        attn_ops.flash_attention(q, q, q, impl="cuda")
+        raised = ""
+    except ValueError as e:
+        raised = str(e).splitlines()[0]
+    torch.cuda.synchronize()
+    row = {"name": "flash_attention", "case": "bf16 hd 256 refused",
+           "raised": raised, "k7_launches": k7.launches - before}
+    if not raised or row["k7_launches"]:
+        raise PhaseFailed(f"K7 at hd 256: {row}")
+    return row
 
 
 def check_k7_kv_length(torch, gen):
@@ -1066,6 +1153,9 @@ def check_k8(torch):
         (4, 4096, 5, 3, 64, "bfloat16", "zero_row"),   # a 0 row through the combine
         (4, 100, 2, 4, 64, "float32", "zero_row"),     # a 0 row, one split
         (1, 64, 2, 8, 128, "bfloat16", "int"),         # qwen2.5's decode step
+        (128, 4096, 8, 6, 128, "bfloat16", "int"),     # mixtral's ring at
+        # decode_32k
+        (128, 32768, 8, 4, 128, "bfloat16", "int"),    # jamba at decode_32k
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1084,8 +1174,16 @@ def check_k8(torch):
             if lengths == "zero_row":
                 kvl[0] = 0
             kvl_t = kvl
+        # the plain version row block by row block past 2 GB of cache, so
+        # its f32 copies of the caches stay small (rows are independent)
+        rows_a_call = max(1, B * (2 << 30) // max(nbytes(kc), 1))
+        plain_fn = lambda: torch.cat([dec_ops.decode_attention(
+            q[i:i + rows_a_call], kc[i:i + rows_a_call],
+            vc[i:i + rows_a_call],
+            kvl if isinstance(kvl, int) else kvl[i:i + rows_a_call],
+            impl="torch") for i in range(0, B, rows_a_call)])
         out = dec_ops.decode_attention(q, kc, vc, kvl, impl="cuda")
-        plain = dec_ops.decode_attention(q, kc, vc, kvl, impl="torch")
+        plain = plain_fn()
         torch.cuda.synchronize()
         live = slice(1, None) if lengths == "zero_row" else slice(None)
         err, tol, worst = closeness(out[live], plain[live], dt)
@@ -1099,8 +1197,7 @@ def check_k8(torch):
         kernel = lambda: dec_ops.decode_attention(q, kc, vc, kvl, impl="cuda")
         per_call, one_call = device_kernels_a_call(torch, kernel)
         ms = time_ms(kernel, torch)
-        plain_ms = time_ms(lambda: dec_ops.decode_attention(
-            q, kc, vc, kvl, impl="torch"), torch)
+        plain_ms = time_ms(plain_fn, torch)
         qt = q[:, :, None]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
         mask = (None if lengths == "int" else
@@ -1120,6 +1217,7 @@ def check_k8(torch):
         row = {"name": "flash_decode",
                "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} {dt} "
                        f"kv_length={lengths}",
+               "plain_rows_a_call": min(rows_a_call, B),
                "splits": k8.splits_for(kc, kvl),
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
                "device_events_a_call": per_call,
@@ -1134,6 +1232,8 @@ def check_k8(torch):
         rows.append(row)
         if summary is None:
             summary = row
+        del q, kc, vc, out, plain, kt, vt
+        torch.cuda.empty_cache()
         if not worst <= 1.0:
             raise PhaseFailed(f"K8 disagrees with plain: {row['case']} "
                               f"err {err}, {worst} of the limit ({tol})")
@@ -1881,17 +1981,28 @@ def ssd_torch_route():
     return ssd_ops.use_impl("torch")
 
 
-def handoff_gaps(torch, cfg, params, prompt, extra):
+def handoff_gaps(torch, cfg, params, prompt, extra, capacity=None):
     """Prefill `prompt`, then decode the `extra` tokens one at a time:
     max |logits − lm_apply's| over the extended prompt at each step
-    (the prefill's last position first), and that forward's logits."""
+    (the prefill's last position first), and that forward's logits.
+    The prefill is `make_prefill_step`'s (a cache of the prompt's
+    length), or `lm_apply`'s into a cache of `capacity` slots: an
+    attention cache without room for the new tokens overwrites the
+    prompt's first (the reference's serving quirk, ROADMAP Queue 3)."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import lm_apply
     toks = torch.cat([prompt, extra])[None].to("cuda")
     L = prompt.numel()
     with torch.no_grad():
         full, _ = lm_apply(params, cfg, toks)
-        logits, cache = make_prefill_step(cfg)(params, toks[:, :L])
+        if capacity is None:
+            logits, cache = make_prefill_step(cfg)(params, toks[:, :L])
+        else:
+            logits, _, cache = lm_apply(params, cfg, toks[:, :L],
+                                        collect_cache=True,
+                                        cache_capacity=capacity,
+                                        logits_mode="last")
+            logits = logits[:, 0]
         gaps = [float((logits[0] - full[0, L - 1]).abs().max())]
         decode = make_decode_step(cfg)
         for t in range(L, L + extra.numel()):
@@ -2304,18 +2415,21 @@ def second_order_checks(torch, errors):
     return out
 
 
-def serve_dense(torch, arch, errors):
-    """`build_engine` + `ServingEngine.serve` of a dense config at full
-    width (bf16, random weights, seed 0): a warm-up request, then
-    DENSE_SERVE's two requests with every kernel's count from 0; K1, K7
-    and K8 launched, one miss and one hit, finite rows, tokens in range,
-    finite prefill logits of the adapted row, adapt and decode ms, peak
-    GB."""
+def serve_dense(torch, arch, errors, *, layers=None, trace=False):
+    """`build_engine` + `ServingEngine.serve` of a config at full width
+    (bf16, random weights, seed 0; depth cut to `layers` if given): a
+    warm-up request, then DENSE_SERVE's two requests with every kernel's
+    count from 0; K1, K7 and K8 launched, one miss and one hit, finite
+    rows, tokens in range, finite prefill logits of the adapted row,
+    adapt and decode ms, peak GB. With `trace`, torch.profiler spans
+    over one more request's adaptation and over its decode."""
     from repro_torch.configs import get_config
     from repro_torch.federated.serving import TrafficModel
     from repro_torch.launch.serve import build_engine
     from repro_torch.launch.steps import make_prefill_step
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     d = DENSE_SERVE
     gc.collect()
     torch.cuda.synchronize()
@@ -2369,12 +2483,24 @@ def serve_dense(torch, arch, errors):
     if (summary["misses"], summary["hits"]) != (1, 1):
         errors.append(f"{arch} serve: {summary['misses']} misses and "
                       f"{summary['hits']} hits, not one of each")
-    res = {"arch": arch, "n_plane": engine.plane.n_padded,
+    res = {"arch": arch, "num_layers": cfg.num_layers,
+           "n_plane": engine.plane.n_padded,
            "init_s": init_s, **d, "summary": summary,
            "adapt_ms": miss["adapt_ms"], "decode_ms": miss["decode_ms"],
            "prefill_logits_finite": finite, "logits_shape": list(
                logits.shape), "peak_mem_gb": peak, "launches": launches}
-    del engine, report, miss, logits
+    del report, miss, logits
+    if trace:
+        req = TrafficModel(seed=1, **traffic).requests(1, mk, mp)
+
+        def adapt_only():
+            engine.cache.clear()
+            engine.serve(req, max_new_tokens=0)
+
+        res["trace_adapt"] = _device_profile(torch, adapt_only)
+        res["trace_decode"] = _device_profile(          # a cache hit
+            torch, lambda: engine.serve(req, max_new_tokens=d["new_tokens"]))
+    del engine
     return res, launches
 
 
@@ -2400,6 +2526,286 @@ def phase_train_launcher(torch):
             res, paths[part] = res
         emit({"phase": "train_launcher", "part": part, "ok": not errors,
               "part_wall_s": time.perf_counter() - t0, "result": res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
+# --------------------------------------------------------------- serve_moe
+
+# The MoE and MLA families at full width (every width, head count, expert
+# count, vocabulary and window the configs give), depth cut to what one
+# card holds (bf16 weights, GB): mixtral-8x22b served at 1 layer (2.91 B
+# parameters; a row of the f32 adaptation plane is 11.6 GB) and decoded
+# at 4 (10.4 B, 20.8 GB); jamba-v0.1-52b at one period of 8 layers (13.3
+# B, 26.5 GB); deepseek-v2-236b at its lead dense layer and one MoE layer
+# (5.0 B, 10.0 GB). Prefill prompts of 4,096 tokens (mixtral's handoff
+# 4,608, past its 4,096-token window), decode at decode_32k's batch of 128
+# against 32,768 slots (mixtral's ring: the window's 4,096).
+MOE_CUTS = {"mixtral-8x22b": 4, "jamba-v0.1-52b": 8, "deepseek-v2-236b": 2}
+MOE_PREFILL_L = 4096
+MOE_HANDOFF_L = {"mixtral-8x22b": 4608, "jamba-v0.1-52b": 4096,
+                 "deepseek-v2-236b": 4096}
+MOE_DECODE = dict(batch=128, seq=32768, steps=4)      # decode_32k
+# kernels each path must launch; a decode on a path without K8 (MLA's
+# absorbed decode is plain einsums) must launch no attention kernel
+MOE_LAUNCHED = {
+    "mixtral-8x22b": {"prefill": ("flash_attention",),
+                      "decode": ("flash_decode",)},
+    "jamba-v0.1-52b": {"prefill": ("flash_attention", "ssd_chunk"),
+                       "decode": ("flash_decode",)},
+    "deepseek-v2-236b": {"prefill": ("flash_attention",), "decode": ()}}
+
+
+def _reset_peak(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch) -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def routed_overflow(torch, logits, K, capacity):
+    """Entries past capacity, counted from the router logits alone,
+    without a sort: token t picks expert e iff fewer than K experts beat
+    it (a larger logit, or an equal one at a lower id, `lax.top_k`'s
+    order); Σ_e max(count_e − capacity, 0)."""
+    T, E = logits.shape
+    a, b = logits[:, :, None], logits[:, None, :]       # e, e'
+    lower = (torch.arange(E, device=logits.device)[None, :]
+             < torch.arange(E, device=logits.device)[:, None])  # e' < e
+    beaten_by = ((b > a) | ((b == a) & lower[None])).sum(-1)
+    counts = (beaten_by < K).sum(0)
+    return int((counts - capacity).clamp(min=0).sum()), counts
+
+
+def moe_determinism(torch, errors):
+    """`moe_apply` at mixtral-8x22b's serve shape (the adaptation's
+    2 x 64 support tokens, d_model 6144, 8 experts of 16,384, top-2;
+    one layer's experts, random bf16 weights) at cfg.capacity_factor and
+    at 0.5 (every expert overflows: the rank-0 clobber): forward and the
+    backward into x and every weight run twice, bitwise equal (the
+    gathers' indices hit each row once, `models/moe.py`); the dropped
+    entries equal the count taken from the router logits alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Rng
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = get_config("mixtral-8x22b")
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    params = moe.moe_init(Rng(0, "cuda"), cfg, torch.bfloat16)
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((2, 64, cfg.d_model), device="cuda", generator=gen
+                    ).bfloat16().requires_grad_(True)
+    ct = torch.randn((2, 64, cfg.d_model), device="cuda", generator=gen
+                     ).bfloat16()
+    out = []
+    for cf in (cfg.capacity_factor, 0.5):
+        with torch.no_grad():
+            xt = x.reshape(-1, cfg.d_model)
+            route = moe.moe_route(params, cfg, xt, cf)
+            cap = int(math.ceil(xt.shape[0] * K / E * cf))
+            logits = (xt @ params["w_router"]).float()
+            counted, counts = routed_overflow(torch, logits, K, cap)
+        runs = []
+        for _ in range(2):
+            y, aux = moe.moe_apply(params, cfg, x, capacity_factor=cf)
+            loss = (y.float() * ct.float()).sum() + aux
+            runs.append([y.detach()] + list(torch.autograd.grad(
+                loss, [x] + leaves)))
+            torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        row = {"capacity_factor": cf, "capacity": route["capacity"],
+               "capacity_check": cap,
+               "counts": route["counts"].tolist(),
+               "counts_from_logits": counts.tolist(),
+               "dropped": moe.dropped_entries(route),
+               "dropped_from_logits": counted,
+               "overflowing_experts": int((route["counts"] > cap).sum()),
+               "y_finite": bool(torch.isfinite(runs[0][0]).all()),
+               "forward_backward_bitwise": same}
+        out.append(row)
+        if not (same and row["y_finite"] and cap == route["capacity"]
+                and row["dropped"] == counted
+                and row["counts"] == row["counts_from_logits"]):
+            errors.append(f"moe_apply on the card: {row}")
+        del runs, y, aux, loss
+    del params, leaves, x, ct
+    return {"shape": "T=128 d=6144 E=8 ff=16384 top-2 bf16",
+            "deterministic_by": "gathers whose indices hit each real row "
+                                "once (no use_deterministic_algorithms)",
+            "runs": out}
+
+
+def lm_logits_f32_by_layer(torch, cfg, params, tokens):
+    """`lm_apply`'s logits in float32 from bf16 weights, each layer's
+    weights cast up only while it runs (a whole f32 copy of a cut MoE
+    model would not fit beside its bf16 one, nor would jamba's whole
+    period of 8 layers): the forward `lm_apply` computes for the f32
+    cast of the weights."""
+    import torch.nn.functional as F
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.lm import _reps, layer_groups
+    from repro_torch.utils.pytree import tree_map
+    up = lambda t: tree_map(lambda a: a.float(), t)
+    lead, period, n_reps = layer_groups(cfg)
+    B, L = tokens.shape
+    x = F.embedding(tokens, params["embed"]).float()
+    pos = torch.arange(L, dtype=torch.int32, device=tokens.device
+                       ).expand(B, L)
+    with torch.no_grad():
+        for i, spec in enumerate(lead):
+            x, _ = block_forward(up(params[f"lead_{i}"]), cfg, spec, x, pos)
+        for rep in _reps(params["stack"], n_reps):
+            for j, spec in enumerate(period):
+                x, _ = block_forward(up(rep[f"pos{j}"]), cfg, spec, x, pos)
+        x = rmsnorm(up(params["final_norm"]), x, cfg.norm_eps)
+        head = (params["embed"].t() if cfg.tie_embeddings
+                else params["lm_head"])
+        return x @ head.float()
+
+
+def moe_handoff(torch, cfg, params, L, errors):
+    """The prefill -> decode handoff at full width, B = 1: prefill L
+    tokens into a cache with room for 2 more (`lm_apply(collect_cache=
+    True)`; mixtral's GQA ring is its window whatever the room), decode
+    2 tokens, each step's logits against `lm_apply` over the extended
+    prompt, at capacity_factor E/K so that no entry drops on either path
+    (drops depend on the batch, `tests/test_arch_smoke.py:145-152`). In
+    bf16 held, as `serve_handoff` holds Mamba2's, within twice the
+    distance by which bf16 rounding alone moves the full forward from
+    the same forward in f32 (computed layer by layer)."""
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (L + 2,), generator=gen,
+                         dtype=torch.int32)
+    gaps, full_bf16 = handoff_gaps(torch, cfg, params, toks[:L], toks[L:],
+                                   capacity=L + 2)
+    full_f32 = lm_logits_f32_by_layer(torch, cfg, params,
+                                      toks[None].cuda())[0, L - 1:]
+    spread = float((full_bf16 - full_f32).abs().max())
+    tol = 2.0 * spread
+    if not max(gaps) <= tol:
+        errors.append(f"{cfg.name} bf16 handoff gaps {gaps} above {tol}")
+    return {"prompt_len": L, "decoded": 2, "capacity_factor":
+            cfg.capacity_factor, "gaps_bf16": gaps,
+            "bf16_rounding_spread": spread, "bf16_tol": tol,
+            "max_abs_logit": float(full_f32.abs().max())}
+
+
+def moe_model(torch, arch, errors):
+    """One cut config (`MOE_CUTS`) at full width: the prefill of
+    MOE_PREFILL_L tokens through `make_prefill_step` (launches of the
+    path's kernels, finite next-token logits), decode_32k through
+    `launch/serve.decode_steps` (the decode launcher's body) on the same
+    weights, and the handoff; each with its seconds, launches and peak
+    GB over the weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_lm
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_CUTS[arch])
+    want = MOE_LAUNCHED[arch]
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    params = init_lm(0, cfg, device="cuda")
+    res = {"arch": arch, "num_layers": cfg.num_layers,
+           "init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9,
+           "init_peak_gb": _peak_gb(torch)}
+
+    _reset_peak(torch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_PREFILL_L),
+                         device="cuda", generator=gen, dtype=torch.int32)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg)(params, toks)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    res["prefill"] = {"L": MOE_PREFILL_L, "s": time.perf_counter() - t0,
+                      "finite": bool(torch.isfinite(logits).all()),
+                      "logits_shape": list(logits.shape),
+                      "cache_gb": sum(
+                          nbytes(t) for t in tree_leaves(cache)
+                          if isinstance(t, torch.Tensor)) / 1e9,
+                      "peak_gb": _peak_gb(torch), "launches": launches}
+    del logits, cache
+    for name in want["prefill"]:
+        if launches[name] <= 0:
+            errors.append(f"{arch} prefill: {name} not launched")
+    if not res["prefill"]["finite"]:
+        errors.append(f"{arch} prefill: non-finite logits")
+
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    res["handoff"] = moe_handoff(torch, cfg, params, MOE_HANDOFF_L[arch],
+                                 errors)
+    res["handoff"].update(s=time.perf_counter() - t0, peak_gb=_peak_gb(torch))
+
+    _reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve.decode_steps(cfg, MOE_DECODE["batch"], MOE_DECODE["seq"],
+                             MOE_DECODE["steps"], params=params)
+    launches = read_launches()
+    res["decode"] = {**out, "s": time.perf_counter() - t0,
+                     "ms_per_step": [t * 1e3 for t in out["step_s"]],
+                     "peak_gb": _peak_gb(torch), "launches": launches}
+    if not out["logits_finite"] or out["logits_shape"] != (
+            MOE_DECODE["batch"], cfg.vocab_size):
+        errors.append(f"{arch} decode: {out['logits_shape']}, finite "
+                      f"{out['logits_finite']}")
+    for name in want["decode"]:
+        if launches[name] <= 0:
+            errors.append(f"{arch} decode: {name} not launched")
+    idle = {"flash_attention", "flash_decode"} - set(want["decode"])
+    for name in sorted(idle):
+        if launches[name]:
+            errors.append(f"{arch} decode: {name} launched {launches[name]}"
+                          f" times")
+    del params
+    paths = {f"{arch}_prefill": res["prefill"]["launches"],
+             f"{arch}_decode": launches}
+    return res, paths
+
+
+def phase_serve_moe(torch):
+    """The MoE and MLA families at full width, one JSON line a part."""
+    paths, failed = {}, []
+    parts = (("moe_apply", lambda e: (moe_determinism(torch, e), {})),
+             ("serve_mixtral", lambda e: serve_dense(
+                 torch, "mixtral-8x22b", e, layers=1, trace=True)),
+             ("mixtral", lambda e: moe_model(torch, "mixtral-8x22b", e)),
+             ("jamba", lambda e: moe_model(torch, "jamba-v0.1-52b", e)),
+             ("deepseek", lambda e: moe_model(torch, "deepseek-v2-236b", e)))
+    for part, fn in parts:
+        errors = []
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        res, launched = fn(errors)
+        if part == "serve_mixtral":
+            paths["serve_mixtral"] = launched
+        else:
+            paths.update(launched)
+        emit({"phase": "serve_moe", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0,
+              "peak_mem_gb": _peak_gb(torch), "result": res,
               "errors": errors})
         failed += [f"{part}: {e}" for e in errors]
         gc.collect()
@@ -4289,6 +4695,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("train_launcher")
         paths.update(phase_train_launcher(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("serve_moe")
+        paths.update(phase_serve_moe(torch))
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})

@@ -98,8 +98,11 @@ class ModelConfig:
 
 
 _ARCH_MODULES = {
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "smollm-360m": "repro_torch.configs.smollm_360m",

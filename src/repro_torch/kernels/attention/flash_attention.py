@@ -39,12 +39,23 @@ def _plain_bhld(q, k, v, causal, window, q_offset):
     return out.transpose(1, 2)
 
 
+# head dims the kernel takes: (largest qk dim, largest value dim)
+HEAD_DIMS = {torch.bfloat16: (192, 128), torch.float32: (192, 192)}
+
+
 def _launch(q, k, v, causal, window, q_offset):
     global launches
     B, H, Lq, hd = q.shape
     hd_v = v.shape[-1]
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    # refused here, before the extension: its own checks stay as a
+    # second guard
+    most = HEAD_DIMS.get(q.dtype)
+    if most is None or hd > most[0] or hd_v > most[1]:
+        raise ValueError(f"K7 takes bfloat16 with hd <= 192 and hd_v <= "
+                         f"128, or float32 with both <= 192; got "
+                         f"{q.dtype}, hd {hd}, hd_v {hd_v}")
     # (B, Lq, H, hd_v) storage, viewed as (B, H, Lq, hd_v)
     out = torch.empty((B, Lq, H, hd_v), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
@@ -76,7 +87,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_bhld(q, k, v, *, causal: bool = True, window=None,
                          q_offset: int = 0):
     """q: (B, H, Lq, hd); k: (B, Kv, Lk, hd); v: (B, Kv, Lk, hd_v), any
-    strides. Returns (B, H, Lq, hd_v) — hd_v may differ from hd."""
+    strides. Returns (B, H, Lq, hd_v) — hd_v may differ from hd (on the
+    card `HEAD_DIMS`: bf16 hd <= 192 with hd_v <= 128, f32 both <=
+    192)."""
     if not q.is_cuda:
         return _plain_bhld(q, k, v, causal, window, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -140,7 +140,9 @@ void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   TORCH_CHECK(o.size(0) == B && o.size(1) == H && o.size(2) == Lq &&
                   o.size(3) == hdv,
               "o must be (B, H, Lq, hd_v)");
-  TORCH_CHECK(hd <= 128 && hdv <= 128, "head dims up to 128");
+  TORCH_CHECK(dt == 1 ? hd <= 192 && hdv <= 128 : hd <= 192 && hdv <= 192,
+              "head dims: bfloat16 hd <= 192 with hd_v <= 128, float32 both "
+              "<= 192; got hd ", hd, ", hd_v ", hdv);
   TORCH_CHECK(B <= 65535 && H <= 65535, "B and H up to 65535");
   std::vector<long long> st;
   for (const auto* t : {&q, &k, &v, &o})

@@ -4,20 +4,26 @@
 // sliding-window masks from absolute positions (q_offset), f32 softmax
 // and the output in q's dtype. Every tensor is addressed through its own
 // (b, h, l, d) strides, so the models' (B, L, H, hd) activations are
-// read and written in place, with no transpose copies. hd, hd_v <= 128
-// (hd_v may differ from hd), any Lq and Lk, G = H / Kv.
+// read and written in place, with no transpose copies. bf16: hd, hd_v
+// <= 128, or hd <= 192 with hd_v <= 128 (DeepSeek-V2's MLA: qk 192,
+// value 128); f32: hd, hd_v <= 192. Any Lq and Lk, G = H / Kv.
 //
 // Replaces: src/repro/kernels/attention/flash_attention.py,
 //   `flash_attention_bhld` (`_flash_kernel`).
 //
-// Bound on the H100: at the paths' shapes (L = 64 or 128, hd = 64, G = 3)
-// one call moves ~1–3 MB and does ~0.1 GFLOP, a few microseconds at
-// either roofline; the kernel is bound by latency (load, then a short
-// chain of products per key tile).
+// Bound on the H100: at the serving and round shapes (L = 64 or 128, hd =
+// 64, G = 3) one call moves ~1–3 MB and does ~0.1 GFLOP, a few
+// microseconds at either roofline; the kernel is bound by latency (load,
+// then a short chain of products per key tile). At 4,096 tokens and more
+// (the launcher; mixtral, jamba and deepseek prefills) it is bound by
+// operations: 2·pairs·(hd + hd_v) FLOPs against ~1 GB moved.
 //
-// Two instantiations, chosen by dtype in `launch_flash_attention`:
+// Two kernels, chosen by dtype in `launch_flash_attention`:
 //
-// bf16 (serving, the LM round): tensor cores, FlashAttention-2 style.
+// bf16 (serving, the LM round, the prefills): tensor cores,
+//   FlashAttention-2 style, instantiated on the padded Q·K width DK and
+//   V width DV: <64, 64>, <128, 128> and <192, 128> (MLA; 112 KB of
+//   shared memory a block, so one block an SM).
 //   One block of 8 warps per (tile of 64 packed rows, kv head, batch
 //   row). The G query heads of the kv head are packed into the rows
 //   (packed row r = query r / G of head kvh·G + r % G), so K and V are
@@ -32,7 +38,8 @@
 //   chain is one half tile a step and 8 warps share an SM; the halves
 //   keep their own online softmax and merge once at the end through
 //   shared memory, and the merged rows leave through shared memory too,
-//   16 bytes a store where o's rows allow. Per warp and tile: S = Q Kᵀ by mma.sync m16n8k16 (bf16
+//   16 bytes a store where o's rows allow. Per warp and tile: S = Q Kᵀ
+//   by mma.sync m16n8k16 (bf16
 //   operands, f32 accumulators; a bf16 product is exact in f32, so only
 //   the order of the sums moves), mask, scale to log2 units (exp2, as
 //   FlashAttention does) and the online softmax in the accumulator
@@ -47,7 +54,9 @@
 //   the CUDA cores. One block of 4 warps per (16 query rows, head,
 //   batch); K and V tiles of 32 keys staged as f32, a lane scores one
 //   key, shuffles give the running max and sum, and P V runs lane per
-//   output dimension with p broadcast by shuffle.
+//   output dimension with p broadcast by shuffle. Instantiated on the
+//   output dims a lane carries: 4 (hd_v <= 128) or 6 (hd_v <= 192);
+//   above 48 KB (hd 192) its shared memory is opted into.
 //
 // Key tiles wholly outside every row's causal / window range are
 // skipped in both. The backward pass is recomputation through the plain
@@ -73,9 +82,10 @@ constexpr int kBQ = 16;                 // query rows per block
 constexpr int kBK = 32;                 // keys per tile (one per lane)
 constexpr int kWarps = 4;
 constexpr int kRows = kBQ / kWarps;     // query rows per warp
-constexpr int kMaxD = 128;              // largest hd / hd_v
-constexpr int kDPL = kMaxD / 32;        // output dims per lane
+constexpr int kMaxD = 192;              // largest hd / hd_v
 
+// kDPL: output dims per lane (hd_v <= 32·kDPL)
+template <int kDPL>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -268,9 +278,10 @@ __device__ __forceinline__ void stage_rows(bf16* dst, RowPtr row_ptr,
   }
 }
 
-// D: hd and hd_v rounded up to 64 or 128. A tile is kSlices x 32 keys; a
-// block 4 x kSlices warps.
-template <int D>
+// DK: hd rounded up to 64, 128 or 192; DV: hd_v rounded up to 64 or 128
+// (DV <= DK: the merged output rows are staged in Q's buffer). A tile is
+// kSlices x 32 keys; a block 4 x kSlices warps.
+template <int DK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -279,16 +290,18 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
                            Strides4 so, int G, int Lq, int Lk, int hd,
                            int hdv, float scale_log2, int causal, int window,
                            int q_offset, int vec_q, int vec_kv, int vec_o) {
-  constexpr int LD = D + 8;
-  constexpr int KC = D / 16;            // 16-wide k chunks of hd
+  static_assert(DV <= DK, "output rows are staged in Q's buffer");
+  constexpr int LD = DK + 8;            // row stride of Q and K tiles
+  constexpr int LDV = DV + 8;           // row stride of V tiles
+  constexpr int KC = DK / 16;           // 16-wide k chunks of hd
   constexpr int NK = kSlice * kSlices;       // keys a tile
   constexpr int NT = kSlice / 8;        // 8-key n tiles of S a warp
-  constexpr int DT = D / 8;             // 8-wide n tiles of O
+  constexpr int DT = DV / 8;            // 8-wide n tiles of O
   constexpr int XW = DT * 4 + 4;        // floats a lane hands the merge
   extern __shared__ __align__(16) unsigned char bsmem[];
   bf16* Qs = reinterpret_cast<bf16*>(bsmem);   // kMR x LD
   bf16* Ks = Qs + kMR * LD;                    // 2 x NK x LD
-  bf16* Vs = Ks + 2 * NK * LD;                 // 2 x NK x LD
+  bf16* Vs = Ks + 2 * NK * LD;                 // 2 x NK x LDV
 
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -312,21 +325,21 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 
   auto stage_kv = [&](int t, int buf) {
     const int k0 = t * NK;
-    stage_rows<D, NK>(
+    stage_rows<DK, NK>(
         Ks + buf * NK * LD,
         [&](int r) -> const bf16* {
           return k0 + r < Lk ? kb + (k0 + r) * sk.l : nullptr;
         },
         hd, sk.d, vec_kv, kb);
-    stage_rows<D, NK>(
-        Vs + buf * NK * LD,
+    stage_rows<DV, NK>(
+        Vs + buf * NK * LDV,
         [&](int r) -> const bf16* {
           return k0 + r < Lk ? vb + (k0 + r) * sv.l : nullptr;
         },
         hdv, sv.d, vec_kv, vb);
   };
 
-  stage_rows<D, kMR>(
+  stage_rows<DK, kMR>(
       Qs,
       [&](int r) -> const bf16* {
         const int rr = r0 + r;
@@ -370,7 +383,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     // this warp's 32 keys of the tile (none left of kbeg or right of
     // kend: then it skips the tile)
     const bf16* Kt = Ks + (buf * NK + kh * kSlice) * LD;
-    const bf16* Vt = Vs + (buf * NK + kh * kSlice) * LD;
+    const bf16* Vt = Vs + (buf * NK + kh * kSlice) * LDV;
     const int k0 = t * NK + kh * kSlice;
     if (k0 < kend && k0 + kSlice > kbeg) {
       // S = Q Kᵀ: 16 rows x 32 keys a warp
@@ -454,7 +467,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int dp = 0; dp < DT / 2; ++dp)
           ldsm_x4_trans(
-              vf[dp], Vt + (kc * 16 + (lane % 8) + 8 * ((lane / 8) & 1)) * LD +
+              vf[dp], Vt + (kc * 16 + (lane % 8) + 8 * ((lane / 8) & 1)) * LDV +
                           dp * 16 + 8 * (lane / 16));
         // the lo pass over every output tile, then the hi pass
 #pragma unroll
@@ -484,7 +497,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   }
   float* xch = reinterpret_cast<float*>(Ks) + rg * 32 + lane;
   static_assert((kSlices - 1) * XW * 128 * sizeof(float) <=
-                    4 * NK * LD * sizeof(bf16),
+                    2 * NK * (LD + LDV) * sizeof(bf16),
                 "the exchange fits in the K and V buffers");
   if (kh > 0) {
     float* mine = xch + (kh - 1) * XW * 128;
@@ -533,7 +546,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     }
   }
   __syncthreads();
-  constexpr int kCh = D / 8;          // 16-byte chunks a row
+  constexpr int kCh = DV / 8;         // 16-byte chunks a row
   for (int idx = threadIdx.x; idx < kMR * kCh; idx += kMmaThreads) {
     const int r = idx / kCh, c = (idx - r * kCh) * 8;
     const int rr = r0 + r;
@@ -555,18 +568,20 @@ bool rows_vec16(const void* base, const Strides4& s, int ncols) {
          s.l % 8 == 0 && reinterpret_cast<std::uintptr_t>(base) % 16 == 0;
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                        const Strides4& sq, const Strides4& sk,
                        const Strides4& sv, const Strides4& so, int B, int H,
                        int Kv, int Lq, int Lk, int hd, int hdv, float scale,
                        int causal, int window, int q_offset,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (kMR + 4 * kSlice * kSlices) * (D + 8);
+  const size_t smem =
+      sizeof(bf16) * ((kMR + 2 * kSlice * kSlices) * (DK + 8) +
+                      2 * kSlice * kSlices * (DV + 8));
   static bool configured = false;   // once per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_mma_kernel<D>,
+        flash_attention_mma_kernel<DK, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = true;
@@ -576,10 +591,37 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   const int vec_q = rows_vec16(q, sq, hd);
   const int vec_kv = rows_vec16(k, sk, hd) && rows_vec16(v, sv, hdv);
   const int vec_o = rows_vec16(o, so, hdv);
-  flash_attention_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  flash_attention_mma_kernel<DK, DV><<<grid, kMmaThreads, smem, stream>>>(
       q, k, v, o, sq, sk, sv, so, G, Lq, Lk, hd, hdv,
       scale * 1.4426950408889634f, causal, window, q_offset, vec_q, vec_kv,
       vec_o);
+  return cudaGetLastError();
+}
+
+template <int kDPL>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       const Strides4& sq, const Strides4& sk,
+                       const Strides4& sv, const Strides4& so, int B, int H,
+                       int Kv, int Lq, int Lk, int hd, int hdv, float scale,
+                       int causal, int window, int q_offset,
+                       cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (kBK * (hd + 1) + kBK * hdv + kBQ * hd);
+  static bool configured = false;   // once per instantiation, at its most
+  if (!configured) {
+    const size_t most = sizeof(float) * (kBK * (kMaxD + 1) +
+                                         kBK * 32 * kDPL + kBQ * kMaxD);
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_f32_kernel<kDPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
+  flash_attention_f32_kernel<kDPL><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so, H,
+      Kv, Lq, Lk, hd, hdv, scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -588,7 +630,8 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
 // kernel); q, k, v and o share it.
 // strides: 16 element strides, (b, h, l, d) for q, k, v, o in turn.
-// window <= 0 means no sliding window. hd, hd_v <= 128.
+// window <= 0 means no sliding window. bf16: hd, hd_v <= 128, or hd <= 192
+// with hd_v <= 128; f32: hd, hd_v <= 192 (the binding checks).
 cudaError_t launch_flash_attention(int dtype, const void* q, const void* k,
                                    const void* v, void* o,
                                    const long long* st, int B, int H,
@@ -606,17 +649,23 @@ cudaError_t launch_flash_attention(int dtype, const void* q, const void* k,
     const auto* vb = static_cast<const bf16*>(v);
     auto* ob = static_cast<bf16*>(o);
     if (hd <= 64 && hdv <= 64)
-      return launch_mma<64>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv, Lq, Lk,
-                            hd, hdv, scale, causal, window, q_offset, stream);
-    return launch_mma<128>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv, Lq, Lk,
-                           hd, hdv, scale, causal, window, q_offset, stream);
+      return launch_mma<64, 64>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv, Lq,
+                                Lk, hd, hdv, scale, causal, window, q_offset,
+                                stream);
+    if (hd <= 128 && hdv <= 128)
+      return launch_mma<128, 128>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv,
+                                  Lq, Lk, hd, hdv, scale, causal, window,
+                                  q_offset, stream);
+    if (hd <= 192 && hdv <= 128)
+      return launch_mma<192, 128>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv,
+                                  Lq, Lk, hd, hdv, scale, causal, window,
+                                  q_offset, stream);
+    return cudaErrorInvalidValue;
   }
-  const dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  const size_t smem =
-      sizeof(float) * (kBK * (hd + 1) + kBK * hdv + kBQ * hd);
-  flash_attention_f32_kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so, H,
-      Kv, Lq, Lk, hd, hdv, scale, causal, window, q_offset);
-  return cudaGetLastError();
+  if (hd > kMaxD || hdv > kMaxD) return cudaErrorInvalidValue;
+  return hdv <= 128
+             ? launch_f32<4>(q, k, v, o, sq, sk, sv, so, B, H, Kv, Lq, Lk, hd,
+                             hdv, scale, causal, window, q_offset, stream)
+             : launch_f32<6>(q, k, v, o, sq, sk, sv, so, B, H, Kv, Lq, Lk, hd,
+                             hdv, scale, causal, window, q_offset, stream);
 }

@@ -6,6 +6,8 @@ Counterpart of `repro/launch/serve.py`.
       --steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --reduced --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --reduced --steps 4 --device cpu
 
 The CLI runs on one device with no mesh. The decode cache of an
 attention model is a KV ring of the shape's whole sequence: at
@@ -13,8 +15,13 @@ decode_32k (batch 128, 32,768 tokens) SmolLM-360M's is about 171 GB, more
 than one card holds, so it runs only with `--reduced`. Mamba2-370M's
 decode cache is a fixed-size state per layer (a conv window of
 conv_width - 1 inputs and the (nh, hp, N) SSM state), about 6.5 GB at
-decode_32k, so it runs at full width on one card. Multi-device serving
-joins with the sharding slice.
+decode_32k, so it runs at full width on one card. mixtral-8x22b's ring
+is its 4,096-token window (1.1 GB a layer at decode_32k), jamba's one
+attention layer in 8 holds the whole sequence (17.2 GB) and deepseek's
+MLA holds the 576-wide latents (4.8 GB a layer), but their weights
+(141 / 52 / 236 B parameters) need many cards at full depth: one card
+runs them at a cut depth, in process through `decode_steps`.
+Multi-device serving joins with the sharding slice.
 """
 from __future__ import annotations
 
@@ -86,15 +93,24 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced_config(cfg)
         batch, seq = 2, 128
+    return decode_steps(cfg, batch, seq, args.steps, device=args.device)
 
+
+def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
+                 params=None):
+    """`steps` greedy decode steps of `batch` sequences against a cache
+    of `seq` slots that already holds 64 tokens: the CLI's body. The
+    weights are `params`, or a fresh init from seed 0. Returns the run's
+    record."""
     decode = make_decode_step(cfg)
-    params = init_lm(0, cfg, device=args.device)
-    cache = init_decode_cache(cfg, batch, seq, device=args.device)
+    if params is None:
+        params = init_lm(0, cfg, device=device)
+    cache = init_decode_cache(cfg, batch, seq, device=device)
     cache["length"] = min(64, seq)
-    tok = torch.zeros((batch, 1), dtype=torch.int32, device=args.device)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
     step_s, finite = [], True
     with torch.no_grad():
-        for it in range(args.steps):
+        for it in range(steps):
             t0 = time.perf_counter()
             logits, cache = decode(params, cache, tok)
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
@@ -104,9 +120,9 @@ def main(argv=None):
             finite = finite and bool(torch.isfinite(logits).all())
             print(f"decode step {it}: {step_s[-1]:.4f}s  "
                   f"logits {tuple(logits.shape)}", flush=True)
-    return {"arch": cfg.name, "batch": batch, "seq_len": seq,
-            "logits_shape": tuple(logits.shape), "logits_finite": finite,
-            "step_s": step_s}
+    return {"arch": cfg.name, "num_layers": cfg.num_layers, "batch": batch,
+            "seq_len": seq, "logits_shape": tuple(logits.shape),
+            "logits_finite": finite, "step_s": step_s}
 
 
 if __name__ == "__main__":

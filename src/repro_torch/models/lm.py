@@ -1,21 +1,23 @@
 """Causal LM assembly: embeddings -> layer stack -> final norm -> logits.
-Counterpart of `repro/models/lm.py` for decoder-only archs whose blocks
-are dense attention (SmolLM-360M, granite-3-2b, qwen2.5-3b,
-nemotron-4-340b) or Mamba2 (Mamba2-370M).
+Counterpart of `repro/models/lm.py` for the decoder-only archs: dense
+GQA (SmolLM-360M, granite-3-2b, qwen2.5-3b, nemotron-4-340b), MoE with
+sliding-window GQA (mixtral-8x22b), Mamba2 (Mamba2-370M), the hybrid
+Mamba / attention / MoE period (jamba-v0.1-52b) and MLA with a lead
+dense layer and shared experts (deepseek-v2-236b).
 
 The parameter tree is the reference's: the repeating layer period is
 stored stacked, ``stack/pos{j}`` leaves with a leading ``n_reps`` axis,
 so a JAX φ loads with no remapping. The reference's ``lax.scan`` over
-repetitions is a Python loop here. Modality prefixes and the encoder
-raise until their slices land.
+repetitions is a Python loop here. The modality prefix (qwen2-vl) and
+the encoder (seamless-m4t) raise until their slices land.
 
 Entry points:
   init_lm            parameter init
   lm_apply           training / prefill forward (optionally emits cache)
   init_decode_cache  decode cache
   lm_decode_step     one-token decode against the cache (in place: the
-                     KV ring, or each Mamba2 layer's conv window and
-                     SSM state)
+                     KV or MLA latent ring, or each Mamba2 layer's
+                     conv window and SSM state)
 """
 from __future__ import annotations
 
@@ -187,10 +189,12 @@ def init_decode_cache(cfg, batch: int, capacity: int, dtype=None, *,
                                                dtype, device)
     stack = {}
     for j, spec in enumerate(period):
-        one = block_init_cache(cfg, spec, batch, capacity, dtype, device)
+        # one repetition's layout on the meta device (shapes, no memory:
+        # jamba's attention ring is 17.2 GB at decode_32k)
+        one = block_init_cache(cfg, spec, batch, capacity, dtype, "meta")
         stack[f"pos{j}"] = tree_map(
             lambda x: torch.zeros((n_reps,) + tuple(x.shape), dtype=x.dtype,
-                                  device=x.device), one)
+                                  device=device), one)
     caches["stack"] = stack
     caches["length"] = capacity if full else 0
     return caches

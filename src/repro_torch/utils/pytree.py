@@ -29,7 +29,12 @@ def tree_flatten(tree):
         leaves.append(t)
         return ("leaf",)
 
-    return leaves, walk(tree)
+    treedef = walk(tree)
+    # `walk` refers to itself through its closure cell, a cycle that
+    # would keep `leaves` (and every leaf) alive until the garbage
+    # collector runs; emptying the cell frees them with their last user
+    del walk
+    return leaves, treedef
 
 
 def tree_unflatten(treedef, leaves):
@@ -46,7 +51,9 @@ def tree_unflatten(treedef, leaves):
         out = [build(c) for c in d[2]]
         return out if kind == "list" else tuple(out)
 
-    return build(treedef)
+    tree = build(treedef)
+    del build            # the same cycle, through `it` (tree_flatten)
+    return tree
 
 
 def tree_leaves(tree) -> list:

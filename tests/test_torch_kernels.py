@@ -280,6 +280,37 @@ def test_flash_attention_kv_length_never_reaches_the_kernel(monkeypatch):
         attn_ops.flash_attention(_t(q), _t(k), _t(v), impl="cuda")
 
 
+@pytest.mark.parametrize("dtype,hd,hd_v,takes", [
+    (torch.bfloat16, 192, 128, True), (torch.bfloat16, 256, 128, False),
+    (torch.bfloat16, 192, 192, False), (torch.float32, 192, 192, True),
+    (torch.float16, 64, 64, False)])
+def test_flash_attention_launch_checks_head_dims_first(monkeypatch, dtype,
+                                                       hd, hd_v, takes):
+    """K7's launcher refuses what the kernel does not take with a
+    ValueError before it reaches the extension (a check failing inside
+    the extension took the whole process down on the card), and hands
+    DeepSeek's MLA shape (qk 192, value 128, bf16) to the kernel."""
+    from repro_torch.kernels.attention import flash_attention as k7
+    calls = []
+
+    class Ext:
+        def flash_attention(self, q, k, v, out, *args):
+            calls.append((tuple(q.shape), tuple(v.shape), args))
+
+    monkeypatch.setattr(k7, "get_ext", Ext)
+    q = torch.zeros((1, 2, 8, hd), dtype=dtype)
+    v = torch.zeros((1, 2, 8, hd_v), dtype=dtype)
+    before = k7.launches
+    if takes:
+        k7._launch(q, q, v, True, None, 0)
+        assert calls and calls[0][2][-1] == pytest.approx(hd ** -0.5)
+        assert k7.launches == before + 1
+    else:
+        with pytest.raises(ValueError, match="K7 takes"):
+            k7._launch(q, q, v, True, None, 0)
+        assert not calls and k7.launches == before
+
+
 def _flash_bf16_emulated(q, k, v, terms, block_k=64):
     """K7's bf16 route on the CPU: scores from bf16 operands summed in
     f32, masked and scaled, the online softmax over tiles of 64 keys in
@@ -326,6 +357,24 @@ def test_flash_bf16_p_rounding_against_the_card_limit(terms, fits):
     q, k, v = (torch.from_numpy(a).bfloat16()
                for a in _qkv(rng, 2, 128, 128, 6, 2, 64, 64))
     plain = attn_ops.flash_attention(q, k, v, causal=True, impl="torch")
+    got = _flash_bf16_emulated(q, k, v, terms)
+    limit = 2.0 ** -7 * plain.float().abs() + 1e-4
+    worst = float(((got.float() - plain.float()).abs() / limit).max())
+    assert (worst <= 1.0) == fits, worst
+
+
+@pytest.mark.parametrize("terms,fits", [(2, True), (1, False)])
+def test_flash_bf16_p_rounding_at_mla_head_dims(terms, fits):
+    """The same emulation at DeepSeek-V2's MLA shape, qk dim 192 (128
+    nope + 64 rope, scale 1/√192) and value dim 128, which K7 runs as
+    `flash_attention_mma_kernel<192, 128>`: P as hi + lo bf16 terms
+    stays within the card's limit, one bf16 term exceeds it (about 12x
+    here)."""
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(rng, 1, 128, 128, 4, 4, 192, 128))
+    plain = attn_ops.flash_attention(q, k, v, causal=True, impl="torch")
+    assert plain.shape == (1, 128, 4, 128)
     got = _flash_bf16_emulated(q, k, v, terms)
     limit = 2.0 ** -7 * plain.float().abs() + 1e-4
     worst = float(((got.float() - plain.float()).abs() / limit).max())
