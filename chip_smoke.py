@@ -27,12 +27,17 @@ Phases, each printing one JSON line:
            sliding window over 4,608 tokens, jamba's 4,096, deepseek's
            MLA at qk dim 192 and value dim 128, timed against the SDPA
            backend that takes that (named in the row) — in f32 at hd
-           192, refusing hd 256 with no launch, and ragged kv_length on
-           the card: the oracle,
+           192, refusing hd 256 with no launch, at qwen2-vl's prefill
+           (28 heads over 4 kv heads, 4,096 tokens), at seamless-m4t's
+           bidirectional encoder (1,024 frames), decoder self-attention,
+           cross-attention (4,096 text queries over 1,024 frames) and
+           decode-step cross-attention (128 rows of one query), and
+           ragged kv_length on the card: the oracle,
            bitwise equal to impl="torch", no K7 launch; K8 also on
-           mixtral's and jamba's decode_32k caches (128 rows of 4,096 and
-           32,768 slots, hd 128; the plain version row block by row
-           block), on a
+           mixtral's, jamba's, qwen2-vl's (G = 7) and seamless's (G = 1,
+           hd 64) decode_32k caches (128 rows of 4,096 or 32,768 slots;
+           the plain version row block by row block), G = 7 through
+           the split combine, on a
            32K-slot cache split across blocks, ragged 4K-slot caches,
            rows with kv_length 0 against the mean of V, and a Python-int
            kv_length that launches K8 alone), K9 and its plain version
@@ -49,6 +54,11 @@ Phases, each printing one JSON line:
            under torch.profiler with the L2 evicted before each call
            (median of 4 blocks of 50 calls, kernel and yardstick in
            turns).
+  refusals each kernel wrapper refuses, on CUDA tensors, a call its
+           binding would refuse (a ValueError, no launch, no plain
+           fall-back); each binding's own refused call, straight on the
+           extension in a child process, prints its exit code and
+           message; the C++ runtime the extension resolves.
   serve    drives the port's serving path at full SmolLM-360M width —
            `build_engine` + `ServingEngine.serve` over 16 seeded
            requests (adapt -> prefill -> decode) — with every kernel's
@@ -210,6 +220,25 @@ Phases, each printing one JSON line:
            batch of 128 through `launch/serve.decode_steps` (K8 on
            mixtral's 4,096-slot ring and jamba's 32,768 slots; deepseek's
            absorbed MLA decode launches no kernel).
+  serve_multimodal  the encoder-decoder and vision-prefix families at
+           full width (`MM_ARCHS`), one JSON line a part with its seconds
+           and peak GB: (i) seamless-m4t-medium at full depth: a
+           4,096-token prefill over 1,024 frames through
+           `make_prefill_step` (K7 36 times: 12 bidirectional encoder,
+           12 causal and 12 cross-attention decoder layers), the
+           prefill -> decode handoff of 4 tokens against the full
+           forward in f32 (within 2e-3 + 2e-3·max|logits|) and bf16
+           (within twice the bf16 spread); (ii) its launcher, 2 FOMAML
+           steps of `launch/train.train` at train_4k's 4,096 tokens over
+           1,024 frames, one client, the first of `MM_LAUNCH_SEQS`
+           sequences that fits (K1 and K7 launched), one step traced;
+           (iii) decode_32k through `launch/serve.decode_steps` at 3 of
+           12 decoder layers (K7 at Lq = 1 and K8 once a layer a step),
+           one step traced; (iv) qwen2-vl-7b at full depth: 1,024 patch
+           embeddings + 3,072 text tokens prefilled (K7 28 times), the
+           handoff of 4 tokens on the kernel route against the plain
+           route (K7, K8 plain) within twice the bf16 spread; (v)
+           decode_32k at 4 of 28 layers (K8 at G = 7).
 
 `python3 chip_smoke.py --launch-cuts fomaml:2,fomaml:16,maml:2` runs no
 phase: it builds the kernels and prints, for each cut `algo:S` (S
@@ -337,7 +366,8 @@ def per_call_us(prof) -> list:
     return [us for k, us in calls if k == n]
 
 
-def device_ms(fn, torch, calls: int = 50, tries: int = 3) -> float:
+def device_ms(fn, torch, calls: int = 50, tries: int = 3,
+              names=None) -> float:
     """Device time of one call of fn, from HBM: under torch.profiler
     recording the device only (as `_traced` does), the summed durations
     of the device activity (kernels, copies, fills) that a call launches,
@@ -346,7 +376,8 @@ def device_ms(fn, torch, calls: int = 50, tries: int = 3) -> float:
     every call reads its operands from HBM, as `bound_ms` assumes; that
     kernel is left out by name and marks where a call starts
     (`per_call_us`). A block in which the profiler kept fewer than half
-    the calls whole is traced again, up to `tries` times."""
+    the calls whole is traced again, up to `tries` times. `names`, a set
+    if given, gets the names of the device activity traced."""
     from torch.profiler import ProfilerActivity, profile
     flush = l2_flush_buffer(torch)
     kept = []
@@ -359,6 +390,10 @@ def device_ms(fn, torch, calls: int = 50, tries: int = 3) -> float:
             torch.cuda.synchronize()
         kept = per_call_us(prof)
         if len(kept) >= calls // 2:
+            if names is not None:
+                names.update(evt.name[:80] for evt in prof.events()
+                             if str(evt.device_type).endswith("CUDA")
+                             and L2_FLUSH_KERNEL not in evt.name)
             return statistics.median(kept) / 1e3
     raise PhaseFailed(f"device_ms: {len(kept)} of {calls} calls traced "
                       f"whole in {tries} tries")
@@ -369,15 +404,22 @@ def device_times(torch, kernel, library=None, blocks: int = 4,
     """`device_ms` of the kernel and of its yardstick library call, each
     the median of `blocks` blocks of `calls` calls, timed in turns in
     this process on this card: kernel, library, library, kernel, ...
-    Without a yardstick, `library_device_ms` is None."""
+    Without a yardstick, `library_device_ms` is None. `library_kernels`
+    names what the yardstick ran on the device (for SDPA, its
+    backend)."""
     runs = {"device_ms": [], "library_device_ms": []}
+    lib_names = set()
     for i in range(blocks):
         turn = [("device_ms", kernel), ("library_device_ms", library)]
         for key, fn in (turn if i % 2 == 0 else turn[::-1]):
             if fn is not None:
-                runs[key].append(device_ms(fn, torch, calls))
-    return {key: statistics.median(v) if v else None
-            for key, v in runs.items()}
+                runs[key].append(device_ms(
+                    fn, torch, calls,
+                    names=lib_names if key == "library_device_ms" else None))
+    out = {key: statistics.median(v) if v else None
+           for key, v in runs.items()}
+    out["library_kernels"] = sorted(lib_names)
+    return out
 
 
 def library_time_ms(fn, torch):
@@ -952,15 +994,28 @@ def check_k7(torch):
         (2, 8, 8, 130, 192, 128, "bfloat16", False, None, 0),  # <192, 128>,
         # ragged tile, no mask
         (2, 4, 2, 100, 192, 128, "float32", True, 20, 3),  # f32 at hd 192
+        (1, 28, 4, 4096, 128, 128, "bfloat16", True, None, 0),  # qwen2-vl
+        # prefill: G = 7, 1,024 patches + 3,072 text tokens
+        (1, 16, 16, 1024, 64, 64, "bfloat16", False, None, 0),  # seamless
+        # encoder over 1,024 frames, bidirectional
+        (1, 16, 16, 4096, 64, 64, "bfloat16", True, None, 0),  # seamless
+        # decoder self-attention
+        (1, 16, 16, 4096, 64, 64, "bfloat16", False, None, 0, 1024),  # its
+        # cross-attention: 4,096 text tokens over 1,024 frames
+        (128, 16, 16, 1, 64, 64, "bfloat16", False, None, 0, 1024),  # the
+        # decode step's cross-attention at decode_32k's batch: Lq = 1
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for (B, H, Kv, L, hd, hdv, dt, causal, window, qoff) in cases:
+    for case in cases:
+        B, H, Kv, L, hd, hdv, dt, causal, window, qoff = case[:10]
+        # keys: L + q_offset, or a length of their own (cross-attention)
+        Lk = case[10] if len(case) > 10 else L + qoff
         dtype = getattr(torch, dt)
         q = torch.randn((B, L, H, hd), device="cuda", generator=gen).to(dtype)
-        k = torch.randn((B, L + qoff, Kv, hd), device="cuda",
+        k = torch.randn((B, Lk, Kv, hd), device="cuda",
                         generator=gen).to(dtype)
-        v = torch.randn((B, L + qoff, Kv, hdv), device="cuda",
+        v = torch.randn((B, Lk, Kv, hdv), device="cuda",
                         generator=gen).to(dtype)
         kw = dict(causal=causal, window=window, q_offset=qoff)
         out = attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
@@ -976,7 +1031,7 @@ def check_k7(torch):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         own_causal = causal and window is None and qoff == 0
         mask = (None if own_causal or not (causal or window)
-                else attention_mask(torch, L, L + qoff, causal, window, qoff))
+                else attention_mask(torch, L, Lk, causal, window, qoff))
         sdpa = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=own_causal, enable_gqa=True)
         backend = sdpa_backend(torch, sdpa) if hd > 128 else None
@@ -984,12 +1039,14 @@ def check_k7(torch):
                    else lambda: backend_call(torch, backend, sdpa))
         lib_ms = library_time_ms(library, torch)
         dev = device_times(torch, kernel, library if lib_ms else None)
-        pairs = attention_pairs(L, L + qoff, causal, window, qoff)
+        pairs = attention_pairs(L, Lk, causal, window, qoff)
         flops = 2.0 * B * H * pairs * (hd + hdv)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out), flops, dt)
+        lk = "" if Lk == L + qoff else f" Lk={Lk}"
         row = {"name": "flash_attention",
-               "case": f"B={B} H={H} Kv={Kv} L={L} hd={hd} hd_v={hdv} {dt} "
-                       f"causal={causal} window={window} q_offset={qoff}",
+               "case": f"B={B} H={H} Kv={Kv} L={L}{lk} hd={hd} hd_v={hdv} "
+                       f"{dt} causal={causal} window={window} "
+                       f"q_offset={qoff}",
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
                "call_ms": ms, **dev, "plain_ms": plain_ms,
                "library_ms": lib_ms,
@@ -1156,6 +1213,12 @@ def check_k8(torch):
         (128, 4096, 8, 6, 128, "bfloat16", "int"),     # mixtral's ring at
         # decode_32k
         (128, 32768, 8, 4, 128, "bfloat16", "int"),    # jamba at decode_32k
+        (128, 32768, 4, 7, 128, "bfloat16", "int"),    # qwen2-vl at
+        # decode_32k: G = 7 on the kG = 8 kernel, one dead row
+        (4, 4096, 4, 7, 128, "bfloat16", "ragged"),    # G = 7 through the
+        # combine (16 splits)
+        (128, 32768, 16, 1, 64, "bfloat16", "int"),    # seamless at
+        # decode_32k: G = 1, hd 64 (mma.sync)
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1415,6 +1478,135 @@ def check_k9(torch):
         if bad or not finite or not row.get("chunked_oracle_nan", True):
             raise PhaseFailed(f"K9 check failed ({bad}): {row}")
     return rows, summary
+
+
+# one call a binding of `kernels/csrc/bindings.cpp` refuses, made straight
+# on the extension (past the wrappers' checks) with CUDA tensors, as
+# Python source for a child process that has `torch` and `ext`
+DIRECT_REFUSALS = {
+    "inner_update": "t = torch.zeros((2, 8), dtype=torch.bfloat16, "
+                    "device='cuda'); ext.inner_update(t, t, "
+                    "torch.empty(0), 0.1, t)",
+    "flash_attention": "q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, "
+                       "device='cuda'); k = q.float(); "
+                       "ext.flash_attention(q, k, k, q, False, 0, 0, 0.125)",
+    "flash_decode": "q = torch.zeros((1, 16, 64), dtype=torch.bfloat16, "
+                    "device='cuda'); c = torch.zeros((1, 8, 1, 64), "
+                    "dtype=torch.bfloat16, device='cuda'); "
+                    "ext.flash_decode(q, c, c, None, 8, q, "
+                    "torch.empty(0, device='cuda'), 1, 0.125)",
+    "weighted_aggregate": "g = torch.zeros((2, 8), dtype=torch.float64, "
+                          "device='cuda'); ext.weighted_aggregate(g, "
+                          "torch.ones(2, device='cuda'), "
+                          "torch.empty(8, device='cuda'))",
+    "adam_flat": "p = torch.zeros(8, dtype=torch.bfloat16, device='cuda'); "
+                 "f = torch.zeros(8, device='cuda'); ext.adam_flat(p, f, f, "
+                 "f, torch.ones(2, device='cuda'), 1e-3, 0.9, 0.1, 0.999, "
+                 "0.001, 1e-8, 0.0)",
+    "int8_encode": "g = torch.zeros((2, 8), dtype=torch.bfloat16, "
+                   "device='cuda'); ext.int8_encode(g, torch.ones(2, "
+                   "device='cuda'), torch.empty((2, 8), dtype=torch.int8, "
+                   "device='cuda'), g)",
+    "trimmed_mean": "g = torch.zeros((2, 8), device='cuda'); "
+                    "ext.trimmed_mean(g, torch.ones(2, device='cuda'), "
+                    "torch.empty(8, device='cuda'), 1)",
+    "ssd_chunk": "x = torch.zeros((1, 1, 8, 4), dtype=torch.float64, "
+                 "device='cuda'); ext.ssd_chunk(x, x[..., 0], x[:, 0], "
+                 "x[:, 0], x, x, x, 8)",
+}
+
+
+def direct_refusal(binding, timeout=300):
+    """One refused call straight into `binding` in a child process: its
+    exit code (negative: the signal that ended it) and what it wrote."""
+    code = ("import torch\nfrom repro_torch.kernels import _build\n"
+            "ext = _build.get_ext()\n"
+            "try:\n"
+            f"    {DIRECT_REFUSALS[binding]}\n"
+            "    torch.cuda.synchronize()\n"
+            "    print('NOT REFUSED')\n"
+            "except RuntimeError as e:\n"
+            "    print('RAISED', type(e).__name__, "
+            "str(e).splitlines()[0])\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=timeout, cwd=HERE,
+                          env=dict(os.environ, PYTHONPATH=SRC))
+    out = (proc.stdout + proc.stderr).strip().splitlines()
+    return {"binding": binding, "exit_code": proc.returncode,
+            "raised": bool(out) and out[-1].startswith("RAISED"),
+            "tail": out[-2:]}
+
+
+def check_refusals(torch):
+    """Every wrapper refuses, in process and on CUDA tensors, a call its
+    binding would refuse: a ValueError before the extension, no launch
+    and no fall-back to the plain version. Then each binding's own
+    refused call, straight on the extension in a child process (8 at
+    once): its exit code and message, and the C++ runtime the extension
+    resolves (`_build.LINK_FLAGS`)."""
+    import concurrent.futures as cf
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import flash_attention as k7
+    from repro_torch.kernels.decode_attention import flash_decode as k8
+    from repro_torch.kernels.meta_update import aggregate, compress, fused
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.optim import fused_adam
+    z = lambda *shape, dtype=torch.float32: torch.zeros(
+        shape, dtype=dtype, device="cuda")
+    bf = torch.bfloat16
+    refused = {   # wrapper: a call its binding refuses
+        "inner_update_plane": lambda: fused.inner_update_plane(
+            z(2, 6), 0.1, z(2, 6)),                          # N % 4
+        "meta_update_flat": lambda: fused.meta_update_flat(
+            z(6), z(6), z(6)),                               # N % 4
+        "weighted_aggregate": lambda: aggregate.weighted_aggregate_flat(
+            z(2, 8, dtype=torch.float64), z(2)),             # dtype
+        "adam_flat": lambda: fused_adam.adam_flat_pallas(
+            z(8), z(8), z(8), z(8, dtype=bf), z(2), lr=1e-3, b1=0.9,
+            b2=0.999, eps=1e-8, wd=0.0),                     # m, v dtypes
+        "int8_encode": lambda: compress.int8_encode_flat(z(2, 6)),  # N % 4
+        "trimmed_mean": lambda: aggregate.trimmed_mean_flat(
+            z(2, 8), z(2) + 1, trim=1),                      # 2 trim >= m
+        "flash_attention": lambda: k7.flash_attention_bhld(
+            z(1, 2, 8, 64, dtype=bf), z(1, 2, 8, 64),
+            z(1, 2, 8, 64)),                                 # mixed dtypes
+        "flash_decode": lambda: k8.flash_decode(
+            z(1, 16, 64, dtype=bf), z(1, 8, 1, 64, dtype=bf),
+            z(1, 8, 1, 64, dtype=bf), 8),                    # G = 16 > 8
+        "ssd_chunk": lambda: ssd_scan.ssd_intra_chunk(
+            z(1, 1, 6, 4), z(1, 1, 6), z(1, 6, 4), z(1, 6, 4),
+            chunk=4),                                        # L % chunk
+    }
+    in_process, ok = [], True
+    for name, call in refused.items():
+        reset_launches()
+        try:
+            call()
+            raised = ""
+        except ValueError as e:
+            raised = str(e).splitlines()[0]
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in read_launches().items() if v}
+        in_process.append({"wrapper": name, "raised": raised,
+                           "launches": launched})
+        ok = ok and bool(raised) and not launched
+    with cf.ThreadPoolExecutor(len(DIRECT_REFUSALS)) as pool:
+        direct = list(pool.map(direct_refusal, DIRECT_REFUSALS))
+    ext = _build.get_ext().__file__
+    ldd = subprocess.run(["ldd", ext], capture_output=True, text=True,
+                         timeout=60).stdout
+    runtime = [ln.strip() for ln in ldd.splitlines()
+               if "libstdc++" in ln or "libgcc_s" in ln]
+    all_raised = all(d["raised"] and d["exit_code"] == 0 for d in direct)
+    emit({"phase": "refusals", "ok": ok and all_raised,
+          "in_process": in_process, "direct": direct,
+          "link_flags": _build.LINK_FLAGS, "extension_runtime": runtime})
+    if not ok:
+        raise PhaseFailed(f"a wrapper launched or did not refuse: "
+                          f"{in_process}")
+    if not all_raised:
+        raise PhaseFailed(f"a refused call into the extension did not "
+                          f"raise: {direct}")
 
 
 def phase_kernels(torch, cfg):
@@ -1981,34 +2173,42 @@ def ssd_torch_route():
     return ssd_ops.use_impl("torch")
 
 
-def handoff_gaps(torch, cfg, params, prompt, extra, capacity=None):
+def handoff_gaps(torch, cfg, params, prompt, extra, capacity=None,
+                 embeds=None):
     """Prefill `prompt`, then decode the `extra` tokens one at a time:
     max |logits − lm_apply's| over the extended prompt at each step
     (the prefill's last position first), and that forward's logits.
     The prefill is `make_prefill_step`'s (a cache of the prompt's
     length), or `lm_apply`'s into a cache of `capacity` slots: an
     attention cache without room for the new tokens overwrites the
-    prompt's first (the reference's serving quirk, ROADMAP Queue 3)."""
+    prompt's first (the reference's serving quirk, ROADMAP Queue 3).
+    `embeds` (1, n_mod, d_model) go with the prompt as the modality
+    embeddings: a vision config's logits then cover [prefix | text], and
+    positions are read past the prefix."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import lm_apply
     toks = torch.cat([prompt, extra])[None].to("cuda")
     L = prompt.numel()
     with torch.no_grad():
-        full, _ = lm_apply(params, cfg, toks)
+        full, _ = lm_apply(params, cfg, toks, modality_embeds=embeds)
+        off = full.shape[1] - toks.shape[1]
         if capacity is None:
-            logits, cache = make_prefill_step(cfg)(params, toks[:, :L])
+            batch = (toks[:, :L] if embeds is None
+                     else {"tokens": toks[:, :L], "embeds": embeds})
+            logits, cache = make_prefill_step(cfg)(params, batch)
         else:
             logits, _, cache = lm_apply(params, cfg, toks[:, :L],
+                                        modality_embeds=embeds,
                                         collect_cache=True,
                                         cache_capacity=capacity,
                                         logits_mode="last")
             logits = logits[:, 0]
-        gaps = [float((logits[0] - full[0, L - 1]).abs().max())]
+        gaps = [float((logits[0] - full[0, off + L - 1]).abs().max())]
         decode = make_decode_step(cfg)
         for t in range(L, L + extra.numel()):
             logits, cache = decode(params, cache, toks[:, t:t + 1])
-            gaps.append(float((logits[0] - full[0, t]).abs().max()))
-    return gaps, full[0, L - 1:]
+            gaps.append(float((logits[0] - full[0, off + t]).abs().max()))
+    return gaps, full[0, off + L - 1:]
 
 
 def serve_handoff(torch, cfg, engine, row, prompt, errors):
@@ -2130,12 +2330,13 @@ DENSE_SERVE = dict(requests=2, sup_len=64, prompt_len=64, new_tokens=8,
 
 @contextlib.contextmanager
 def all_plain():
-    """Attention (K7), the SSD (K9) and the tree meta-update (K1) on
-    their plain versions."""
+    """Attention (K7), decode attention (K8), the SSD (K9) and the tree
+    meta-update (K1) on their plain versions."""
     from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.meta_update import ops as mu_ops
-    with attn_ops.use_impl("torch"), ssd_torch_route(), \
-            mu_ops.use_impl("torch"):
+    with attn_ops.use_impl("torch"), dec_ops.use_impl("torch"), \
+            ssd_torch_route(), mu_ops.use_impl("torch"):
         yield
 
 
@@ -2233,13 +2434,14 @@ def launch_cuts(torch, cuts):
         emit(row)
 
 
-def launch_traced_step(torch, cfg, phi):
+def launch_traced_step(torch, cfg, phi, cut=None):
     """One FOMAML step of the launcher's `make_train_step` at the FOMAML
-    cut under torch.profiler (device activity by kernel group)."""
+    cut (or `cut`) under torch.profiler (device activity by kernel
+    group)."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch import train as tl
     from repro_torch.launch.steps import make_train_step
-    S, C = LAUNCH_CUT["fomaml"]
+    S, C = cut or LAUNCH_CUT["fomaml"]
     shape = tl.cut_shape(INPUT_SHAPES["train_4k"], seqs_per_client=S,
                          clients=C)
     step, init_state, _, _ = make_train_step(cfg, algo_name="fomaml",
@@ -2359,9 +2561,12 @@ def second_order_checks(torch, errors):
     1e-5 of the largest entry: at the `lm` scenario's f32 shape through
     K7 (4 clients × 4 + 4 sequences of 16 tokens, the scenario's reduced
     SmolLM), and on Mamba2's reduced config in f32 through K9 (32
-    tokens, two chunks). Both kernels must launch under the kernel
-    route. A backward that returned constants would drop the Hessian
-    terms, several % of the largest entry."""
+    tokens, two chunks), and on seamless-m4t's reduced config in f32
+    through K7's bidirectional encoder and its cross-attention (4 + 4
+    sequences of 16 tokens over 8 frames of f32 embeddings). Both kernels
+    must launch under the kernel route. A backward that returned
+    constants would drop the Hessian terms, several % of the largest
+    entry."""
     import numpy as np
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core import make_algorithm
@@ -2375,7 +2580,10 @@ def second_order_checks(torch, errors):
         dtype="float32")
     cases = (("smollm lm scenario", lm_cfg, 16, "flash_attention", 0.1),
              ("mamba2 reduced", reduced_config(get_config("mamba2-370m")),
-              32, "ssd_chunk", 0.05))
+              32, "ssd_chunk", 0.05),
+             ("seamless reduced",
+              reduced_config(get_config("seamless-m4t-medium")), 16,
+              "flash_attention", 0.1))
     out = []
     for label, cfg, L, kernel, inner_lr in cases:
         rng = np.random.RandomState(0)
@@ -2383,6 +2591,11 @@ def second_order_checks(torch, errors):
                                                 (4, 4, L)),
                                     dtype=torch.int32, device="cuda")
                     for _ in range(2))
+        if cfg.modality:
+            sup, qry = ({"tokens": t, "embeds": torch.as_tensor(
+                rng.normal(0, 0.1, (4, 4, cfg.num_modality_tokens,
+                                    cfg.d_model)),
+                dtype=torch.float32, device="cuda")} for t in (sup, qry))
         for name in ("maml", "meta-sgd"):
             algo = make_algorithm(name, *lm_loss(make_apply_fn(cfg)),
                                   inner_lr)
@@ -2804,6 +3017,336 @@ def phase_serve_moe(torch):
         else:
             paths.update(launched)
         emit({"phase": "serve_moe", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0,
+              "peak_mem_gb": _peak_gb(torch), "result": res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
+
+
+# -------------------------------------------------------- serve_multimodal
+
+# The encoder-decoder and vision-prefix families at full width (every
+# width, head, vocabulary, frame and patch count the configs give), bf16,
+# random weights (seed 0), embeddings normal(0, 0.1) from seed 0 cast to
+# bf16, as the launcher draws them. seamless-m4t-medium (0.88 B
+# parameters, 1.76 GB) runs at full depth (12 encoder + 12 decoder
+# layers) but for decode_32k, whose KV cache is 17.18 GB a decoder layer:
+# 3 of 12 layers there. Its launcher runs train_4k's 4,096 text tokens
+# over 1,024 frames, cut to 1 client and to the first of MM_LAUNCH_SEQS
+# sequences a client whose step fits the card. qwen2-vl-7b (7.63 B,
+# 15.26 GB) prefills at full depth (28 layers) 1,024 patch embeddings +
+# 3,072 text tokens (train_4k's vision layout); decode_32k's cache is 8.59
+# GB a layer: 4 of 28 layers. qwen2-vl is not meta-trained on the card:
+# φ, the f32 accumulator and Adam's m and v alone are 106.8 GB.
+MM_ARCHS = ("seamless-m4t-medium", "qwen2-vl-7b")
+MM_SEQ = 4096                                  # train_4k / the prefill
+MM_LAUNCH_SEQS = (8, 4, 2)                     # tried in turn
+MM_HANDOFF_EXTRA = 4                           # tokens decoded
+MM_DECODE_LAYERS = {"seamless-m4t-medium": 3, "qwen2-vl-7b": 4}
+
+
+def mm_embeds(torch, cfg, batch: int, seed: int = 0, device="cuda"):
+    """(batch, n_mod, d_model) modality embeddings: normal(0, 0.1) from
+    `seed`, cast to cfg.dtype (`launch/train.task_batch`'s draw)."""
+    import numpy as np
+    from repro_torch.models.layers import as_dtype
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(rng.normal(
+        0, 0.1, (batch, cfg.num_modality_tokens, cfg.d_model))).to(
+        device=device, dtype=as_dtype(cfg.dtype))
+
+
+def mm_prompt(torch, cfg, seed=3, device="cuda"):
+    """One prompt of MM_SEQ tokens in all: the text after the patches for
+    a vision config, the whole text over the frames for the encoder-
+    decoder; then MM_HANDOFF_EXTRA tokens to decode."""
+    n_text = MM_SEQ - (cfg.num_modality_tokens if cfg.mrope else 0)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (n_text + MM_HANDOFF_EXTRA,),
+                         generator=gen, dtype=torch.int32)
+    return toks[:n_text], toks[n_text:]
+
+
+def mm_prefill(torch, cfg, params, prompt, embeds):
+    """`make_prefill_step` on [prompt | embeds] at B = 1: seconds,
+    launches, finite next-token logits, cache GB, peak GB."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.utils.pytree import tree_leaves
+    _reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg)(
+            params, {"tokens": prompt[None].to("cuda"), "embeds": embeds})
+    torch.cuda.synchronize()
+    res = {"text_tokens": prompt.numel(),
+           "modality_tokens": embeds.shape[1],
+           "s": time.perf_counter() - t0, "launches": read_launches(),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_shape": list(logits.shape),
+           "cache_length": int(cache["length"]),
+           "cache_gb": sum(nbytes(t) for t in tree_leaves(cache)
+                           if isinstance(t, torch.Tensor)) / 1e9,
+           "peak_gb": _peak_gb(torch)}
+    del logits, cache
+    return res
+
+
+def mm_decode(torch, cfg, errors):
+    """decode_32k's batch of 128 against 32,768 slots at
+    MM_DECODE_LAYERS's depth through `launch/serve.decode_steps` (an
+    encoder-decoder's cache holds a zero encoder output of 1,024 frames,
+    the reference's decode cache): K8 on the self-attention cache, and
+    for seamless K7 at Lq = 1 for the cross-attention, every layer and
+    step."""
+    from repro_torch.launch import serve
+    cut = dataclasses.replace(cfg, num_layers=MM_DECODE_LAYERS[cfg.name])
+    _reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve.decode_steps(cut, MOE_DECODE["batch"], MOE_DECODE["seq"],
+                             MOE_DECODE["steps"])
+    launches = read_launches()
+    res = {**out, "s": time.perf_counter() - t0,
+           "ms_per_step": [t * 1e3 for t in out["step_s"]],
+           "peak_gb": _peak_gb(torch), "launches": launches}
+    want = cut.num_layers * MOE_DECODE["steps"]
+    if not out["logits_finite"] or out["logits_shape"] != (
+            MOE_DECODE["batch"], cfg.vocab_size):
+        errors.append(f"{cfg.name} decode: {out['logits_shape']}, finite "
+                      f"{out['logits_finite']}")
+    if launches["flash_decode"] != want:
+        errors.append(f"{cfg.name} decode: K8 launched "
+                      f"{launches['flash_decode']} times, not {want}")
+    k7 = want if cfg.is_encoder_decoder else 0
+    if launches["flash_attention"] != k7:
+        errors.append(f"{cfg.name} decode: K7 launched "
+                      f"{launches['flash_attention']} times, not {k7}")
+    if cfg.is_encoder_decoder:
+        res["traced_step"] = mm_traced_decode(torch, cut)
+    return res, launches
+
+
+def mm_traced_decode(torch, cut):
+    """One decode step of `decode_steps`' setting (weights from seed 0,
+    the cache holding 64 tokens and a zero encoder output) under
+    torch.profiler: device activity by kernel group."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_decode_cache, init_lm
+    from repro_torch.models.layers import as_dtype
+    B = MOE_DECODE["batch"]
+    params = init_lm(0, cut, device="cuda")
+    enc = torch.zeros((B, cut.num_modality_tokens, cut.d_model),
+                      dtype=as_dtype(cut.dtype), device="cuda")
+    cache = init_decode_cache(cut, B, MOE_DECODE["seq"], enc_out=enc)
+    cache["length"] = 64
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    decode = make_decode_step(cut)
+    with torch.no_grad():
+        decode(params, cache, tok)                   # warm
+        _, trace = _traced(torch, lambda: decode(params, cache, tok))
+    del params, cache, enc
+    return trace
+
+
+def mm_launcher(torch, cfg, errors):
+    """`launch/train.train` of seamless-m4t-medium at full width and
+    depth: 2 FOMAML steps at train_4k's 4,096 text tokens over 1,024
+    frames a sequence, one client, at the first cut of MM_LAUNCH_SEQS
+    sequences (half support, half query) whose step fits the card (an
+    out-of-memory cut is reported and the next one tried). K1 and K7
+    launched, finite loss, φ moved; step ms and peak GB."""
+    from repro_torch.models import init_lm
+    from repro_torch.utils.pytree import tree_leaves
+    phi0 = {"theta": init_lm(0, cfg, device="cuda")}
+    tried = []
+    for S in MM_LAUNCH_SEQS:
+        oom = None
+        try:
+            res, state, _ = _launch_run(torch, cfg, "fomaml", (S, 1), 2,
+                                        phi0)
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).splitlines()[0]
+        if oom is not None:
+            # freed once the exception and its frames are gone
+            tried.append({"seqs_per_client": S, "out_of_memory": oom})
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        res["moved"] = any(not torch.equal(a, b) for a, b in
+                           zip(tree_leaves(state["phi"]), tree_leaves(phi0)))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["tried"] = tried
+        res["traced_step"] = launch_traced_step(torch, cfg, phi0, (S, 1))
+        if not res["moved"]:
+            errors.append("seamless launcher: φ did not move")
+        if not all(math.isfinite(m["query_loss"]) for m in res["metrics"]):
+            errors.append(f"seamless launcher: non-finite loss "
+                          f"{res['metrics']}")
+        for k in ("inner_update_plane", "flash_attention"):
+            if res["launches"][k] <= 0:
+                errors.append(f"seamless launcher: {k} not launched")
+        return res, res["launches"]
+    errors.append(f"seamless launcher: no cut fits: {tried}")
+    return {"tried": tried}, {}
+
+
+def mm_seamless(torch, cfg, errors):
+    """seamless-m4t-medium at full width and depth: the 4,096-token
+    prefill over 1,024 frames (K7: 12 bidirectional encoder layers, 12
+    causal self- and 12 cross-attention decoder layers), and the
+    prefill -> decode handoff of MM_HANDOFF_EXTRA tokens against the full
+    forward: in float32 (the bf16 weights cast up, 3.5 GB) within 2e-3 +
+    2e-3·max|logits|, the Mamba2 phase's limit; in bf16 within twice the
+    bf16 rounding spread. The cache has room for the decoded tokens."""
+    from repro_torch.models import init_lm
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    params = init_lm(0, cfg, device="cuda")
+    res = {"arch": cfg.name, "num_layers": cfg.num_layers,
+           "num_encoder_layers": cfg.num_encoder_layers,
+           "init_s": time.perf_counter() - t0,
+           "n_params": sum(t.numel() for t in tree_leaves(params)),
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    embeds = mm_embeds(torch, cfg, 1)
+    prompt, extra = mm_prompt(torch, cfg)
+    res["prefill"] = pre = mm_prefill(torch, cfg, params, prompt, embeds)
+    k7 = cfg.num_encoder_layers + 2 * cfg.num_layers
+    if pre["launches"]["flash_attention"] != k7 or not pre["finite"]:
+        errors.append(f"seamless prefill: K7 {pre['launches']} (want {k7}),"
+                      f" finite {pre['finite']}")
+
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    cap = prompt.numel() + extra.numel()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda x: x.float(), params)
+    gaps32, full32 = handoff_gaps(torch, cfg32, params32, prompt, extra,
+                                  capacity=cap, embeds=embeds.float())
+    del params32
+    gaps16, full16 = handoff_gaps(torch, cfg, params, prompt, extra,
+                                  capacity=cap, embeds=embeds)
+    spread = float((full16 - full32).abs().max())
+    scale = float(full32.abs().max())
+    res["handoff"] = {"prompt_len": prompt.numel(), "decoded": extra.numel(),
+                      "gaps_f32": gaps32, "f32_tol": 2e-3 + 2e-3 * scale,
+                      "gaps_bf16": gaps16, "bf16_rounding_spread": spread,
+                      "bf16_tol": 2.0 * spread, "max_abs_logit": scale,
+                      "s": time.perf_counter() - t0,
+                      "peak_gb": _peak_gb(torch)}
+    del full16, full32, params
+    h = res["handoff"]
+    if not max(gaps32) <= h["f32_tol"]:
+        errors.append(f"seamless f32 handoff gaps {gaps32} above "
+                      f"{h['f32_tol']}")
+    if not max(gaps16) <= h["bf16_tol"]:
+        errors.append(f"seamless bf16 handoff gaps {gaps16} above "
+                      f"{h['bf16_tol']}")
+    return res, {"seamless_prefill": pre["launches"]}
+
+
+def mm_qwen2_vl(torch, cfg, errors):
+    """qwen2-vl-7b at full width and depth: the prefill of 1,024 patch
+    embeddings and 3,072 text tokens (K7 once a layer, G = 7, M-RoPE'd q
+    and k), then the prefill -> decode handoff of MM_HANDOFF_EXTRA tokens
+    through `make_prefill_step` and `make_decode_step` on the kernel route
+    and on the plain route (K7, K8 plain), step by step within twice the
+    bf16 rounding spread (the prefill's last logits in bf16 against the
+    same forward with the weights cast to f32). Not against a full
+    forward: the reference decodes at position n_mod + L_text, where its
+    full forward puts that token at L_text + ⌈√n_mod⌉ (ROADMAP Queue 3)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_lm, lm_apply
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    params = init_lm(0, cfg, device="cuda")
+    res = {"arch": cfg.name, "num_layers": cfg.num_layers,
+           "init_s": time.perf_counter() - t0,
+           "n_params": sum(t.numel() for t in tree_leaves(params)),
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    embeds = mm_embeds(torch, cfg, 1)
+    prompt, extra = mm_prompt(torch, cfg)
+    res["prefill"] = pre = mm_prefill(torch, cfg, params, prompt, embeds)
+    if pre["launches"]["flash_attention"] != cfg.num_layers or \
+            not pre["finite"]:
+        errors.append(f"qwen2-vl prefill: K7 {pre['launches']} (want "
+                      f"{cfg.num_layers}), finite {pre['finite']}")
+
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    batch = {"tokens": prompt[None].cuda(), "embeds": embeds}
+    routes = {}
+    for route in ("kernel", "plain"):
+        reset_launches()
+        with torch.no_grad(), (all_plain() if route == "plain"
+                               else contextlib.nullcontext()):
+            decode = make_decode_step(cfg)
+            logits, cache = make_prefill_step(cfg)(params, batch)
+            steps = [logits.float()]
+            for t in range(extra.numel()):
+                logits, cache = decode(params, cache,
+                                       extra[t:t + 1][None].cuda())
+                steps.append(logits.float())
+        routes[route] = (steps, read_launches())
+        del cache
+    gaps = [float((a - b).abs().max()) for a, b in
+            zip(routes["kernel"][0], routes["plain"][0])]
+    with torch.no_grad():
+        params32 = tree_map(lambda x: x.float(), params)
+        last32, _ = lm_apply(params32, dataclasses.replace(
+            cfg, dtype="float32"), batch["tokens"],
+            modality_embeds=embeds.float(), logits_mode="last")
+        del params32
+    spread = float((routes["plain"][0][0] - last32[:, 0]).abs().max())
+    res["handoff_kernel_vs_plain"] = {
+        "prompt_len": prompt.numel(), "decoded": extra.numel(),
+        "gaps": gaps, "bf16_rounding_spread": spread,
+        "tol": 2.0 * spread,
+        "kernel_launches": routes["kernel"][1],
+        "plain_launches": routes["plain"][1],
+        "s": time.perf_counter() - t0, "peak_gb": _peak_gb(torch)}
+    h = res["handoff_kernel_vs_plain"]
+    if not max(gaps) <= h["tol"]:
+        errors.append(f"qwen2-vl kernel vs plain route: gaps {gaps} above "
+                      f"{h['tol']}")
+    for name in ("flash_attention", "flash_decode"):
+        if routes["plain"][1][name]:
+            errors.append(f"qwen2-vl plain route launched {name}")
+        if not routes["kernel"][1][name]:
+            errors.append(f"qwen2-vl kernel route: {name} not launched")
+    del params, routes, last32
+    return res, {"qwen2vl_prefill": pre["launches"]}
+
+
+def phase_serve_multimodal(torch):
+    """The encoder-decoder and vision-prefix families at full width, one
+    JSON line a part with its seconds and peak GB."""
+    from repro_torch.configs import get_config
+    s2t, vl = (get_config(a) for a in MM_ARCHS)
+    paths, failed = {}, []
+    parts = (("seamless", lambda e: mm_seamless(torch, s2t, e)),
+             ("seamless_launcher", lambda e: mm_launcher(torch, s2t, e)),
+             ("seamless_decode", lambda e: mm_decode(torch, s2t, e)),
+             ("qwen2_vl", lambda e: mm_qwen2_vl(torch, vl, e)),
+             ("qwen2_vl_decode", lambda e: mm_decode(torch, vl, e)))
+    for part, fn in parts:
+        errors = []
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        res, launched = fn(errors)
+        if part in ("seamless_launcher", "seamless_decode",
+                    "qwen2_vl_decode"):
+            paths[part] = launched
+        else:
+            paths.update(launched)
+        emit({"phase": "serve_multimodal", "part": part, "ok": not errors,
               "part_wall_s": time.perf_counter() - t0,
               "peak_mem_gb": _peak_gb(torch), "result": res,
               "errors": errors})
@@ -4644,6 +5187,8 @@ def main(argv=None) -> int:
         phase_build(torch)
         phase = mark("kernels")
         summaries = phase_kernels(torch, cfg)
+        phase = mark("refusals")
+        check_refusals(torch)
         phase = mark("serve")
         launches, ctx = phase_serve(torch, cfg)
         paths["serve"] = launches
@@ -4699,6 +5244,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("serve_moe")
         paths.update(phase_serve_moe(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("serve_multimodal")
+        paths.update(phase_serve_multimodal(torch))
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})

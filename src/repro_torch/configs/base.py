@@ -1,8 +1,7 @@
 """Model configuration: the port's own copy of the reference's
 `ModelConfig`, registry and `reduced_config` (`repro/configs/base.py`).
 
-The registry lists only the archs whose modules the port runs today;
-the others join as their model families are ported. Field names,
+The registry lists every arch of the reference's. Field names,
 defaults and `reduced_config`'s arithmetic are kept identical, so a
 reference config and its port counterpart describe the same shapes.
 """
@@ -104,7 +103,9 @@ _ARCH_MODULES = {
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "smollm-360m": "repro_torch.configs.smollm_360m",
 }
 

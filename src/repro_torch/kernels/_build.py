@@ -21,6 +21,14 @@ BUILD_DIR = REPO_ROOT / "build" / "torch_ext"
 EXT_NAME = "repro_torch_kernels"
 CUDA_FLAGS = ["-O3", "-std=c++17",
               "-gencode=arch=compute_90a,code=sm_90a"]
+# Link the C++ runtime's shared library, by its file name, ahead of the
+# libraries the compiler driver adds. A driver whose own library
+# directory holds only libstdc++.a (the card machine's ``c++``,
+# /opt/gcc/bin/g++) links a second, static copy of it into the
+# extension, and a failing TORCH_CHECK whose message formats a number
+# then ends the process with a segmentation fault instead of raising;
+# a plain -lstdc++ finds the same archive (`tools/probe_refusals.py`).
+LINK_FLAGS = ["-l:libstdc++.so.6"]
 
 _EXT = None
 _LOCK = threading.Lock()
@@ -43,6 +51,7 @@ def get_ext():
                         build_directory=str(BUILD_DIR),
                         extra_cflags=["-O2", "-std=c++17"],
                         extra_cuda_cflags=list(CUDA_FLAGS),
+                        extra_ldflags=list(LINK_FLAGS),
                         extra_include_paths=[str(CSRC)],
                         verbose=bool(
                             os.environ.get("REPRO_TORCH_BUILD_VERBOSE")))

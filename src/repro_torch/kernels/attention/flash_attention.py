@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels._recompute import recompute_vjp
 from repro_torch.kernels.attention import ref
@@ -39,26 +40,15 @@ def _plain_bhld(q, k, v, causal, window, q_offset):
     return out.transpose(1, 2)
 
 
-# head dims the kernel takes: (largest qk dim, largest value dim)
-HEAD_DIMS = {torch.bfloat16: (192, 128), torch.float32: (192, 192)}
-
-
 def _launch(q, k, v, causal, window, q_offset):
+    """Launch K7, or raise `_checks.Refused` (a ValueError) before the
+    extension for a call its binding would refuse."""
     global launches
-    B, H, Lq, hd = q.shape
-    hd_v = v.shape[-1]
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
-    # refused here, before the extension: its own checks stay as a
-    # second guard
-    most = HEAD_DIMS.get(q.dtype)
-    if most is None or hd > most[0] or hd_v > most[1]:
-        raise ValueError(f"K7 takes bfloat16 with hd <= 192 and hd_v <= "
-                         f"128, or float32 with both <= 192; got "
-                         f"{q.dtype}, hd {hd}, hd_v {hd_v}")
+    (B, H, Lq), hd, hd_v = q.shape[:3], q.shape[-1], v.shape[-1]
     # (B, Lq, H, hd_v) storage, viewed as (B, H, Lq, hd_v)
     out = torch.empty((B, Lq, H, hd_v), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    _checks.flash_attention(q, k, v, out, window)
     get_ext().flash_attention(q, k, v, out, bool(causal),
                               0 if window is None else int(window),
                               int(q_offset), 1.0 / (hd ** 0.5))
@@ -88,7 +78,7 @@ def flash_attention_bhld(q, k, v, *, causal: bool = True, window=None,
                          q_offset: int = 0):
     """q: (B, H, Lq, hd); k: (B, Kv, Lk, hd); v: (B, Kv, Lk, hd_v), any
     strides. Returns (B, H, Lq, hd_v) — hd_v may differ from hd (on the
-    card `HEAD_DIMS`: bf16 hd <= 192 with hd_v <= 128, f32 both <=
+    card `_checks.HEAD_DIMS`: bf16 hd <= 192 with hd_v <= 128, f32 both <=
     192)."""
     if not q.is_cuda:
         return _plain_bhld(q, k, v, causal, window, q_offset)

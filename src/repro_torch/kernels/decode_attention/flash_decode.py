@@ -21,10 +21,11 @@ import functools
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels.decode_attention import ref
 
-launches = 0   # kernel launches; only this wrapper adds to it
+launches = 0   # kernel launches; only `_launch` adds to it
 
 BLOCKS_PER_SM = 2           # K8 blocks resident on an SM (kBlocksPerSM)
 MIN_KEYS_PER_SPLIT = 256    # below this a split's set-up outweighs its keys
@@ -56,10 +57,16 @@ def splits_for(k_cache, kv_length) -> int:
 def flash_decode(q, k_cache, v_cache, kv_length):
     """q: (B, H, hd); caches: (B, C, Kv, hd); kv_length: a Python int for
     every row, or (B,) int. Returns (B, H, hd) in q's dtype."""
-    global launches
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_length)
-    B, H, hd = q.shape
+    return _launch(q, k_cache, v_cache, kv_length)
+
+
+def _launch(q, k_cache, v_cache, kv_length):
+    """Launch K8, or raise `_checks.Refused` (a ValueError) before the
+    extension for a call its binding would refuse."""
+    global launches
+    B, H, hd = q.shape[0], q.shape[1], q.shape[-1]
     Kv = k_cache.shape[2]
     q = q.contiguous()
     out = torch.empty_like(q)
@@ -72,6 +79,8 @@ def flash_decode(q, k_cache, v_cache, kv_length):
     G = H // max(Kv, 1)
     scratch = torch.empty(B * Kv * splits * G * (hd + 2) if splits > 1 else 0,
                           dtype=torch.float32, device=q.device)
+    _checks.flash_decode(q, k_cache, v_cache, kvl, kvl_s, out, scratch,
+                         splits)
     get_ext().flash_decode(q, k_cache, v_cache, kvl, kvl_s, out, scratch,
                            splits, 1.0 / (hd ** 0.5))
     launches += 1

@@ -1,9 +1,12 @@
 """Dispatcher for one-token decode attention.
 
 impl: "cuda" (default; K8 for CUDA tensors, the plain version for CPU
-tensors) or "torch" (the plain version everywhere), per call.
+tensors) or "torch" (the plain version everywhere), per call or scoped
+with `use_impl`.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -11,10 +14,25 @@ from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.decode_attention.flash_decode import flash_decode
 
 _IMPLS = ("torch", "cuda")
+_DEFAULT_IMPL = "cuda"
 
 
-def decode_attention(q, k_cache, v_cache, kv_length, *, impl: str = "cuda"):
+@contextlib.contextmanager
+def use_impl(impl: str):
+    """Scoped default-impl override (restores on exit)."""
+    global _DEFAULT_IMPL
+    assert impl in _IMPLS, impl
+    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
+    try:
+        yield
+    finally:
+        _DEFAULT_IMPL = prev
+
+
+def decode_attention(q, k_cache, v_cache, kv_length, *,
+                     impl: str | None = None):
     """q: (B, H, hd); caches: (B, C, Kv, hd); kv_length: int, () or (B,)."""
+    impl = impl or _DEFAULT_IMPL
     assert impl in _IMPLS, impl
     B = q.shape[0]
     if isinstance(kv_length, int):

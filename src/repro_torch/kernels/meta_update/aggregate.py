@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels.meta_update.ref import weighted_aggregate_ref
 
@@ -41,29 +42,33 @@ __all__ = ["launches", "trimmed_launches", "weighted_aggregate_flat",
            "screened_aggregate_flat", "trimmed_mean_plain",
            "trimmed_mean_flat", "trimmed_mean_ref"]
 
-launches = 0   # K2 launches; only `weighted_aggregate_flat` adds to it
-trimmed_launches = 0   # K5 launches; only `trimmed_mean_flat` adds to it
+launches = 0   # K2 launches; only `_launch` adds to it
+trimmed_launches = 0   # K5 launches; only `_launch_trimmed` adds to it
 
 # the finite sentinel of the trimmed mean's extraction sweeps and of the
 # screen's masked median: larger than any real gradient coordinate, but
 # finite (as an f32: 3e38 rounded to nearest)
 BIG = 3.0e38
 
-_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
-
 
 def weighted_aggregate_flat(gs, w):
     """gs: (m, N) packed client gradients, w: (m,) weights -> (N,) f32."""
-    global launches
     if not gs.is_cuda:
         return weighted_aggregate_ref(gs, w)
-    if gs.dtype not in _DTYPES:
-        raise TypeError(f"the aggregation kernel takes {_DTYPES}, got "
-                        f"{gs.dtype}")
-    out = torch.empty((gs.shape[1],), dtype=torch.float32, device=gs.device)
-    get_ext().weighted_aggregate(gs.contiguous(),
-                                 w.to(device=gs.device,
-                                      dtype=torch.float32).contiguous(), out)
+    return _launch(gs, w)
+
+
+def _launch(gs, w):
+    """Launch K2, or raise `_checks.Refused` (a ValueError and a
+    TypeError) before the extension for a call its binding would
+    refuse."""
+    global launches
+    out = torch.empty((gs.shape[-1],), dtype=torch.float32,
+                      device=gs.device)
+    gs = gs.contiguous()
+    w = w.to(device=gs.device, dtype=torch.float32).contiguous()
+    _checks.weighted_aggregate(gs, w, out)
+    get_ext().weighted_aggregate(gs, w, out)
     launches += 1
     return out
 
@@ -204,18 +209,22 @@ def trimmed_mean_flat(gs, live, *, trim: int = 1):
     (N,) f32 coordinate-wise trimmed mean over the live rows, bitwise
     equal to `trimmed_mean_plain`. Needs 0 ≤ 2·trim < m; rounds with
     n_live ≤ 2·trim are degenerate (see `trimmed_mean_plain`)."""
-    global trimmed_launches
     if not gs.is_cuda:
         return trimmed_mean_plain(gs, live, trim=trim)
-    if gs.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the trimmed-mean kernel takes float32 or bfloat16, "
-                        f"got {gs.dtype}")
-    _check_trim(gs.shape[0], trim)
-    out = torch.empty((gs.shape[1],), dtype=torch.float32, device=gs.device)
-    get_ext().trimmed_mean(gs.contiguous(),
-                           live.to(device=gs.device,
-                                   dtype=torch.float32).contiguous(),
-                           out, int(trim))
+    return _launch_trimmed(gs, live, trim)
+
+
+def _launch_trimmed(gs, live, trim):
+    """Launch K5, or raise `_checks.Refused` (a ValueError and a
+    TypeError) before the extension for a call its binding would
+    refuse."""
+    global trimmed_launches
+    out = torch.empty((gs.shape[-1],), dtype=torch.float32,
+                      device=gs.device)
+    gs = gs.contiguous()
+    live = live.to(device=gs.device, dtype=torch.float32).contiguous()
+    _checks.trimmed_mean(gs, live, out, int(trim))
+    get_ext().trimmed_mean(gs, live, out, int(trim))
     trimmed_launches += 1
     return out
 

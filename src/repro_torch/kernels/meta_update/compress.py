@@ -31,13 +31,14 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels.meta_update.aggregate import weighted_aggregate_flat
 from repro_torch.kernels.meta_update.ref import weighted_aggregate_ref
 
 CODECS = ("int8", "topk")
 
-launches = 0   # K6 launches; only `int8_encode_flat` adds to it
+launches = 0   # K6 launches; only `_launch` adds to it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,18 +128,23 @@ def int8_encode_flat(G, *, inplace: bool = False):
     ``inplace=True`` and an f32 block the residual overwrites ``G`` —
     for callers that own the block (the packed step's EF-corrected
     block is a temporary)."""
-    global launches
     g = G.float()
     scales = int8_scales(g)
     if not g.is_cuda:
         q, resid = _quantize(g, scales)
         return q, scales, resid
-    if g.ndim != 2:
-        raise ValueError(f"the int8 encode kernel takes an (m, N) block, "
-                         f"got {tuple(g.shape)}")
+    return _launch(G, g, scales, inplace)
+
+
+def _launch(G, g, scales, inplace):
+    """Launch K6 on ``g`` (``G`` as f32), or raise `_checks.Refused` (a
+    ValueError) before the extension for a call its binding would
+    refuse: an (m, N) block with N a multiple of 4."""
+    global launches
     g = g.contiguous()
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
     resid = g if (inplace or g is not G) else torch.empty_like(g)
+    _checks.int8_encode(g, scales, q, resid)
     get_ext().int8_encode(g, scales, q, resid)
     launches += 1
     return q, scales, resid

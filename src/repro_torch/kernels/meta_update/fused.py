@@ -26,27 +26,35 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels.meta_update import ref
 
 launches = 0   # K1 launches; only `_launch` adds to it
-meta_update_launches = 0   # K4 launches; only `meta_update_flat` adds to it
+meta_update_launches = 0   # K4 launches; only `_launch_flat` adds to it
 
 
-def _launch(theta, alpha, g, out):
-    """θ − α∘g written into ``out`` (which may be θ itself)."""
-    global launches
+def _update(theta, alpha, g, out):
+    """θ − α∘g written into ``out`` (which may be θ itself): the plain
+    version on the CPU, K1 on the card."""
     if not theta.is_cuda:
         out.copy_(ref.inner_update_plane_ref(theta, alpha, g))
         return out
-    if theta.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError("the inner-update kernel takes float32 planes, got "
-                        f"theta {theta.dtype}, g {g.dtype}")
+    return _launch(theta, alpha, g, out)
+
+
+def _launch(theta, alpha, g, out):
+    """Launch K1, or raise `_checks.Refused` (a ValueError and a
+    TypeError) before the extension for a call its binding would
+    refuse: θ, g and out must be contiguous (C, N) float32 planes."""
+    global launches
     if isinstance(alpha, torch.Tensor):
         a, a_s = alpha.float().contiguous(), 0.0
     else:
         a, a_s = torch.empty(0), float(alpha)
-    get_ext().inner_update(theta, out, a, a_s, g.contiguous())
+    g = g.contiguous()
+    _checks.inner_update(theta, out, a, g)
+    get_ext().inner_update(theta, out, a, a_s, g)
     launches += 1
     return out
 
@@ -72,7 +80,7 @@ class _InnerUpdatePlane(torch.autograd.Function):
         ctx.alpha_s = alpha_s
         ctx.save_for_backward(alpha_t, g)
         out = torch.empty_like(theta, memory_format=torch.contiguous_format)
-        return _launch(theta, alpha_s if alpha_t is None else alpha_t, g, out)
+        return _update(theta, alpha_s if alpha_t is None else alpha_t, g, out)
 
     @staticmethod
     def backward(ctx, ct):
@@ -93,7 +101,7 @@ def inner_update_plane(theta, alpha, g):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _InnerUpdatePlane.apply(theta, None if scalar else alpha, g,
                                        float(alpha) if scalar else 0.0)
-    return _launch(theta, alpha, g, out=theta)
+    return _update(theta, alpha, g, out=theta)
 
 
 def meta_update_flat(theta, alpha, g):
@@ -101,7 +109,6 @@ def meta_update_flat(theta, alpha, g):
     new tensor. θ must be float32 (a bf16 θ raises ``TypeError``, on
     every device). On the card: K1's kernel at C = 1 with α read as
     shared rates, 16 bytes an element (θ, α, g read, out written)."""
-    global meta_update_launches
     if theta.dtype != torch.float32:
         raise TypeError(f"meta_update_flat takes a float32 theta, got "
                         f"{theta.dtype}")
@@ -110,9 +117,17 @@ def meta_update_flat(theta, alpha, g):
         raise ValueError("theta, alpha and g must be (N,) of one shape")
     if not theta.is_cuda:
         return ref.meta_update_flat_ref(theta, alpha, g)
+    return _launch_flat(theta, alpha, g)
+
+
+def _launch_flat(theta, alpha, g):
+    """Launch K4 (K1's kernel at C = 1), or raise `_checks.Refused`
+    before the extension for a call its binding would refuse."""
+    global meta_update_launches
     out = torch.empty_like(theta, memory_format=torch.contiguous_format)
-    get_ext().inner_update(theta.contiguous()[None], out[None],
-                           alpha.float().contiguous(), 0.0,
-                           g.float().contiguous()[None])
+    theta2, out2 = theta.contiguous()[None], out[None]
+    a, g2 = alpha.float().contiguous(), g.float().contiguous()[None]
+    _checks.inner_update(theta2, out2, a, g2)
+    get_ext().inner_update(theta2, out2, a, 0.0, g2)
     meta_update_launches += 1
     return out

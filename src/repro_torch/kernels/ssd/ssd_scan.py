@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels._recompute import recompute_vjp
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
@@ -44,6 +45,7 @@ def _launch(xdt, a, Bm, Cm, chunk):
     # scratch for C Bᵀ, computed once per (b, c) and shared by the heads
     cbuf = torch.empty((B, L // chunk, chunk, (chunk + 3) // 4 * 4),
                        dtype=torch.float32, device=xdt.device)
+    _checks.ssd_chunk(xdt, a, Bm, Cm, y, S, cbuf, int(chunk))
     get_ext().ssd_chunk(xdt, a, Bm, Cm, y, S, cbuf, int(chunk))
     launches += 1
     return y, S

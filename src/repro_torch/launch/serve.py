@@ -21,7 +21,11 @@ attention layer in 8 holds the whole sequence (17.2 GB) and deepseek's
 MLA holds the 576-wide latents (4.8 GB a layer), but their weights
 (141 / 52 / 236 B parameters) need many cards at full depth: one card
 runs them at a cut depth, in process through `decode_steps`.
-Multi-device serving joins with the sharding slice.
+qwen2-vl-7b's ring at decode_32k is 8.6 GB a layer (28 layers);
+seamless-m4t-medium's 17.2 GB a decoder layer (12), beside the zero
+encoder output of 1,024 frames that each step cross-attends to: both
+run on one card at a cut depth through `decode_steps`. Multi-device
+serving joins with the sharding slice.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.configs import INPUT_SHAPES, get_config, list_archs, reduced_co
 from repro_torch.launch.steps import (make_apply_fn, make_decode_step,
                                       make_prefill_step)
 from repro_torch.models import init_decode_cache, init_lm
+from repro_torch.models.layers import as_dtype
 
 
 def build_serving_fns(cfg):
@@ -100,12 +105,21 @@ def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
                  params=None):
     """`steps` greedy decode steps of `batch` sequences against a cache
     of `seq` slots that already holds 64 tokens: the CLI's body. The
-    weights are `params`, or a fresh init from seed 0. Returns the run's
-    record."""
+    weights are `params`, or a fresh init from seed 0. An
+    encoder-decoder's cache holds a zero encoder output of
+    ``num_modality_tokens`` frames, which every step cross-attends to.
+    Returns the run's record."""
     decode = make_decode_step(cfg)
     if params is None:
         params = init_lm(0, cfg, device=device)
-    cache = init_decode_cache(cfg, batch, seq, device=device)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        # the reference's decode cache: a zero encoder output of
+        # num_modality_tokens frames (`repro/launch/steps.py:208-213`)
+        enc_out = torch.zeros((batch, cfg.num_modality_tokens, cfg.d_model),
+                              dtype=as_dtype(cfg.dtype), device=device)
+    cache = init_decode_cache(cfg, batch, seq, enc_out=enc_out,
+                              device=device)
     cache["length"] = min(64, seq)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
     step_s, finite = [], True

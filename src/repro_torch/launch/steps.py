@@ -3,7 +3,7 @@
 
   train_step    FedMeta meta-training round over a task batch of clients
                 (G client groups × C clients in turn × S sequences)
-  prefill_step  (params, tokens) -> (next-token logits, decode cache)
+  prefill_step  (params, batch) -> (next-token logits, decode cache)
   decode_step   (params, cache, tokens) -> (logits, cache)
 
 The reference's ``scan_clients`` and ``unroll_layers`` (loop-free HLO
@@ -24,14 +24,24 @@ from repro_torch.optim import adam
 from repro_torch.utils.pytree import tree_flatten, tree_map
 
 
+def _tokens_embeds(batch):
+    """(tokens, embeds or None) of a batch: a token tensor, or a dict
+    with "tokens" and, for the vision and audio configs, "embeds"."""
+    if isinstance(batch, dict):
+        return batch["tokens"], batch.get("embeds")
+    return batch, None
+
+
 def make_apply_fn(cfg, *, remat: bool = True):
-    """apply(params, batch) -> (logits, aux); batch = tokens or dict.
-    ``remat`` checkpoints each layer-period repetition (the reference's
+    """apply(params, batch) -> (logits, aux); batch = tokens or dict
+    (with "embeds" for the vision and audio configs). ``remat``
+    checkpoints each layer-period repetition (the reference's
     default)."""
 
     def apply_fn(params, batch):
-        tokens = batch["tokens"] if isinstance(batch, dict) else batch
-        return lm_apply(params, cfg, tokens, remat=remat)
+        tokens, embeds = _tokens_embeds(batch)
+        return lm_apply(params, cfg, tokens, modality_embeds=embeds,
+                        remat=remat)
 
     return apply_fn
 
@@ -121,8 +131,9 @@ def train_batch_layout(cfg, shape, n_pods: int):
 
 def make_prefill_step(cfg):
     def prefill_step(params, batch):
-        tokens = batch["tokens"] if isinstance(batch, dict) else batch
-        logits, _, cache = lm_apply(params, cfg, tokens, remat=False,
+        tokens, embeds = _tokens_embeds(batch)
+        logits, _, cache = lm_apply(params, cfg, tokens,
+                                    modality_embeds=embeds, remat=False,
                                     collect_cache=True, logits_mode="last")
         return logits[:, 0], cache
 

@@ -20,12 +20,14 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import (INPUT_SHAPES, get_config, list_archs,
                                  reduced_config)
 from repro_torch.data.lm_tasks import make_lm_task_batch
 from repro_torch.launch.steps import make_train_step, train_batch_layout
+from repro_torch.models.layers import as_dtype
 
 ALGOS = ("maml", "fomaml", "meta-sgd", "meta-sgd-fo", "reptile")
 
@@ -47,14 +49,25 @@ def cut_shape(shape, *, seqs_per_client=None, clients=None):
 
 def task_batch(cfg, shape, it: int, device):
     """Step ``it``'s batch: `make_lm_task_batch(G·C, ...)` with seed
-    ``it``, as (G, C, S, L) int32 token tensors on ``device``."""
-    G, C, S_sup, S_qry, L, _ = train_batch_layout(cfg, shape, 1)
+    ``it``, as (G, C, S, L) int32 token tensors on ``device``. A vision
+    or audio config also gets "embeds" (G, C, S, n_mod, d_model) drawn
+    as the reference's launcher draws them
+    (`repro/launch/train.py:86-91`): ``normal(0, 0.1)`` from
+    ``RandomState(it)``, support then query, cast to ``cfg.dtype``."""
+    G, C, S_sup, S_qry, L, n_mod = train_batch_layout(cfg, shape, 1)
     tasks = make_lm_task_batch(G * C, S_sup, S_qry, L, cfg.vocab_size,
                                seed=it)
     part = lambda a, S: {"tokens": torch.as_tensor(
         a.reshape(G, C, S, L), dtype=torch.int32, device=device)}
-    return {"support": part(tasks.support_tokens, S_sup),
-            "query": part(tasks.query_tokens, S_qry)}
+    batch = {"support": part(tasks.support_tokens, S_sup),
+             "query": part(tasks.query_tokens, S_qry)}
+    if cfg.modality:
+        rngd = np.random.RandomState(it)
+        for name, S in (("support", S_sup), ("query", S_qry)):
+            batch[name]["embeds"] = torch.as_tensor(rngd.normal(
+                0, 0.1, (G, C, S, n_mod, cfg.d_model))).to(
+                device=device, dtype=as_dtype(cfg.dtype))
+    return batch
 
 
 def train(cfg, shape, *, algo: str = "fomaml", steps: int = 10,

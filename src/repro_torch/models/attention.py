@@ -1,17 +1,18 @@
-"""Attention modules: GQA (optional bias and sliding window) and MLA
-(DeepSeek-V2's latent attention with a compressed KV cache), each with
-its full-sequence forward and its one-token decode. Counterpart of
-`repro/models/attention.py` without M-RoPE and cross-attention, which
-join with the qwen2-vl and seamless-m4t slices.
+"""Attention modules: GQA (optional bias, sliding window and M-RoPE),
+MLA (DeepSeek-V2's latent attention with a compressed KV cache) and the
+encoder-decoder's cross-attention, each with its full-sequence forward
+and its one-token decode. Counterpart of `repro/models/attention.py`.
 
 Cache layouts (per layer), C = cache capacity, the new token's slot
 length % C:
   GQA:  {"k": (B, C, Kv, hd), "v": (B, C, Kv, hd)} (a ring of the
         window's size under sliding-window attention)
   MLA:  {"c": (B, C, kv_lora_rank), "kpe": (B, C, rope_head_dim)}
-The port writes the new token's entries into the cache tensors in
-place (the reference's dynamic_update_slice returns new buffers); a
-caller that needs an older cache afterwards clones it first.
+Cross-attention keeps no cache: its K and V are computed from the
+encoder's output at every step, as the reference computes them. The
+port writes the new token's entries into the cache tensors in place
+(the reference's dynamic_update_slice returns new buffers); a caller
+that needs an older cache afterwards clones it first.
 """
 from __future__ import annotations
 
@@ -20,18 +21,14 @@ import torch
 
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
-from repro_torch.models.layers import (Rng, apply_rope, as_dtype, dense_init,
-                                       rmsnorm, rmsnorm_init)
-
-
-def _unported(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported yet; it joins the port "
-                              f"with the {slice_name} slice")
+from repro_torch.models.layers import (Rng, apply_mrope, apply_rope, as_dtype,
+                                       dense_init, rmsnorm, rmsnorm_init,
+                                       text_mrope_positions)
 
 
 def gqa_init(rng: Rng, cfg, dtype, *, cross: bool = False):
-    if cross:
-        _unported("cross-attention", "encoder-decoder (seamless-m4t)")
+    """Self- or cross-attention weights: one tree, one draw order
+    (``cross`` changes neither, as in the reference)."""
     d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(rng, d, H * hd, dtype),
@@ -47,23 +44,44 @@ def gqa_init(rng: Rng, cfg, dtype, *, cross: bool = False):
     return p
 
 
-def _qkv(params, cfg, x):
+def _matmul_promoted(a, w):
+    """a @ w, both cast to their promoted dtype when they differ: JAX
+    promotes a bf16 × f32 product to f32 (cross-attention's keys and
+    values from an f32 encoder output against bf16 weights), where torch
+    refuses mixed operands."""
+    if a.dtype != w.dtype:
+        dt = torch.promote_types(a.dtype, w.dtype)
+        a, w = a.to(dt), w.to(dt)
+    return a @ w
+
+
+def _qkv(params, cfg, x, kv_input=None):
     B, L, _ = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_in = x if kv_input is None else kv_input
+    Lk = kv_in.shape[1]
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = _matmul_promoted(kv_in, params["wk"])
+    v = _matmul_promoted(kv_in, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(B, L, H, hd), k.reshape(B, L, Kv, hd),
-            v.reshape(B, L, Kv, hd))
+    return (q.reshape(B, L, H, hd), k.reshape(B, Lk, Kv, hd),
+            v.reshape(B, Lk, Kv, hd))
 
 
 def _rope_qk(cfg, q, k, q_positions, k_positions):
+    """RoPE, or M-RoPE for qwen2-vl: positions of shape (..., L, 3), or
+    (..., L) lifted to three equal components (the reference's test on
+    the last dim, kept as it is)."""
     if cfg.mrope:
-        _unported("M-RoPE", "qwen2-vl")
+        qp = (q_positions if q_positions.shape[-1:] == (3,)
+              else text_mrope_positions(q_positions))
+        kp = (k_positions if k_positions.shape[-1:] == (3,)
+              else text_mrope_positions(k_positions))
+        return (apply_mrope(q, qp, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, kp, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, q_positions, cfg.rope_theta),
             apply_rope(k, k_positions, cfg.rope_theta))
 
@@ -77,6 +95,23 @@ def gqa_forward(params, cfg, x, positions, *, causal: bool = True,
     o = attn_ops.flash_attention(q, k, v, causal=causal, window=window)
     y = o.reshape(B, L, cfg.num_heads * cfg.head_dim) @ params["wo"]
     return (y, (k, v)) if return_kv else y
+
+
+def cross_attn_forward(params, cfg, x, enc_out):
+    """Decoder -> encoder cross-attention: no rope, no causal mask, Lq
+    text positions over Lk encoder frames (through K7). Where q and the
+    encoder's k, v differ in dtype (f32 frames into a bf16 model), all
+    three are cast to their promoted dtype for the kernel, which takes
+    one dtype, and the output comes back in q's dtype: what the
+    reference's oracle computes (f32 math, `astype(q.dtype)`)."""
+    B, L, _ = x.shape
+    q, k, v = _qkv(params, cfg, x, kv_input=enc_out)
+    dt = q.dtype
+    if k.dtype != dt or v.dtype != dt:
+        wide = torch.promote_types(torch.promote_types(dt, k.dtype), v.dtype)
+        q, k, v = q.to(wide), k.to(wide), v.to(wide)
+    o = attn_ops.flash_attention(q, k, v, causal=False).to(dt)
+    return o.reshape(B, L, cfg.num_heads * cfg.head_dim) @ params["wo"]
 
 
 def gqa_init_cache(cfg, batch: int, capacity: int, dtype, device="cuda"):

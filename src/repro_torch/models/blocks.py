@@ -1,7 +1,6 @@
-"""Decoder blocks assembled from mixers (GQA or MLA attention, Mamba2)
-and FFNs (none, MLP, MoE). Counterpart of `repro/models/blocks.py`
-without cross-attention, which joins with the encoder-decoder
-(seamless-m4t) slice.
+"""Decoder and encoder blocks assembled from mixers (GQA or MLA
+attention, Mamba2), the encoder-decoder's cross-attention and FFNs
+(none, MLP, MoE). Counterpart of `repro/models/blocks.py`.
 
 A *layer spec* is (kind, ffn) with kind in {"attn", "mamba"} and ffn in
 {"none", "mlp", "moe"}; the LM groups layers with identical specs into
@@ -43,7 +42,8 @@ def block_init(rng: Rng, cfg, spec, dtype, *, cross: bool = False):
     else:
         raise ValueError(kind)
     if cross:
-        attn._unported("cross-attention", "encoder-decoder (seamless-m4t)")
+        p["norm_cross"] = rmsnorm_init(cfg.d_model, dtype, rng.device)
+        p["cross"] = attn.gqa_init(rng, cfg, dtype, cross=True)
     if ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, rng.device)
         p["ffn"] = (moe_mod.moe_init(rng, cfg, dtype) if ffn == "moe"
@@ -73,7 +73,17 @@ def _ffn(params, cfg, spec, x):
     return x + y, aux
 
 
-def block_forward(params, cfg, spec, x, positions, *, causal: bool = True):
+def _cross(params, cfg, x, enc_out):
+    """The residual cross-attention half of an encoder-decoder block
+    (a block without ``cross`` passes x through)."""
+    if "cross" not in params:
+        return x
+    h = rmsnorm(params["norm_cross"], x, cfg.norm_eps)
+    return x + attn.cross_attn_forward(params["cross"], cfg, h, enc_out)
+
+
+def block_forward(params, cfg, spec, x, positions, *, causal: bool = True,
+                  enc_out=None):
     """Full-sequence forward. Returns (y, aux_loss)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn":
@@ -85,7 +95,7 @@ def block_forward(params, cfg, spec, x, positions, *, causal: bool = True):
                                  causal=causal, window=cfg.sliding_window)
     else:
         y = ssm.mamba_forward(params["mixer"], cfg, h)
-    return _ffn(params, cfg, spec, x + y)
+    return _ffn(params, cfg, spec, _cross(params, cfg, x + y, enc_out))
 
 
 def _ring_place(full, capacity: int):
@@ -108,7 +118,8 @@ def _gqa_capacity(cfg, capacity: int) -> int:
             else capacity)
 
 
-def block_prefill(params, cfg, spec, x, positions, capacity: int):
+def block_prefill(params, cfg, spec, x, positions, capacity: int, *,
+                  enc_out=None):
     """Forward that also emits a decode-ready cache. Returns (y, aux, cache)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn" and _mla(cfg):
@@ -124,7 +135,7 @@ def block_prefill(params, cfg, spec, x, positions, capacity: int):
     else:
         y, cache = ssm.mamba_forward(params["mixer"], cfg, h,
                                      return_cache=True)
-    x, aux = _ffn(params, cfg, spec, x + y)
+    x, aux = _ffn(params, cfg, spec, _cross(params, cfg, x + y, enc_out))
     return x, aux, cache
 
 
@@ -138,10 +149,11 @@ def block_init_cache(cfg, spec, batch: int, capacity: int, dtype,
                                dtype, device)
 
 
-def block_decode(params, cfg, spec, x, cache, length: int):
+def block_decode(params, cfg, spec, x, cache, length: int, *, enc_out=None):
     """One-token decode. x: (B, 1, d). Returns (y, cache) — the cache's
     tensors (the KV or latent ring, or the conv window and SSM state)
-    are updated in place."""
+    are updated in place. Cross-attention recomputes K and V from
+    ``enc_out`` at every step, as the reference does."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn" and _mla(cfg):
         y, cache = attn.mla_decode(params["mixer"], cfg, h, cache, length)
@@ -150,5 +162,5 @@ def block_decode(params, cfg, spec, x, cache, length: int):
                                    window=cfg.sliding_window)
     else:
         y, cache = ssm.mamba_decode(params["mixer"], cfg, h, cache)
-    x, _ = _ffn(params, cfg, spec, x + y)
+    x, _ = _ffn(params, cfg, spec, _cross(params, cfg, x + y, enc_out))
     return x, cache

@@ -1,6 +1,6 @@
 """Shared model primitives: init helpers, RMSNorm, MLPs, rotary
-embeddings. Counterpart of `repro/models/layers.py`; params are nested
-dicts of tensors with the reference's keys and shapes.
+embeddings (M-RoPE included). Counterpart of `repro/models/layers.py`;
+params are nested dicts of tensors with the reference's keys and shapes.
 """
 from __future__ import annotations
 
@@ -116,13 +116,50 @@ def _inv_freq(hd: int, theta: float, device) -> torch.Tensor:
     return inv
 
 
-def apply_rope(x, positions, theta: float):
-    """Standard RoPE. x: (..., L, H, hd); positions: (..., L) int."""
-    hd = x.shape[-1]
-    inv = _inv_freq(hd, theta, x.device)
-    ang = positions[..., None].float() * inv             # (..., L, hd/2)
+def _rotate(x, ang):
+    """x (..., L, H, hd) rotated by the angles ang (..., L, hd/2), in f32,
+    cast back to x's dtype."""
     cos = torch.cos(ang)[..., None, :]                   # (..., L, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """Standard RoPE. x: (..., L, H, hd); positions: (..., L) int."""
+    inv = _inv_freq(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * inv)
+
+
+_MROPE_COMP: dict = {}
+
+
+def _mrope_components(sections: tuple, device) -> torch.Tensor:
+    """Which position component (0 = t, 1 = h, 2 = w) drives each rotary
+    dim, on `device`, copied there once (as `_inv_freq`)."""
+    key = (sections, str(device))
+    comp = _MROPE_COMP.get(key)
+    if comp is None:
+        comp = _MROPE_COMP[key] = torch.as_tensor(np.concatenate(
+            [np.full(s, i) for i, s in enumerate(sections)]), device=device)
+    return comp
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """M-RoPE (Qwen2-VL): the rotary dims split into (t, h, w) sections,
+    each driven by its own position component, in f32 as `apply_rope`.
+
+    x: (..., L, H, hd); positions3: (..., L, 3) int; sections sum to
+    hd/2."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    pos = positions3.float().index_select(
+        -1, _mrope_components(tuple(sections), x.device))  # (..., L, half)
+    return _rotate(x, pos * _inv_freq(hd, theta, x.device))
+
+
+def text_mrope_positions(positions):
+    """Text tokens take identical (t, h, w) components."""
+    return torch.stack([positions, positions, positions], dim=-1)

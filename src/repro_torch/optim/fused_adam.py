@@ -21,9 +21,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _checks
 from repro_torch.kernels._build import get_ext
 
-launches = 0   # kernel launches; only `adam_flat_pallas` adds to it
+launches = 0   # kernel launches; only `_launch` adds to it
 
 
 def adam_flat_ref(phi, g, m, v, scales, *, lr, b1, b2, eps, wd):
@@ -41,7 +42,6 @@ def adam_flat_ref(phi, g, m, v, scales, *, lr, b1, b2, eps, wd):
 def adam_flat_pallas(phi, g, m, v, scales, *, lr, b1, b2, eps, wd):
     """One fused Adam step on flat (N,) buffers, φ, m and v updated in
     place and returned; scales = (2,) f32 [1/(1−b1^t), 1/(1−b2^t)]."""
-    global launches
     if not phi.is_cuda:
         p2, m2, v2 = adam_flat_ref(phi, g, m, v, scales, lr=lr, b1=b1,
                                    b2=b2, eps=eps, wd=wd)
@@ -49,11 +49,18 @@ def adam_flat_pallas(phi, g, m, v, scales, *, lr, b1, b2, eps, wd):
         m.copy_(m2)
         v.copy_(v2)
         return phi, m, v
-    if phi.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"the Adam kernel takes float32 φ and g, got "
-                        f"{phi.dtype}, {g.dtype}")
-    get_ext().adam_flat(phi, g.contiguous(), m, v,
-                        scales.float().contiguous(), float(lr), float(b1),
+    return _launch(phi, g, m, v, scales, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd)
+
+
+def _launch(phi, g, m, v, scales, *, lr, b1, b2, eps, wd):
+    """Launch K3, or raise `_checks.Refused` (a ValueError and a
+    TypeError) before the extension for a call its binding would
+    refuse: φ and g float32, m and v float32 or bfloat16, all (N,)
+    contiguous."""
+    global launches
+    g, scales = g.contiguous(), scales.float().contiguous()
+    _checks.adam_flat(phi, g, m, v, scales)
+    get_ext().adam_flat(phi, g, m, v, scales, float(lr), float(b1),
                         1.0 - b1, float(b2), 1.0 - b2, float(eps), float(wd))
     launches += 1
     return phi, m, v

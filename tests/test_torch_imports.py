@@ -36,6 +36,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     of `repro` and no kernel build (there is no nvcc here)."""
     mods = _modules()
     assert len(mods) > 20
+    assert {"repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.seamless_m4t_medium",
+            "repro_torch.kernels._checks"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -139,6 +139,10 @@ ATTN_CASES = {   # B, Lq, Lk, H, Kv, hd, hd_v, causal, window, q_offset
     "q_offset": (2, 32, 64, 4, 2, 32, 32, True, None, 32),
     "hd_v": (1, 64, 64, 4, 4, 40, 24, True, None, 0),
     "bidirectional": (1, 64, 64, 4, 2, 32, 32, False, None, 0),
+    # cross-attention: text queries over encoder frames, no mask
+    "cross": (2, 96, 32, 4, 4, 32, 32, False, None, 0),
+    # cross-attention at a decode step: one query over every frame
+    "one_query": (2, 1, 64, 4, 4, 32, 32, False, None, 0),
 }
 
 
