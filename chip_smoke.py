@@ -86,7 +86,7 @@ Phases, each printing one JSON line:
            a round under int8, and the int8 run again with impl="torch",
            bitwise equal; (ii) int8+ef with DP for 5 rounds, kernel and
            plain routes bitwise equal; (iii) the committed FEMNIST
-           comparison plan (five methods, 100 rounds), bytes held
+           comparison plan (five methods; cut to 40 rounds), bytes held
            exactly; (iv) 2 FOMAML rounds of SmolLM-360M at full width
            with int8 uploads, error feedback over 8 client rows and DP,
            round 1 held against the all-plain route.
@@ -111,7 +111,7 @@ Phases, each printing one JSON line:
            artifact's, then 5 FOMAML rounds on the kernel route and on
            impl="torch" (equal NaN masks in φ, finite entries bitwise);
            (ii) the committed recommender plan (FedMeta on the 40-way
-           local head, FedAvg on the 120-way global head; cut to 20
+           local head, FedAvg on the 120-way global head; cut to 10
            rounds), θ's size by method equal to the artifact's, top-4 in
            every eval record; (iii) the Shakespeare (`char_lstm`) plan
            for 4 rounds (an eval every 2) and the LM one (reduced
@@ -181,11 +181,13 @@ Phases, each printing one JSON line:
            largest), K9 counted under the gradient, round 2 traced.
   decode_launcher  `repro_torch.launch.serve.main(["--arch",
            "mamba2-370m", "--steps", "4"])`: decode_32k's batch of 128
-           at full width; finite logits, ms per step, peak memory.
+           at full width, on the 1x1 NCCL host mesh (the weights and
+           cache as DTensors); finite logits, ms per step, peak memory;
+           the same 4 steps with no mesh, ms per step.
   train_launcher  the LM training launcher (`launch/train.py`, the
            reference's `make_train_step`, layer remat): (i)
            `train.main(["--arch", "smollm-360m", "--reduced", "--steps",
-           "2"])`; (ii) SmolLM-360M at full width and train_4k's 4,096
+           "2"])` (on the 1x1 host mesh); (ii) SmolLM-360M at full width and train_4k's 4,096
            tokens, cut in sequences a client and clients (`LAUNCH_CUT`):
            2 FOMAML steps and 1 MAML step through `train.train`, K1 and
            K7 launched, finite loss, φ moved, per-step ms and peak GB;
@@ -239,6 +241,30 @@ Phases, each printing one JSON line:
            handoff of 4 tokens on the kernel route against the plain
            route (K7, K8 plain) within twice the bf16 spread; (v)
            decode_32k at 4 of 28 layers (K8 at G = 7).
+
+  multi_device  the multi-device plane on the one card, in two worlds:
+           (i) an NCCL world of 1 (a FileStore in a temp dir): the
+           sharded FedMeta round (`client_axis="sharded"`, the packed
+           client plane, FOMAML, m = 4, SmolLM-360M at full width) bitwise
+           the vmap round from the same state (φ, Adam's m, v and step,
+           the metrics), K1, K2 and K3 launched, one all-reduce of the
+           (N,) partial and the metrics; deepseek-v2-236b's MoE layer at
+           full width (160 experts of d_ff 1,536, top-6, 2 shared, bf16,
+           4,096 tokens) through `ep_moe_apply` on the 1x1 mesh against
+           `moe_apply` (within twice the bf16 spread; two runs bitwise;
+           dropped entries against a count from the router logits); the
+           training launcher (`launch/train.train`) on the 1x1 mesh with
+           DTensor state, SmolLM-360M at train_4k's 4,096 tokens cut to 1
+           client of 1 + 1 sequences, one FOMAML step against the meshless
+           step (loss, φ bitwise or within 2·lr plus a bf16 ulp), K7 and
+           K1 launched through `local_map`. (ii) Two spawned ranks on the
+           one card over gloo (each rank's CUDA tensors staged through
+           pinned host buffers; not an interconnect measurement): the
+           sharded round at m = 5 (one zero-weight pad row) within the f32
+           rule of the vmap round (meta-gradient at rtol 1e-5, φ within
+           2·lr), each rank's K2 bitwise its plain version on the same
+           rows, and the expert-parallel layer with 80 experts a rank
+           against `moe_apply`. Collective calls and bytes are printed.
 
 `python3 chip_smoke.py --launch-cuts fomaml:2,fomaml:16,maml:2` runs no
 phase: it builds the kernels and prints, for each cut `algo:S` (S
@@ -2006,11 +2032,12 @@ def phase_train_femnist(torch):
 LM_ROUND = dict(M=4, S=4, Q=4, L=128, LR=1e-3)
 
 
-def lm_round_setup(torch, cfg, rounds):
+def lm_round_setup(torch, cfg, rounds, M=None):
     """The LM round's pieces: FOMAML (inner lr 0.05) over `lm_loss` (no
     remat: 128-token sequences fit the card without it), φ from seed 0
     on the card, Adam, the packed state, and `rounds` seeded
-    batches of M clients × (S support, Q query) sequences of L tokens."""
+    batches of M clients (`LM_ROUND`'s unless given) × (S support, Q
+    query) sequences of L tokens."""
     import numpy as np
     from repro_torch.core import make_algorithm
     from repro_torch.core.fedmeta import init_packed_state
@@ -2020,7 +2047,8 @@ def lm_round_setup(torch, cfg, rounds):
     from repro_torch.optim import adam
     from repro_torch.utils.flat import plane_for
 
-    M, S, Q, L = (LM_ROUND[k] for k in "MSQL")
+    S, Q, L = (LM_ROUND[k] for k in "SQL")
+    M = M or LM_ROUND["M"]
     algo = make_algorithm("fomaml",
                           *lm_loss(make_apply_fn(cfg, remat=False)), 0.05)
     phi = {"theta": init_lm(0, cfg, device="cuda")}
@@ -2285,7 +2313,8 @@ def phase_decode_launcher(torch):
     """`python -m repro_torch.launch.serve --arch mamba2-370m --steps 4`
     in process: full width, decode_32k's batch of 128 against the fixed
     SSM state (48 layers × 128 × (3 × 2304 bf16 + 32 × 64 × 128 f32) ≈
-    6.5 GB)."""
+    6.5 GB), on the 1x1 host mesh; then the same 4 steps with no mesh
+    (`decode_steps`), for the mesh's cost a step."""
     from repro_torch.launch import serve
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2293,6 +2322,11 @@ def phase_decode_launcher(torch):
     res = serve.main(["--arch", "mamba2-370m", "--steps", "4"])
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the CLI runs on the 1x1 mesh (DTensor weights and cache); the same
+    # steps with no mesh give what the mesh's dispatch costs
+    from repro_torch.configs import get_config
+    meshless = serve.decode_steps(get_config("mamba2-370m"), 128, 32768, 4)
+    res["ms_per_step_meshless"] = [t * 1e3 for t in meshless["step_s"]]
     errors = []
     if not res["logits_finite"]:
         errors.append("non-finite decode logits")
@@ -3540,9 +3574,16 @@ def comm_dp(torch, errors, rounds=5):
         {"comm_dp": launches}
 
 
-def comm_compare(torch, errors, rounds=100, eval_every=2):
+# the committed FEMNIST plan's 100 rounds, cut to 40 when the
+# multi_device phase joined (about 0.46 s a round of the five methods on
+# an H100 80GB HBM3 at 700 W): bytes a round are held every round
+COMPARE_ROUNDS = 40
+
+
+def comm_compare(torch, errors, rounds=COMPARE_ROUNDS, eval_every=2):
     """(iii) the committed FEMNIST comparison plan on the client plane:
-    FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD."""
+    FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD, cut to
+    `COMPARE_ROUNDS`."""
     from repro_torch.federated.experiment import format_table, run_comparison
     from repro_torch.launch.compare import comparison_plan
     committed = _committed("femnist_compare.json")
@@ -4083,9 +4124,10 @@ SCENARIO_ROUND_BYTES = {
 # 130 s and the script well inside its time limit as phases are added:
 # rounds are host-bound (eager dispatch), and a round of the five methods
 # with its evals took 8.7 s for Sent140, 10.3 s for Shakespeare and
-# 0.9 s for the recommender on an H100 80GB HBM3 at 700 W. Each cut is
-# printed on the part's line.
-SCENARIO_RUNS = {"sent140": (4, 2), "recommend": (20, 2),
+# 0.9 s for the recommender on an H100 80GB HBM3 at 700 W (the
+# recommender cut from 20 to 10 when the multi_device phase joined).
+# Each cut is printed on the part's line.
+SCENARIO_RUNS = {"sent140": (4, 2), "recommend": (10, 2),
                  "shakespeare": (4, 2), "lm": (10, 5)}
 # the paper's widths (the reference's defaults): LEAF's Shakespeare
 # char-LSTM and the Sent140 LSTM with a learned 64-wide embedding;
@@ -5136,6 +5178,362 @@ def phase_train_population(torch, cfg):
     return paths
 
 
+# ------------------------------------------------------------ multi_device
+
+# deepseek-v2-236b's MoE layer at full width: 160 experts of d_ff 1,536,
+# top-6, 2 shared experts, bf16 (7.55 GB of experts), over 4,096 tokens
+EP_TOKENS = 4096
+# the sharded round's client counts: m = 4 at world 1 (the LM round's),
+# m = 5 at world 2 (one zero-weight pad row on rank 1)
+MD_CLIENTS = {1: 4, 2: 5}
+MD_CHILD_TIMEOUT_S = 300
+
+
+def _md_flags(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def _state_copy(torch, state):
+    from repro_torch.utils.pytree import tree_map
+    return {"phi": state["phi"].clone(),
+            "opt": tree_map(torch.clone, state["opt"])}
+
+
+def md_sharded_round(torch, cfg, m, check_k2=False):
+    """One packed FOMAML round of SmolLM-360M at full width on the
+    client plane (the LM round's 4 + 4 sequences of 128 tokens), m
+    clients, on the sharded client axis over the default process group
+    and again on the vmap axis from the same state (the vmap round only
+    where ``check_k2`` is off or on rank 0). Returns the record and, on
+    rank 0 or world 1, (sharded state, vmap state, metrics of each).
+    With ``check_k2`` every K2 call of the sharded round is also run on
+    its plain version on the same rows and must be bitwise equal."""
+    import torch.distributed as dist
+    from repro_torch.core.fedmeta import make_packed_meta_train_step
+    from repro_torch.kernels.meta_update import ops as mu_ops
+    from repro_torch.kernels.meta_update import ref as mu_ref
+    from repro_torch.sharding import collectives
+    algo, opt, plane, state, (batch,) = lm_round_setup(torch, cfg, 1, M=m)
+    rank = dist.get_rank()
+    start = _state_copy(torch, state) if rank == 0 else None
+    k2_rows, orig = [], mu_ops.weighted_aggregate
+
+    def checked(G, w, *, impl=None):
+        out = orig(G, w, impl=impl)
+        k2_rows.append({"rows": int(G.shape[0]), "bitwise_plain": bool(
+            torch.equal(out, mu_ref.weighted_aggregate_ref(G, w)))})
+        return out
+
+    step = make_packed_meta_train_step(algo, opt, plane, client_plane=True,
+                                       client_axis="sharded", impl="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    collectives.reset()
+    if check_k2:
+        mu_ops.weighted_aggregate = checked
+    try:
+        t0 = time.perf_counter()
+        sharded, met = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mu_ops.weighted_aggregate = orig
+    rec = {"world": dist.get_world_size(), "rank": rank, "clients": m,
+           "n_plane": plane.n_padded, "round_s": wall,
+           "launches": read_launches(),
+           "collectives": {"calls": dict(collectives.calls),
+                           "bytes": dict(collectives.bytes_)},
+           "metrics": {k: float(v) for k, v in met.items()}}
+    if check_k2:
+        rec["k2_calls"] = k2_rows
+    if start is None:
+        return rec, None
+    del state
+    vstep = make_packed_meta_train_step(algo, opt, plane, client_plane=True,
+                                        impl="cuda")
+    vmap, vmet = vstep(start, *batch)
+    torch.cuda.synchronize()
+    return rec, (sharded, vmap, met, vmet)
+
+
+def md_compare_rounds(torch, rec, states, bitwise, errors):
+    """Hold the sharded round against the vmap round: bitwise (φ, m, v,
+    step, metrics), or within the port's f32 rule — the meta-gradient
+    (Adam's m over 1 − β1) at rtol 1e-5 of its largest entry, φ within
+    2·lr after Adam's first step — with the gaps recorded."""
+    sharded, vmap, met, vmet = states
+    same = {k: bool(torch.equal(sharded["opt"][k], vmap["opt"][k]))
+            for k in ("m", "v", "step")}
+    same["phi"] = bool(torch.equal(sharded["phi"], vmap["phi"]))
+    same["metrics"] = all(torch.equal(met[k], vmet[k]) for k in vmet)
+    g_gap = float((sharded["opt"]["m"] - vmap["opt"]["m"]).abs().max()
+                  / vmap["opt"]["m"].abs().max())
+    phi_gap = float((sharded["phi"] - vmap["phi"]).abs().max())
+    lr = LM_ROUND["LR"]
+    met_gap = max(abs(float(met[k]) - float(vmet[k])) /
+                  max(abs(float(vmet[k])), 1e-30) for k in vmet)
+    rec.update({"bitwise": same, "meta_grad_rel_gap": g_gap,
+                "phi_max_abs_gap": phi_gap, "phi_tol": 2 * lr,
+                "metrics_rel_gap": met_gap})
+    tag = f"sharded round at world {rec['world']}"
+    if bitwise:
+        if not all(same.values()):
+            errors.append(f"{tag} is not bitwise the vmap round: {same}")
+    elif not (g_gap <= 1e-5 and phi_gap <= 2 * lr and met_gap <= 1e-5):
+        errors.append(f"{tag}: meta-gradient gap {g_gap} (limit 1e-5), φ "
+                      f"{phi_gap} (limit {2 * lr}), metrics {met_gap}")
+
+
+def md_ep_inputs(torch, cfg):
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Rng
+    params = moe.moe_init(Rng(0, "cuda"), cfg, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn((1, EP_TOKENS, cfg.d_model), device="cuda",
+                    generator=gen).bfloat16()
+    return params, x
+
+
+def md_ep_check(torch, cfg, params, x, mesh, errors, *, rank0=True):
+    """`ep_moe_apply` on ``mesh`` twice (bitwise equal), against
+    `moe_apply` in bf16 within twice the bf16 rounding spread (the gap
+    of the bf16 layer to the same layer in f32), and its dropped entries
+    against a count from the router logits alone."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.ep_moe import ep_moe_apply
+    from repro_torch.utils.pytree import tree_map
+    with torch.no_grad():
+        collectives.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y1 = ep_moe_apply(params, cfg, x, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = {"calls": dict(collectives.calls),
+                 "bytes": dict(collectives.bytes_)}
+        y2 = ep_moe_apply(params, cfg, x, mesh)
+        rec = {"ep_ms": wall * 1e3, "collectives": calls,
+               "twice_bitwise": bool(torch.equal(y1, y2))}
+        if not rec["twice_bitwise"]:
+            errors.append("ep_moe_apply: two runs differ")
+        if not rank0:
+            return rec
+        y_tp, _ = moe.moe_apply(params, cfg, x)
+        p32 = tree_map(lambda t: t.float(), params)
+        y32, _ = moe.moe_apply(p32, cfg, x.float())
+        del p32
+        spread = float((y_tp.float() - y32).abs().max())
+        gap = float((y1.float() - y_tp.float()).abs().max())
+        xt = x.reshape(-1, cfg.d_model)
+        route = moe.moe_route(params, cfg, xt)
+        want, _ = routed_overflow(torch, (xt @ params["w_router"]).float(),
+                                  cfg.num_experts_per_tok, route["capacity"])
+        rec.update({"gap_to_moe_apply": gap, "bitwise_moe_apply":
+                    bool(torch.equal(y1, y_tp)), "bf16_spread": spread,
+                    "tol": 2 * spread, "capacity": route["capacity"],
+                    "dropped": moe.dropped_entries(route),
+                    "dropped_from_logits": want})
+    if gap > 2 * spread:
+        errors.append(f"ep_moe_apply vs moe_apply: {gap} > 2 x {spread}")
+    if rec["dropped"] != want:
+        errors.append(f"dropped {rec['dropped']} != {want} from the logits")
+    return rec
+
+
+def _md_child(rank, world, store, out_dir):
+    """One rank of the two-rank world on the one card (gloo; its CUDA
+    tensors staged through pinned host buffers by
+    `sharding.collectives`): the sharded round at m = 5 and the
+    expert-parallel layer on a 1x2 model mesh. Writes its record to
+    ``out_dir/rank{rank}.json``; a failure exits nonzero."""
+    import torch
+    import torch.distributed as dist
+    errors, rec = [], {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        _md_flags(torch)
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_host_mesh
+        _build.get_ext()
+        cfg = get_config("smollm-360m")
+        r, states = md_sharded_round(torch, cfg, MD_CLIENTS[2],
+                                     check_k2=True)
+        if states is not None:
+            md_compare_rounds(torch, r, states, False, errors)
+        del states
+        if not all(c["bitwise_plain"] for c in r["k2_calls"]):
+            errors.append(f"rank {rank}: K2 differs from its plain version")
+        for name in ("inner_update_plane", "weighted_aggregate", "adam_flat"):
+            if r["launches"][name] <= 0:
+                errors.append(f"rank {rank}: {name} not launched")
+        rec["sharded"] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+        mcfg = get_config("deepseek-v2-236b")
+        mesh = make_host_mesh(1, world, device_type="cuda")
+        params, x = md_ep_inputs(torch, mcfg)
+        rec["ep"] = md_ep_check(torch, mcfg, params, x, mesh, errors,
+                                rank0=rank == 0)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        dist.barrier()
+    except Exception as e:       # noqa: BLE001 — recorded, then exit 1
+        errors.append(f"{type(e).__name__}: {e}")
+        rec["trace"] = traceback.format_exc()[-3000:]
+    rec["errors"] = errors
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    sys.exit(1 if errors else 0)
+
+
+def md_two_ranks(torch, errors):
+    """Spawn the two ranks (`_md_child`), wait for both within
+    `MD_CHILD_TIMEOUT_S`, and read their records: a child that fails,
+    hangs or writes no record fails the phase."""
+    import multiprocessing as mp
+    import tempfile
+    out = tempfile.mkdtemp(prefix="md_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_md_child,
+                         args=(r, 2, os.path.join(out, "store"), out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + MD_CHILD_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    recs = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            errors.append(f"rank {r} did not finish in {MD_CHILD_TIMEOUT_S} s")
+        path = os.path.join(out, f"rank{r}.json")
+        if not os.path.exists(path):
+            errors.append(f"rank {r} wrote no record (exit {p.exitcode})")
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        rec["exitcode"] = p.exitcode
+        errors.extend(f"rank {r}: {e}" for e in rec["errors"])
+        if p.exitcode != 0 and not rec["errors"]:
+            errors.append(f"rank {r} exited {p.exitcode}")
+        recs.append(rec)
+    return recs
+
+
+def md_launcher(torch, errors):
+    """The training launcher on the 1x1 NCCL host mesh: SmolLM-360M at
+    full width, train_4k's 4,096 tokens cut to 1 client of 1 + 1
+    sequences, one FOMAML step with the state and batch as DTensors,
+    against the same step with no mesh from the same φ: the loss, and φ
+    bitwise or within 2·lr plus one bf16 ulp of the entry (Adam's first
+    step moves an entry by at most lr). K7 and K1 launched on the mesh
+    (through `local_map`)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    cfg = get_config("smollm-360m")
+    shape = tl.cut_shape(INPUT_SHAPES["train_4k"], seqs_per_client=2,
+                         clients=1)
+    _, init_state, _, _ = make_train_step(cfg)
+    phi = init_state(0, device="cuda")["phi"]
+    runs = {}
+    for name, mesh in (("meshless", None),
+                       ("mesh", make_host_mesh(1, 1, device_type="cuda"))):
+        reset_launches()
+        state, recs = tl.train(cfg, shape, steps=1, device="cuda",
+                               phi=tree_map(torch.clone, phi),
+                               log_every=10 ** 9, mesh=mesh, **LAUNCH_LR)
+        runs[name] = (tl.full(state["phi"]), recs[0], read_launches())
+        del state
+    (p0, r0, _), (p1, r1, launches) = runs["meshless"], runs["mesh"]
+    a, b = tree_leaves(p0), tree_leaves(p1)
+    bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
+    lr = LAUNCH_LR["outer_lr"]
+    over = max(float(((x.float() - y.float()).abs() - 2 * lr
+                      - torch.finfo(torch.bfloat16).eps * y.float().abs())
+                     .max()) for x, y in zip(a, b))
+    gap = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    rec = {"seq_len": shape.seq_len, "support": 1, "query": 1,
+           "loss": {"meshless": r0["query_loss"], "mesh": r1["query_loss"]},
+           "step_s": {"meshless": r0["wall_s"], "mesh": r1["wall_s"]},
+           "phi_bitwise": bitwise, "phi_max_abs_gap": gap,
+           "phi_tol": f"2·lr + eps(bf16)·|φ| (lr {lr})", "launches": launches}
+    if not bitwise and over > 0:
+        errors.append(f"launcher on the mesh: φ gap {gap} past the limit")
+    if abs(r0["query_loss"] - r1["query_loss"]) > 1e-5 * abs(
+            r0["query_loss"]):
+        errors.append(f"launcher loss {r1['query_loss']} != "
+                      f"{r0['query_loss']}")
+    for name in ("flash_attention", "inner_update_plane"):
+        if launches[name] <= 0:
+            errors.append(f"{name} not launched by the launcher on a mesh")
+    del runs, p0, p1, a, b
+    return rec, launches
+
+
+def phase_multi_device(torch):
+    """The multi-device plane on the one card: (i) the sharded FedMeta
+    round at an NCCL world of 1, bitwise the vmap round; (ii) the
+    expert-parallel MoE layer on the 1x1 mesh against `moe_apply`; (iii)
+    the launcher on the 1x1 mesh against the meshless step; (iv) two
+    ranks over gloo on the one card (not an interconnect measurement):
+    the sharded round at m = 5 within the f32 rule of the vmap round,
+    each rank's K2 bitwise its plain version, and the expert-parallel
+    layer with 80 experts a rank."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import ensure_world, make_host_mesh
+    errors, paths, parts = [], {}, {}
+    cfg = get_config("smollm-360m")
+    t0 = time.perf_counter()
+    ensure_world("cuda")
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        raise PhaseFailed("multi_device needs the NCCL world of 1")
+    rec, states = md_sharded_round(torch, cfg, MD_CLIENTS[1])
+    md_compare_rounds(torch, rec, states, True, errors)
+    del states
+    paths["multi_device_sharded"] = rec["launches"]
+    for name in ("inner_update_plane", "weighted_aggregate", "adam_flat"):
+        if rec["launches"][name] <= 0:
+            errors.append(f"{name} not launched on the sharded round")
+    parts["sharded_world1"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = get_config("deepseek-v2-236b")
+    params, x = md_ep_inputs(torch, mcfg)
+    parts["ep_world1"] = md_ep_check(torch, mcfg, params, x,
+                                     make_host_mesh(1, 1), errors)
+    del params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["launcher_mesh"], paths["multi_device_launcher"] = md_launcher(
+        torch, errors)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    parts["world2_gloo"] = md_two_ranks(torch, errors)
+    w2 = next((r for r in parts["world2_gloo"] if r["rank"] == 0), None)
+    if w2 is not None and "sharded" in w2:
+        paths["multi_device_sharded_w2"] = w2["sharded"]["launches"]
+    emit({"phase": "multi_device", "ok": not errors, **parts,
+          "world1_s": t1 - t0, "world2_s": time.perf_counter() - t1,
+          "errors": errors})
+    if errors:
+        raise PhaseFailed("; ".join(errors))
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--launch-cuts", metavar="ALGO:S,...", default=None,
@@ -5248,6 +5646,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("serve_multimodal")
         paths.update(phase_serve_multimodal(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("multi_device")
+        paths.update(phase_multi_device(torch))
     except Exception as e:       # noqa: BLE001 — report, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}",
               "trace": traceback.format_exc()[-4000:]})

@@ -10,10 +10,15 @@ One meta-training round:
 
 Client axes: "vmap" (all clients of the round as one chunk — a loop over
 clients, or over chunk rows on the client plane), "scan" (one client at
-a time into an accumulator) and "chunked" (chunks of ``client_chunk``
-clients, the tail padded with zero-weight copies of client 0). PyTorch
-runs eagerly, so the three differ in how much is alive at once, not in
-what is computed.
+a time into an accumulator), "chunked" (chunks of ``client_chunk``
+clients, the tail padded with zero-weight copies of client 0) and
+"sharded" (the clients split over the ranks of a process group: every
+rank holds the round's whole batch, pads it to a multiple of the world
+with zero-weight copies of client 0, reduces its own slice — one chunk,
+or chunks of ``client_chunk`` — to a partial meta-gradient and weighted
+metrics, and one all-reduce sums them; every rank then takes the same
+outer step). PyTorch runs eagerly, so vmap, scan and chunked differ in
+how much is alive at once, not in what is computed.
 
 Two parameter representations:
   - tree (`make_meta_train_step`): φ stays a tree; aggregation and the
@@ -27,8 +32,7 @@ Two parameter representations:
 The bytes-on-the-wire knobs (``compression``, ``dp``), the failure
 plane (``faults``, robust ``aggregator``s, the non-finite ``guard``) and
 staleness-aware aggregation (``staleness``, its ring in the state) run
-on the packed vmap axis. The sharded axis raises `NotImplementedError`
-naming its slice.
+on the packed vmap axis only, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,21 +40,16 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.meta_update import ops as mu_ops
+from repro_torch.sharding.context import get_mesh
 from repro_torch.utils.flat import FlatPlane, plane_for
 from repro_torch.utils.pytree import (tree_add, tree_flatten, tree_map,
-                                      tree_scale, tree_zeros_like)
+                                      tree_scale, tree_unflatten,
+                                      tree_zeros_like)
 
-CLIENT_AXES = ("vmap", "scan", "chunked")
-
-
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it joins the "
-                               f"port with the {slice_name} slice")
+CLIENT_AXES = ("vmap", "scan", "chunked", "sharded")
 
 
 def _check_axis(client_axis):
-    if client_axis == "sharded":
-        raise _not_ported("client_axis='sharded'", "multi-device")
     if client_axis not in CLIENT_AXES:
         raise ValueError(client_axis)
 
@@ -109,6 +108,65 @@ def _scan_chunks(chunk_fn, acc0, add, support, query, w, m, chunk):
                  for k in per_chunk[0]}
 
 
+def _resolve_axis(mesh, mesh_axis):
+    """The process group clients shard over, its size and this rank's
+    index in it -> (group, size, rank).
+
+    Precedence (the reference's `_resolve_mesh`): an explicit ``mesh``
+    (a DeviceMesh; ``mesh_axis`` names its dim, default its first), then
+    the ambient mesh (`sharding.context`), then a 1-D "clients" axis
+    over the default group's world. With no group initialized that is a
+    world of one (group None), as the reference's one-device host mesh
+    is, and nothing is communicated."""
+    import torch.distributed as dist
+    mesh = mesh or get_mesh()
+    if mesh is not None:
+        ax = mesh_axis or mesh.mesh_dim_names[0]
+        return (mesh.get_group(ax), mesh.size(mesh.mesh_dim_names.index(ax)),
+                mesh.get_local_rank(ax))
+    if mesh_axis is not None:
+        raise ValueError(f"mesh_axis={mesh_axis!r} needs a mesh")
+    if not dist.is_initialized():
+        return None, 1, 0
+    return dist.group.WORLD, dist.get_world_size(), dist.get_rank()
+
+
+def _sharded_reduce(chunk_fn, acc0, add, support, query, w, m, client_chunk,
+                    mesh, mesh_axis):
+    """The sharded axis's reduction, shared by the tree and packed
+    pipelines. Clients are padded to a multiple of the axis's size and
+    this rank takes its slice; chunk_fn runs on it (chunk by chunk when
+    ``client_chunk`` < the local count), and ONE all-reduce (SUM) over
+    the axis's group sums the partial aggregates (a flat (N,) buffer or
+    a tree: its leaves laid end to end) together with the weighted
+    metrics. Returns (aggregate, metric sums), equal on every rank."""
+    from repro_torch.sharding.collectives import all_reduce_sum
+    group, size, rank = _resolve_axis(mesh, mesh_axis)
+    sup_p, qry_p, w_p, m_pad = _pad_client_axis(support, query, w, m, size)
+    m_loc = m_pad // size
+    lo = rank * m_loc
+    s, q = tree_map(lambda x: x[lo:lo + m_loc], (sup_p, qry_p))
+    wl = w_p[lo:lo + m_loc]
+    if client_chunk and client_chunk < m_loc:
+        partial, mets = _scan_chunks(chunk_fn, acc0, add, s, q, wl, m_loc,
+                                     client_chunk)
+    else:
+        partial, mets = chunk_fn(s, q, wl)
+    if group is None:
+        return partial, mets
+    leaves, treedef = tree_flatten(partial)
+    keys = sorted(mets)
+    buf = torch.cat([x.reshape(-1).float() for x in leaves]
+                    + [mets[k].reshape(1).float() for k in keys])
+    all_reduce_sum(buf, group)
+    out, off = [], 0
+    for x in leaves:
+        out.append(buf[off:off + x.numel()].view(x.shape).to(x.dtype))
+        off += x.numel()
+    return (tree_unflatten(treedef, out),
+            {k: buf[off + i] for i, k in enumerate(keys)})
+
+
 def _client(tree, u):
     return tree_map(lambda x: x[u], tree)
 
@@ -127,10 +185,13 @@ def _stack_clients(results):
 
 def federated_meta_step(algo, optimizer, phi, opt_state, support, query,
                         weights=None, *, client_axis: str = "vmap",
-                        client_chunk: int | None = None):
+                        client_chunk: int | None = None, mesh=None,
+                        mesh_axis: str | None = None):
     """support/query: trees with a leading client axis m on each leaf.
     weights: (m,) aggregation weights (paper A.2 weights by local data
-    count); None = uniform 1/m. Returns (phi, opt_state, metrics)."""
+    count); None = uniform 1/m. Returns (phi, opt_state, metrics).
+    mesh/mesh_axis: only for client_axis="sharded" (default: the ambient
+    mesh, its first axis; else the default group's world)."""
     _check_axis(client_axis)
     m, device = _leading(support)
     w = _normalize_weights(weights, m, device)
@@ -158,24 +219,30 @@ def federated_meta_step(algo, optimizer, phi, opt_state, support, query,
                 tree_map(lambda x: x.float(), g), w[u]))
             mets.append(met)
         metrics = _weighted_metrics(w, _stack_metrics(mets))
-    else:
+    elif client_axis == "chunked":
         meta_g, metrics = _scan_chunks(
             tree_chunk, tree_acc0(), tree_add, support, query, w, m,
             client_chunk or min(m, 8))
+    else:
+        meta_g, metrics = _sharded_reduce(
+            tree_chunk, tree_acc0(), tree_add, support, query, w, m,
+            client_chunk, mesh, mesh_axis)
 
     new_phi, new_opt = optimizer.update(phi, meta_g, opt_state)
     return new_phi, new_opt, metrics
 
 
 def make_meta_train_step(algo, optimizer, *, client_axis: str = "vmap",
-                         client_chunk: int | None = None):
+                         client_chunk: int | None = None, mesh=None,
+                         mesh_axis: str | None = None):
     """-> step(state, support, query, weights) with state = {phi, opt}."""
     _check_axis(client_axis)
 
     def step(state, support, query, weights=None):
         phi, opt_state, metrics = federated_meta_step(
             algo, optimizer, state["phi"], state["opt"], support, query,
-            weights, client_axis=client_axis, client_chunk=client_chunk)
+            weights, client_axis=client_axis, client_chunk=client_chunk,
+            mesh=mesh, mesh_axis=mesh_axis)
         return {"phi": phi, "opt": opt_state}, metrics
 
     return step
@@ -240,7 +307,8 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                                 faults=None,
                                 guard: bool = False,
                                 compression=None,
-                                dp=None):
+                                dp=None,
+                                mesh=None, mesh_axis: str | None = None):
     """Meta-train step over the packed plane: state = {phi: (N,), opt}.
 
     φ is unpacked to a tree once per round (the client model needs
@@ -251,6 +319,10 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
     client-gradient block (None = f32; bf16 halves the aggregation
     traffic, K2 still sums in f32). ``client_plane=True`` runs the inner
     loop on the flat (C, N) plane too (`client_grad_chunk_packed`).
+    ``client_axis="sharded"`` splits the clients over the ranks of
+    ``mesh``'s ``mesh_axis`` (default: the ambient mesh, else the
+    default group's world): each rank reduces its slice with K2 and one
+    all-reduce sums the (N,) partials and the metrics before K3.
 
     The failure plane (vmap axis only; ``client_plane=True`` allowed):
 
@@ -536,10 +608,14 @@ def make_packed_meta_train_step(algo, optimizer, plane: FlatPlane, *,
                 meta_g = meta_g + w[u] * g.float()
                 mets.append(met)
             metrics = _weighted_metrics(w, _stack_metrics(mets))
-        else:
+        elif client_axis == "chunked":
             meta_g, metrics = _scan_chunks(
                 packed_chunk, plane.zeros(device), torch.add, support,
                 query, w, m, client_chunk or min(m, 8))
+        else:
+            meta_g, metrics = _sharded_reduce(
+                packed_chunk, plane.zeros(device), torch.add, support,
+                query, w, m, client_chunk, mesh, mesh_axis)
 
         return finish(state, meta_g, metrics)
 

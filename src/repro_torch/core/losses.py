@@ -4,16 +4,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.dtensor import batch_layout, replicated
+
 
 def softmax_xent(logits, labels):
-    """Mean cross entropy. logits: (..., C) f32; labels: (...) int."""
+    """Mean cross entropy. logits: (..., C) f32; labels: (...) int.
+    DTensor logits (a step on a mesh) take the batch layout first, the
+    classes whole on every rank: DTensor's backward of the class gather
+    views a slice it cannot view."""
+    logits, labels = batch_layout((logits, labels))
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return -torch.mean(ll)
 
 
-def accuracy(logits, labels):
+def _accuracy(logits, labels):
     return torch.mean((torch.argmax(logits, dim=-1) == labels).float())
+
+
+def accuracy(logits, labels):
+    """Top-1 accuracy. DTensor logits (a step on a mesh) are gathered
+    whole first: DTensor has no rule for an argmax over a sharded
+    vocabulary."""
+    return replicated(_accuracy, logits, labels)
 
 
 def topk_accuracy(logits, labels, k: int):

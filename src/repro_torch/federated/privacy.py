@@ -13,9 +13,15 @@ noise comes from a `torch.Generator` seeded from ``(seed, round)`` — a
 pure function of the round index, as the reference's
 ``fold_in(PRNGKey(seed), round)`` is. Every function that draws accepts
 the draw as a tensor instead, so the parity tests hand in the
-reference's own draw. The secure-aggregation simulation of the
-reference (`masked_uploads`, `secure_sum`) is on no path of the port
-yet.
+reference's own draw.
+
+Secure aggregation (`masked_uploads`, `secure_sum`,
+`repro/federated/privacy.py:121-145`) simulates the pairwise-mask
+protocol: each pair of clients (lo, hi) shares a mask M, client lo
+adds it and client hi subtracts it, so the masks cancel in the sum. The
+masks come in as draws keyed by (lo, hi) (`pair_masks` draws them from
+a torch.Generator), for the same reason as the DP noise: a test hands
+in the reference's own ``_pair_mask`` draws.
 """
 from __future__ import annotations
 
@@ -126,3 +132,40 @@ def dp_aggregate(client_grads, weights, noise, *, clip_norm: float,
 
     return add_gaussian_noise(tree_map(mean, *clipped), noise,
                               noise_multiplier, clip_norm, m)
+
+
+# ------------------------------------------------------- secure aggregation
+
+def pair_masks(m: int, like, noise=None) -> dict:
+    """Standard-normal f32 masks for every client pair: {(lo, hi): tree
+    shaped as ``like`` (one client's gradient)}, drawn pair by pair in
+    (lo, hi) order, leaf by leaf, from ``noise`` (a torch.Generator, or
+    None for the default generator)."""
+    leaves, treedef = tree_flatten(like)
+    return {(lo, hi): tree_unflatten(treedef, [
+                gaussian(x.shape, noise, x.device) for x in leaves])
+            for lo in range(m) for hi in range(lo + 1, m)}
+
+
+def masked_uploads(client_grads, masks) -> list:
+    """Per-client uploads g_u + Σ_{v>u} M_uv − Σ_{v<u} M_vu, the masks
+    added in ascending v (the reference's order); ``masks[(lo, hi)]`` is
+    the pair's mask tree (`pair_masks`, or injected draws)."""
+    m = tree_flatten(client_grads)[0][0].shape[0]
+    uploads = []
+    for u in range(m):
+        masked = tree_map(lambda x: x[u].float(), client_grads)
+        for v in range(m):
+            if v == u:
+                continue
+            sign = 1.0 if u < v else -1.0
+            masked = tree_map(lambda x, mk, s=sign: x + s * mk.float(),
+                              masked, masks[(min(u, v), max(u, v))])
+        uploads.append(masked)
+    return uploads
+
+
+def secure_sum(uploads):
+    """The server's sum of the masked uploads: Σ_u g_u, the masks
+    cancelled (up to f32 rounding)."""
+    return tree_map(lambda *xs: sum(xs), *uploads)

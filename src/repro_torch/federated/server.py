@@ -8,7 +8,12 @@ or not (FedAvg) and is scored on its query set.
 
 Task batches are drawn with numpy from the trainer's seeded
 `RandomState`, call for call as in the reference, and moved to the
-trainer's ``device`` (default "cuda"; the tests pass "cpu"). The rounds
+trainer's ``device`` (default "cuda"; the tests pass "cpu"). On the
+sharded client axis (``client_axis="sharded"``, ``mesh``,
+``mesh_axis``) every rank runs this trainer with the same seed, so
+every rank draws the same cohort from the same stream (the reference
+is one controller), each reduces its own slice of the clients, and only
+rank 0 writes checkpoints. The rounds
 run on the async round engine (`async_engine.AsyncRoundEngine`):
 prefetching, deferred metrics, fused-K blocks, staleness picks and
 checkpoints at block boundaries, each bitwise neutral to the history.
@@ -24,6 +29,7 @@ leaves out.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -165,13 +171,6 @@ def evaluate_global(eval_fn, theta, clients, *, support_frac, support_size,
     return acc, accs, loss
 
 
-# knobs of the reference trainer that later slices bring: field ->
-# (its default, the slice that ports it)
-_PENDING = {
-    "mesh": (None, "multi-device"), "mesh_axis": (None, "multi-device"),
-}
-
-
 @dataclasses.dataclass
 class FederatedTrainer:
     """FedMeta meta-training loop (Algorithm 1 AlgorithmUpdate), on the
@@ -222,9 +221,10 @@ class FederatedTrainer:
     round_deadline: Optional[float] = None  # latency cutoff
     breaker_threshold: int = 3  # consecutive failures before quarantine
     breaker_cooldown: int = 10  # quarantine length in rounds
-    # ---- knobs of a later slice: they raise unless left at the default
-    mesh: Optional[object] = None
-    mesh_axis: Optional[str] = None
+    # ---- the sharded client axis
+    mesh: Optional[object] = None  # DeviceMesh for client_axis="sharded"
+    mesh_axis: Optional[str] = None  # (None = ambient mesh, first axis;
+                                     # else the default group's world)
 
     def __post_init__(self):
         if self.client_plane and not self.packed:
@@ -293,15 +293,6 @@ class FederatedTrainer:
                 raise ValueError("compression / DP and fuse_rounds>1 are "
                                  "mutually exclusive (EF indices and "
                                  "noise keys are per-round inputs)")
-        for name, (default, slice_name) in _PENDING.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"FederatedTrainer({name}=...) is not ported yet: it "
-                    f"joins the port with the {slice_name} slice")
-        if self.client_axis == "sharded":
-            raise NotImplementedError(
-                "client_axis='sharded' is not ported yet: it joins the port "
-                "with the multi-device slice")
         if self.guard is None:
             # auto: any failure-plane knob needs skip-round semantics
             self.guard = (self.faults is not None or
@@ -320,7 +311,8 @@ class FederatedTrainer:
         # step has no such dependency and is built eagerly
         self._step = None if self.packed else make_meta_train_step(
             self.algo, self.optimizer, client_axis=self.client_axis,
-            client_chunk=self.client_chunk)
+            client_chunk=self.client_chunk, mesh=self.mesh,
+            mesh_axis=self.mesh_axis)
         self._fused = None
         self._plane = None
         self._rng = np.random.RandomState(self.seed)
@@ -365,7 +357,8 @@ class FederatedTrainer:
                 aggregator=self.aggregator,
                 screen_factor=self.screen_factor, trim=self.trim,
                 faults=self.faults, guard=bool(self.guard),
-                compression=self.compression, dp=self.dp)
+                compression=self.compression, dp=self.dp, mesh=self.mesh,
+                mesh_axis=self.mesh_axis)
             if self.fuse_rounds > 1:
                 self._fused = self._fused_step
             state = init_packed_state(
@@ -574,7 +567,10 @@ class FederatedTrainer:
         already past it: the snapshot staged at that block boundary is
         used), the CommTracker counters, the flushed history and, under
         the population plane, the breaker and the participation log. The
-        payload's keys and layout are the reference's."""
+        payload's keys and layout are the reference's. On the sharded
+        axis every rank holds the same state and only rank 0 writes;
+        the others return the path it writes to."""
+        import torch.distributed as dist
         from repro_torch.checkpoint.io import save_server_state
         snap = self._rng_snaps.pop(round_, None) or self._capture_rngs()
         self._rng_snaps = {r: s for r, s in self._rng_snaps.items()
@@ -592,8 +588,11 @@ class FederatedTrainer:
             payload["breaker"] = snap["breaker"]
             payload["participation"] = [list(p) for p in
                                         snap.get("participation", [])]
-        return save_server_state(ckpt_dir or self.checkpoint_dir,
-                                 round_, payload,
+        ckpt_dir = ckpt_dir or self.checkpoint_dir
+        if self.client_axis == "sharded" and dist.is_initialized() and \
+                dist.get_rank() != 0:
+            return os.path.join(ckpt_dir, f"step_{int(round_):08d}")
+        return save_server_state(ckpt_dir, round_, payload,
                                  keep_last=self.checkpoint_keep)
 
     def resume(self, ckpt_dir=None, step: int | None = None):

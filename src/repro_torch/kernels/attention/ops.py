@@ -19,6 +19,8 @@ import contextlib
 
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention.flash_attention import flash_attention_bhld
+from repro_torch.sharding.dtensor import is_dtensor, kernel_axes, local_call
+from repro_torch.sharding.rules import P
 
 _IMPLS = ("torch", "cuda")
 _DEFAULT_IMPL = "cuda"
@@ -39,9 +41,23 @@ def use_impl(impl: str):
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset: int = 0, kv_length=None,
                     impl: str | None = None):
-    """q: (B, Lq, H, hd); k, v: (B, Lk, Kv, hd) -> (B, Lq, H, hd_v)."""
+    """q: (B, Lq, H, hd); k, v: (B, Lk, Kv, hd) -> (B, Lq, H, hd_v).
+
+    DTensor q, k, v (a step on a mesh) enter through `local_map`, the
+    batch over pod+data and the heads over model where they split
+    evenly (`sharding.dtensor.kernel_axes`): each rank runs this
+    function on its own shards."""
     impl = impl or _DEFAULT_IMPL
     assert impl in _IMPLS, impl
+    if is_dtensor(q) and kv_length is None:
+        b, h = kernel_axes(q, q.shape[0], q.shape[2],
+                           group=q.shape[2] // k.shape[2])
+        spec = P(b, None, h, None)
+        return local_call(
+            lambda q_, k_, v_: flash_attention(
+                q_, k_, v_, causal=causal, window=window,
+                q_offset=q_offset, impl=impl),
+            (q, k, v), (spec, spec, spec), spec)
     if impl == "torch" or kv_length is not None:
         # ragged kv_length goes to the oracle under every impl, on any
         # device, as the reference's dispatch sends it to its own

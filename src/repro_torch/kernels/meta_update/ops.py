@@ -31,7 +31,9 @@ from repro_torch.kernels.meta_update.compress import (int8_aggregate_flat,
                                                       topk_aggregate_flat,
                                                       topk_aggregate_ref)
 from repro_torch.kernels.meta_update.fused import inner_update_plane
+from repro_torch.sharding.dtensor import is_dtensor, local_call
 from repro_torch.utils.flat import plane_for
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 _IMPLS = ("torch", "cuda")
 _DEFAULT_IMPL = "cuda"
@@ -63,6 +65,24 @@ def meta_update(theta, alpha, grads, *, impl: str | None = None):
     impl = resolve_impl(impl)
     if impl == "torch":
         return ref.meta_update_ref(theta, alpha, grads)
+    leaves, treedef = tree_flatten(theta)
+    if is_dtensor(leaves[0]):
+        # a step on a mesh: each rank packs and updates its own shards
+        # (the update is elementwise), every operand in θ's placements
+        n = len(leaves)
+        tree_alpha = not isinstance(alpha, (int, float))
+        args = leaves + tree_flatten(grads)[0] + (
+            tree_flatten(alpha)[0] if tree_alpha else [])
+        pls = tuple(x.placements for x in leaves)
+
+        def local(*xs):
+            a = tree_unflatten(treedef, xs[2 * n:]) if tree_alpha else alpha
+            return tuple(tree_flatten(meta_update(
+                tree_unflatten(treedef, xs[:n]), a,
+                tree_unflatten(treedef, xs[n:2 * n]), impl=impl))[0])
+
+        return tree_unflatten(treedef, local_call(
+            local, args, pls * (3 if tree_alpha else 2), pls))
     plane = plane_for(theta)
     t = plane.pack(theta)
     a = alpha if isinstance(alpha, (int, float)) else plane.pack(alpha)

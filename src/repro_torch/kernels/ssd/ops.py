@@ -17,6 +17,9 @@ import torch
 
 from repro_torch.kernels.ssd import ref
 from repro_torch.kernels.ssd.ssd_scan import ssd_intra_chunk
+from repro_torch.sharding.dtensor import (is_dtensor, kernel_axes, local_call,
+                                         summed_over_batch)
+from repro_torch.sharding.rules import P, placements
 
 _IMPLS = ("torch", "cuda")
 _DEFAULT_IMPL = "cuda"
@@ -42,6 +45,23 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
     the last token (for prefill -> decode handoff)."""
     impl = impl or _DEFAULT_IMPL
     assert impl in _IMPLS, impl
+    if is_dtensor(x):
+        # a step on a mesh: each rank scans its own batch rows and heads;
+        # A's gradient is each rank's share, summed over the batch dims
+        from torch.distributed.tensor import Replicate
+        b, h = kernel_axes(x, x.shape[0], x.shape[2])
+        outs = ((P(b, None, h, None), P(b, h, None, None))
+                if return_final_state else P(b, None, h, None))
+        ins = (P(b, None, h, None), P(b, None, h), P(h), P(b, None, None),
+               P(b, None, None))
+        a_grad = tuple(g if isinstance(p, Replicate) else p for g, p in zip(
+            summed_over_batch(x.device_mesh, b),
+            placements(P(h), x.device_mesh)))
+        return local_call(
+            lambda *a: ssd_chunked(*a, chunk=chunk, impl=impl,
+                                   return_final_state=return_final_state),
+            (x, dt, A, Bm, Cm), ins, outs,
+            in_grad_specs=ins[:2] + (a_grad,) + ins[3:])
     if impl == "torch":
         return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk,
                                    return_final_state=return_final_state)

@@ -9,8 +9,12 @@ Counterpart of `repro/launch/serve.py`.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --reduced --steps 4 --device cpu
 
-The CLI runs on one device with no mesh. The decode cache of an
-attention model is a KV ring of the shape's whole sequence: at
+The CLI runs on a device mesh (`launch/mesh.launcher_mesh`: the
+production mesh in a world of 256 or 512 ranks, the 1x1 host mesh in a
+world of one): the weights, the cache and each step's tokens are
+DTensors placed by the ported specs (`param_pspecs`, `input_specs`),
+and K8 runs on each rank's shards through `local_map`. The decode
+cache of an attention model is a KV ring of the shape's whole sequence: at
 decode_32k (batch 128, 32,768 tokens) SmolLM-360M's is about 171 GB, more
 than one card holds, so it runs only with `--reduced`. Mamba2-370M's
 decode cache is a fixed-size state per layer (a conv window of
@@ -24,12 +28,12 @@ runs them at a cut depth, in process through `decode_steps`.
 qwen2-vl-7b's ring at decode_32k is 8.6 GB a layer (28 layers);
 seamless-m4t-medium's 17.2 GB a decoder layer (12), beside the zero
 encoder output of 1,024 frames that each step cross-attends to: both
-run on one card at a cut depth through `decode_steps`. Multi-device
-serving joins with the sharding slice.
+run on one card at a cut depth through `decode_steps`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -37,9 +41,11 @@ import torch
 
 from repro_torch.configs import INPUT_SHAPES, get_config, list_archs, reduced_config
 from repro_torch.launch.steps import (make_apply_fn, make_decode_step,
-                                      make_prefill_step)
+                                      make_prefill_step,
+                                      resolve_serving_config)
 from repro_torch.models import init_decode_cache, init_lm
 from repro_torch.models.layers import as_dtype
+from repro_torch.sharding.context import stepping_on
 
 
 def build_serving_fns(cfg):
@@ -88,27 +94,37 @@ def main(argv=None):
     ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     shape = INPUT_SHAPES[args.shape]
-    assert shape.kind == "decode", shape
-    batch, seq = shape.global_batch, shape.seq_len
+    if shape.kind != "decode":
+        raise ValueError(f"{args.shape} is not a decode shape")
     if args.reduced:
         cfg = reduced_config(cfg)
-        batch, seq = 2, 128
-    return decode_steps(cfg, batch, seq, args.steps, device=args.device)
+        shape = dataclasses.replace(shape, seq_len=128, global_batch=2)
+    cfg = resolve_serving_config(cfg, shape)
+    from repro_torch.launch.mesh import launcher_world
+    from repro_torch.launch.train import check_device
+    with launcher_world(args.multi_pod and not args.reduced,
+                        check_device(args.device).type) as mesh:
+        return decode_steps(cfg, shape.global_batch, shape.seq_len,
+                            args.steps, device=args.device, mesh=mesh)
 
 
 def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
-                 params=None):
+                 params=None, mesh=None):
     """`steps` greedy decode steps of `batch` sequences against a cache
     of `seq` slots that already holds 64 tokens: the CLI's body. The
     weights are `params`, or a fresh init from seed 0. An
     encoder-decoder's cache holds a zero encoder output of
     ``num_modality_tokens`` frames, which every step cross-attends to.
-    Returns the run's record."""
+    With ``mesh`` the weights (`param_pspecs`), the cache
+    (`cache_pspecs`) and each step's tokens (the batch over pod+data)
+    are placed on it and it is the ambient mesh. Returns the run's
+    record."""
     decode = make_decode_step(cfg)
     if params is None:
         params = init_lm(0, cfg, device=device)
@@ -122,11 +138,24 @@ def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
                               device=device)
     cache["length"] = min(64, seq)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    place_tok = lambda t: t                       # noqa: E731
+    if mesh is not None:
+        from repro_torch.sharding.dtensor import activation_spec
+        from repro_torch.sharding.rules import (cache_pspecs, distribute,
+                                                param_pspecs)
+        params = distribute(params, param_pspecs(params, mesh), mesh)
+        cache = distribute(cache, cache_pspecs(cache, mesh), mesh)
+        tspec = {"t": activation_spec(mesh, 2, batch)}
+        place_tok = lambda t: distribute({"t": t}, tspec,  # noqa: E731
+                                         mesh)["t"]
     step_s, finite = [], True
     with torch.no_grad():
         for it in range(steps):
             t0 = time.perf_counter()
-            logits, cache = decode(params, cache, tok)
+            with stepping_on(mesh):
+                logits, cache = decode(params, cache, place_tok(tok))
+                if mesh is not None:
+                    logits = logits.full_tensor()
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             if tok.is_cuda:
                 torch.cuda.synchronize()

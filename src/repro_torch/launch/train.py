@@ -6,13 +6,17 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --shape train_4k --steps 2 --seqs-per-client 16 --clients 1
 
-It runs on one device with no mesh. ``--reduced`` takes the reference's
-reduced config and shape (64 tokens, 2 clients of 2 sequences).
-``--seqs-per-client`` and ``--clients`` cut a train shape to what one
-card holds (train_4k's 8 clients of 32 sequences of 4,096 tokens at
-full width do not fit 80 GB). ``--multi-pod`` (the reference's
-production mesh across pods) joins the port with the mesh and sharding
-slice.
+The CLI runs on a device mesh (`launch/mesh.launcher_mesh`): the
+production mesh in a world of 256 ranks (one pod) or 512 with
+``--multi-pod``, the 1x1 host mesh in a world of one (a run started
+without torchrun). The state and each batch are DTensors placed by the
+ported specs (`sharding/rules.py`, `launch/steps.input_specs`), and the
+step is `make_train_step`'s, unchanged: the kernels run on local shards
+through `local_map`. ``--reduced`` takes the reference's reduced config
+and shape (64 tokens, 2 clients of 2 sequences). ``--seqs-per-client``
+and ``--clients`` cut a train shape to what one card holds (train_4k's
+8 clients of 32 sequences of 4,096 tokens at full width do not fit 80
+GB). `train(..., mesh=None)` runs in process with no mesh.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from repro_torch.configs import (INPUT_SHAPES, get_config, list_archs,
 from repro_torch.data.lm_tasks import make_lm_task_batch
 from repro_torch.launch.steps import make_train_step, train_batch_layout
 from repro_torch.models.layers import as_dtype
+from repro_torch.sharding.context import stepping_on
+from repro_torch.sharding.rules import distribute
 
 ALGOS = ("maml", "fomaml", "meta-sgd", "meta-sgd-fo", "reptile")
 
@@ -70,30 +76,64 @@ def task_batch(cfg, shape, it: int, device):
     return batch
 
 
-def train(cfg, shape, *, algo: str = "fomaml", steps: int = 10,
-          inner_lr: float = 0.01, outer_lr: float = 1e-4,
-          remat: bool = True, device="cuda", phi=None, log_every: int = 1,
-          on_step=None):
-    """Run ``steps`` meta-training steps; returns (state, records), one
-    record a step: its metrics and wall seconds (the card synchronized).
-    ``phi`` injects the initial parameters; else φ is drawn from seed 0
-    on ``device``. ``on_step(it, state, metrics)``, if given,
-    runs after each step."""
-    if shape.kind != "train":
-        raise ValueError("use launch/serve.py for inference shapes")
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a card raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card; use "
                            "--device cpu")
+    return device
+
+
+def place_state(state, mesh):
+    """The train state as DTensors on ``mesh``: φ by `param_pspecs`,
+    the optimizer's moments as φ, the step count replicated
+    (`state_pspecs`)."""
+    from repro_torch.sharding.rules import param_pspecs, state_pspecs
+    pspec = param_pspecs(state["phi"]["theta"], mesh)
+    return distribute(state, state_pspecs(state, pspec, mesh), mesh)
+
+
+def full(tree):
+    """DTensors -> their full values as plain tensors (on every rank);
+    plain tensors pass through."""
+    from repro_torch.sharding.dtensor import is_dtensor
+    from repro_torch.utils.pytree import tree_map
+    return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x, tree)
+
+
+def train(cfg, shape, *, algo: str = "fomaml", steps: int = 10,
+          inner_lr: float = 0.01, outer_lr: float = 1e-4,
+          remat: bool = True, device="cuda", phi=None, log_every: int = 1,
+          on_step=None, mesh=None):
+    """Run ``steps`` meta-training steps; returns (state, records), one
+    record a step: its metrics and wall seconds (the card synchronized).
+    ``phi`` injects the initial parameters; else φ is drawn from seed 0
+    on ``device``. ``on_step(it, state, metrics)``, if given,
+    runs after each step. With ``mesh`` the state and the batches are
+    placed on it as DTensors (`place_state`, `input_specs`) and the step
+    runs with it as the ambient mesh; the returned state is then
+    DTensors too (`full` gathers it)."""
+    if shape.kind != "train":
+        raise ValueError("use launch/serve.py for inference shapes")
+    device = check_device(device)
     train_step, init_state, _, _ = make_train_step(
         cfg, algo_name=algo, inner_lr=inner_lr, outer_lr=outer_lr,
         remat=remat)
     state = init_state(0, phi=phi, device=device)
+    if mesh is not None:
+        from repro_torch.launch.steps import input_specs
+        state = place_state(state, mesh)
+        bspec = input_specs(cfg, shape, mesh)["pspec"]
     records = []
     for it in range(steps):
         batch = task_batch(cfg, shape, it, device)
+        if mesh is not None:
+            batch = distribute(batch, bspec, mesh)
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batch)
+        with stepping_on(mesh):
+            state, metrics = train_step(state, batch)
+            metrics = full(metrics)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -126,10 +166,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod is not ported yet; it joins the port with the "
-            "mesh and sharding slice (ROADMAP Queue 1 item 6)")
     cfg = get_config(args.arch)
     shape = INPUT_SHAPES[args.shape]
     if args.reduced:
@@ -137,16 +173,25 @@ def main(argv=None):
         shape = reduced_shape(shape)
     shape = cut_shape(shape, seqs_per_client=args.seqs_per_client,
                       clients=args.clients)
-    state, records = train(cfg, shape, algo=args.algo, steps=args.steps,
-                           inner_lr=args.inner_lr, outer_lr=args.outer_lr,
-                           device=args.device, log_every=args.log_every)
-    out = {"arch": cfg.name, "shape": dataclasses.asdict(shape),
-           "algo": args.algo, "records": records}
-    if args.ckpt:
-        from repro_torch.checkpoint import save_server_state
-        path = save_server_state(args.ckpt, args.steps, state)
-        print("checkpoint:", path)
-        out["checkpoint"] = path
+    from repro_torch.launch.mesh import launcher_world
+    from repro_torch.sharding.rules import mesh_sizes
+    with launcher_world(args.multi_pod and not args.reduced,
+                        check_device(args.device).type) as mesh:
+        state, records = train(cfg, shape, algo=args.algo, steps=args.steps,
+                               inner_lr=args.inner_lr,
+                               outer_lr=args.outer_lr, device=args.device,
+                               log_every=args.log_every, mesh=mesh)
+        out = {"arch": cfg.name, "shape": dataclasses.asdict(shape),
+               "algo": args.algo, "mesh": mesh_sizes(mesh),
+               "records": records}
+        if args.ckpt:
+            import torch.distributed as dist
+            from repro_torch.checkpoint import save_server_state
+            host = full(state)             # every rank joins the gathers
+            if dist.get_rank() == 0:
+                path = save_server_state(args.ckpt, args.steps, host)
+                print("checkpoint:", path)
+                out["checkpoint"] = path
     return out
 
 

@@ -24,6 +24,9 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.models.layers import (Rng, apply_mrope, apply_rope, as_dtype,
                                        dense_init, rmsnorm, rmsnorm_init,
                                        text_mrope_positions)
+from repro_torch.sharding.dtensor import (batch_layout, is_dtensor,
+                                         kernel_axes, local_call, reshape)
+from repro_torch.sharding.rules import P
 
 
 def gqa_init(rng: Rng, cfg, dtype, *, cross: bool = False):
@@ -67,8 +70,8 @@ def _qkv(params, cfg, x, kv_input=None):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(B, L, H, hd), k.reshape(B, Lk, Kv, hd),
-            v.reshape(B, Lk, Kv, hd))
+    return (reshape(q, B, L, H, hd), reshape(k, B, Lk, Kv, hd),
+            reshape(v, B, Lk, Kv, hd))
 
 
 def _rope_qk(cfg, q, k, q_positions, k_positions):
@@ -93,7 +96,7 @@ def gqa_forward(params, cfg, x, positions, *, causal: bool = True,
     q, k, v = _qkv(params, cfg, x)
     q, k = _rope_qk(cfg, q, k, positions, positions)
     o = attn_ops.flash_attention(q, k, v, causal=causal, window=window)
-    y = o.reshape(B, L, cfg.num_heads * cfg.head_dim) @ params["wo"]
+    y = reshape(o, B, L, cfg.num_heads * cfg.head_dim) @ params["wo"]
     return (y, (k, v)) if return_kv else y
 
 
@@ -111,7 +114,7 @@ def cross_attn_forward(params, cfg, x, enc_out):
         wide = torch.promote_types(torch.promote_types(dt, k.dtype), v.dtype)
         q, k, v = q.to(wide), k.to(wide), v.to(wide)
     o = attn_ops.flash_attention(q, k, v, causal=False).to(dt)
-    return o.reshape(B, L, cfg.num_heads * cfg.head_dim) @ params["wo"]
+    return reshape(o, B, L, cfg.num_heads * cfg.head_dim) @ params["wo"]
 
 
 def gqa_init_cache(cfg, batch: int, capacity: int, dtype, device="cuda"):
@@ -139,7 +142,7 @@ def gqa_decode(params, cfg, x, cache, length: int, *, window=None):
     cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
     valid = min(length + 1, C)
     o = dec_ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)
-    y = o[:, None].reshape(B, 1, cfg.num_heads * cfg.head_dim) @ params["wo"]
+    y = reshape(o[:, None], B, 1, cfg.num_heads * cfg.head_dim) @ params["wo"]
     return y, {"k": cache["k"], "v": cache["v"]}
 
 
@@ -175,16 +178,19 @@ def _mla_q(params, cfg, x):
     B, L, _ = x.shape
     H, nope, rope_d = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
     if cfg.q_lora_rank > 0:
-        q = rmsnorm(params["q_norm"], x @ params["w_dq"]) @ params["w_uq"]
+        q = rmsnorm(params["q_norm"], batch_layout(x @ params["w_dq"])) \
+            @ params["w_uq"]
     else:
         q = x @ params["wq"]
-    q = q.reshape(B, L, H, nope + rope_d)
+    q = reshape(q, B, L, H, nope + rope_d)
     return q[..., :nope], q[..., nope:]
 
 
 def _mla_latents(params, cfg, x, positions):
-    c = rmsnorm(params["kv_norm"], x @ params["w_dkv"])      # (B, L, R)
-    kpe = x @ params["w_kpe"]                                # (B, L, rope_d)
+    # on a mesh the narrow latents take the batch layout (the layout
+    # their gradients return in, which DTensor's matmul rules accept)
+    c = rmsnorm(params["kv_norm"], batch_layout(x @ params["w_dkv"]))
+    kpe = batch_layout(x @ params["w_kpe"])                  # (B, L, rope_d)
     kpe = apply_rope(kpe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return c, kpe
 
@@ -199,13 +205,13 @@ def mla_forward(params, cfg, x, positions, *, causal: bool = True,
     q_nope, q_pe = _mla_q(params, cfg, x)
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     c, kpe = _mla_latents(params, cfg, x, positions)
-    k_nope = (c @ params["w_uk"]).reshape(B, L, H, nope)
-    v = (c @ params["w_uv"]).reshape(B, L, H, nope)
+    k_nope = reshape(c @ params["w_uk"], B, L, H, nope)
+    v = reshape(c @ params["w_uv"], B, L, H, nope)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, L, H, rope_d)],
                   dim=-1)
     o = attn_ops.flash_attention(q, k, v, causal=causal)
-    y = o.reshape(B, L, H * nope) @ params["wo"]
+    y = reshape(o, B, L, H * nope) @ params["wo"]
     return (y, (c, kpe)) if return_latents else y
 
 
@@ -217,6 +223,23 @@ def mla_init_cache(cfg, batch: int, capacity: int, dtype, device="cuda"):
         "kpe": torch.zeros((batch, capacity, cfg.rope_head_dim), dtype=dt,
                            device=device),
     }
+
+
+def _mla_absorbed(q_nope, q_pe, c, kpe, w_uk, w_uv, *, valid: int, C: int,
+                  scale: float):
+    """The absorbed attention of one decode token: q_nope (B, H, nope),
+    q_pe (B, H, rope), the latent cache c (B, C, R) and kpe (B, C, rope),
+    W_uk and W_uv as (R, H, nope) -> (B, H, nope), in float32."""
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk.float())
+    c32 = c.float()
+    s = torch.einsum("bhr,bjr->bhj", q_lat, c32)
+    s = s + torch.einsum("bhd,bjd->bhj", q_pe.float(), kpe.float())
+    s = s / scale
+    mask = torch.arange(C, device=c.device)[None, None, :] < valid
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhj,bjr->bhr", p, c32)                # (B, H, R)
+    return torch.einsum("bhr,rhd->bhd", ctx, w_uv.float())
 
 
 def mla_decode(params, cfg, x, cache, length: int):
@@ -239,17 +262,19 @@ def mla_decode(params, cfg, x, cache, length: int):
     cache["kpe"][:, slot] = kpe_new[:, 0].to(cache["kpe"].dtype)
     c, kpe = cache["c"], cache["kpe"]
     valid = min(length + 1, C)
-    w_uk = params["w_uk"].reshape(R, H, nope)
-    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk.float())
-    c32 = c.float()
-    s = torch.einsum("bhr,bjr->bhj", q_lat, c32)
-    s = s + torch.einsum("bhd,bjd->bhj", q_pe[:, 0].float(), kpe.float())
-    s = s / float(np.sqrt(nope + rope_d))
-    mask = torch.arange(C, device=x.device)[None, None, :] < valid
-    s = torch.where(mask, s, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhj,bjr->bhr", p, c32)                # (B, H, R)
-    w_uv = params["w_uv"].reshape(R, H, nope)
-    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv.float())
-    y = o.reshape(B, 1, H * nope).to(x.dtype) @ params["wo"]
+    w_uk = reshape(params["w_uk"], R, H, nope)
+    w_uv = reshape(params["w_uv"], R, H, nope)
+    core = lambda *a: _mla_absorbed(*a, valid=valid, C=C,  # noqa: E731
+                                    scale=float(np.sqrt(nope + rope_d)))
+    args = (q_nope[:, 0], q_pe[:, 0], c, kpe, w_uk, w_uv)
+    if is_dtensor(q_nope):
+        # a step on a mesh: each rank attends for its own batch rows and
+        # heads (DTensor's einsum rules leave placements its own
+        # redistribute refuses)
+        b, h = kernel_axes(q_nope, B, H)
+        qs, cs, ws = P(b, h, None), P(b, None, None), P(None, h, None)
+        o = local_call(core, args, (qs, qs, cs, cs, ws, ws), qs)
+    else:
+        o = core(*args)
+    y = batch_layout(reshape(o, B, 1, H * nope).to(x.dtype)) @ params["wo"]
     return y, {"c": c, "kpe": kpe}

@@ -14,6 +14,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import Rng, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.sharding.dtensor import batch_layout
 
 
 def layer_spec(cfg, i: int):
@@ -53,10 +54,17 @@ def block_init(rng: Rng, cfg, spec, dtype, *, cross: bool = False):
 
 
 def _moe(params, cfg, h):
-    """The MoE FFN. ``cfg.moe_impl == "ep"`` takes the reference's
-    all-to-all path only on a mesh (`repro/models/blocks.py:82-91`);
-    without one it runs `moe_apply`, as here: nothing in the port builds
-    a mesh before the multi-device slice, which brings `ep_moe_apply`."""
+    """The MoE FFN (`repro/models/blocks.py:82-91`): with
+    ``cfg.moe_impl == "ep"`` and an ambient mesh, the expert-parallel
+    all-to-all layer (`sharding/ep_moe.py`, no aux loss); else the
+    tensor-parallel `moe_apply`."""
+    if cfg.moe_impl == "ep":
+        from repro_torch.sharding.context import get_mesh
+        mesh = get_mesh()
+        if mesh is not None:
+            from repro_torch.sharding.ep_moe import ep_moe_apply
+            return (ep_moe_apply(params, cfg, h, mesh),
+                    torch.zeros((), dtype=torch.float32, device=h.device))
     return moe_mod.moe_apply(params, cfg, h)
 
 
@@ -70,7 +78,7 @@ def _ffn(params, cfg, spec, x):
         y, aux = _moe(params["ffn"], cfg, h)
     else:
         y = mlp_apply(params["ffn"], h, cfg.mlp_act)
-    return x + y, aux
+    return batch_layout(x + y), aux
 
 
 def _cross(params, cfg, x, enc_out):
@@ -79,12 +87,16 @@ def _cross(params, cfg, x, enc_out):
     if "cross" not in params:
         return x
     h = rmsnorm(params["norm_cross"], x, cfg.norm_eps)
-    return x + attn.cross_attn_forward(params["cross"], cfg, h, enc_out)
+    return batch_layout(x + attn.cross_attn_forward(params["cross"], cfg, h,
+                                                    enc_out))
 
 
 def block_forward(params, cfg, spec, x, positions, *, causal: bool = True,
                   enc_out=None):
-    """Full-sequence forward. Returns (y, aux_loss)."""
+    """Full-sequence forward. Returns (y, aux_loss). On a mesh x enters
+    in the batch layout: a sequence-sharded residual (``shard_seq``) is
+    gathered here, before the block's attention."""
+    x = batch_layout(x)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn":
         if _mla(cfg):
@@ -95,20 +107,24 @@ def block_forward(params, cfg, spec, x, positions, *, causal: bool = True,
                                  causal=causal, window=cfg.sliding_window)
     else:
         y = ssm.mamba_forward(params["mixer"], cfg, h)
-    return _ffn(params, cfg, spec, _cross(params, cfg, x + y, enc_out))
+    return _ffn(params, cfg, spec, _cross(params, cfg, batch_layout(x + y),
+                                          enc_out))
 
 
 def _ring_place(full, capacity: int):
     """Place the last min(L, capacity) of (B, L, ...) into a (B, capacity,
-    ...) ring buffer at slots (j % capacity) — decode-coherent."""
+    ...) ring buffer at slots (j % capacity) — decode-coherent. Built as
+    a rotation of [kept tokens | zeros], ops DTensor has rules for."""
     B, L = full.shape[:2]
     m = min(L, capacity)
     base = L - m
-    slots = (base + torch.arange(m, device=full.device)) % capacity
-    buf = torch.zeros((B, capacity) + tuple(full.shape[2:]), dtype=full.dtype,
-                      device=full.device)
-    buf[:, slots] = full[:, base:]
-    return buf
+    buf = full[:, base:]
+    if m < capacity:
+        buf = torch.cat([buf, torch.zeros(
+            (B, capacity - m) + tuple(full.shape[2:]), dtype=full.dtype,
+            device=full.device)], dim=1)
+    shift = base % capacity
+    return torch.roll(buf, shifts=shift, dims=1) if shift else buf
 
 
 def _gqa_capacity(cfg, capacity: int) -> int:
@@ -121,6 +137,7 @@ def _gqa_capacity(cfg, capacity: int) -> int:
 def block_prefill(params, cfg, spec, x, positions, capacity: int, *,
                   enc_out=None):
     """Forward that also emits a decode-ready cache. Returns (y, aux, cache)."""
+    x = batch_layout(x)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn" and _mla(cfg):
         y, (c, kpe) = attn.mla_forward(params["mixer"], cfg, h, positions,
@@ -135,7 +152,8 @@ def block_prefill(params, cfg, spec, x, positions, capacity: int, *,
     else:
         y, cache = ssm.mamba_forward(params["mixer"], cfg, h,
                                      return_cache=True)
-    x, aux = _ffn(params, cfg, spec, _cross(params, cfg, x + y, enc_out))
+    x, aux = _ffn(params, cfg, spec,
+                  _cross(params, cfg, batch_layout(x + y), enc_out))
     return x, aux, cache
 
 
@@ -162,5 +180,6 @@ def block_decode(params, cfg, spec, x, cache, length: int, *, enc_out=None):
                                    window=cfg.sliding_window)
     else:
         y, cache = ssm.mamba_decode(params["mixer"], cfg, h, cache)
-    x, _ = _ffn(params, cfg, spec, _cross(params, cfg, x + y, enc_out))
+    x, _ = _ffn(params, cfg, spec,
+                _cross(params, cfg, batch_layout(x + y), enc_out))
     return x, cache

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.dtensor import hidden_layout
+
 
 def as_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or a name ("bfloat16")."""
@@ -29,7 +31,12 @@ class Rng:
     def next_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
 
-    def next(self) -> torch.Generator:
+    def next(self) -> torch.Generator | None:
+        """The next child generator; None on the meta device, whose
+        tensors hold shapes only (the dry run's parameters)."""
+        if self.device.type == "meta":
+            self.next_seed()
+            return None
         g = torch.Generator(device=self.device)
         g.manual_seed(self.next_seed())
         return g
@@ -81,12 +88,16 @@ def mlp_apply(params, x, act: str):
     """swiglu: (silu(x W_gate) * x W_up) W_down; relu2 (nemotron):
     relu(x W_up)² W_down; gelu: gelu(x W_up) W_down with the tanh
     approximation, `jax.nn.gelu`'s default."""
+    def up(name):
+        # on a mesh each projection takes the tensor-parallel layout
+        return hidden_layout(x @ params[name])
+
     if act == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        h = F.silu(up("w_gate")) * up("w_up")
     elif act == "relu2":
-        h = torch.square(F.relu(x @ params["w_up"]))
+        h = torch.square(F.relu(up("w_up")))
     elif act == "gelu":
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
+        h = F.gelu(up("w_up"), approximate="tanh")
     else:
         raise ValueError(f"unknown act {act}")
     return h @ params["w_down"]
@@ -111,8 +122,9 @@ def _inv_freq(hd: int, theta: float, device) -> torch.Tensor:
     key = (hd, float(theta), str(device))
     inv = _INV_FREQ.get(key)
     if inv is None:
-        inv = _INV_FREQ[key] = torch.as_tensor(rope_frequencies(hd, theta),
-                                               device=device)
+        inv = torch.as_tensor(rope_frequencies(hd, theta), device=device)
+        if type(inv) is torch.Tensor:    # not a dry run's fake tensor
+            _INV_FREQ[key] = inv
     return inv
 
 
@@ -141,8 +153,10 @@ def _mrope_components(sections: tuple, device) -> torch.Tensor:
     key = (sections, str(device))
     comp = _MROPE_COMP.get(key)
     if comp is None:
-        comp = _MROPE_COMP[key] = torch.as_tensor(np.concatenate(
+        comp = torch.as_tensor(np.concatenate(
             [np.full(s, i) for i, s in enumerate(sections)]), device=device)
+        if type(comp) is torch.Tensor:   # not a dry run's fake tensor
+            _MROPE_COMP[key] = comp
     return comp
 
 

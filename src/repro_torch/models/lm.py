@@ -40,6 +40,9 @@ from repro_torch.models.blocks import (block_decode, block_forward, block_init,
                                        layer_spec)
 from repro_torch.models.layers import (Rng, as_dtype, dense_init, embed_init,
                                        rmsnorm, rmsnorm_init)
+from repro_torch.sharding.context import get_mesh
+from repro_torch.sharding.dtensor import (activation_spec, batch_layout,
+                                         constrain, embedding, is_dtensor)
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -159,6 +162,22 @@ def _run_encoder(params, cfg, frames):
     return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
+def _maybe_shard_seq(cfg, h):
+    """The residual stream's layout at a block boundary
+    (`repro/models/lm.py:120-137`). A plain tensor passes through. A
+    DTensor (the launcher on a mesh) is redistributed to the batch over
+    pod+data, and, with ``cfg.shard_seq`` and an ambient mesh, to the
+    sequence over "model" (Megatron-style sequence sharding: with remat
+    the stored activation shrinks by the model axis's size, for an
+    all-gather before each block's attention). The numbers do not
+    change."""
+    if not is_dtensor(h):
+        return h
+    seq_dim = 1 if cfg.shard_seq and get_mesh() is not None else None
+    return constrain(h, activation_spec(h.device_mesh, h.ndim, h.shape[0],
+                                        seq_dim=seq_dim))
+
+
 def _rep_forward(rep, cfg, period, x, aux, positions, enc_out):
     """One repetition of the layer period: the reference's scan body,
     (x, aux) -> (x, aux)."""
@@ -166,7 +185,7 @@ def _rep_forward(rep, cfg, period, x, aux, positions, enc_out):
         x, a = block_forward(rep[f"pos{j}"], cfg, spec, x, positions,
                              enc_out=enc_out)
         aux = aux + a
-    return x, aux
+    return _maybe_shard_seq(cfg, x), aux
 
 
 def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
@@ -192,7 +211,8 @@ def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
     layers always run as a Python loop."""
     B, L_text = tokens.shape
     lead, period, n_reps = layer_groups(cfg)
-    x = F.embedding(tokens, params["embed"])
+    tokens, modality_embeds = batch_layout((tokens, modality_embeds))
+    x = embedding(tokens, params["embed"])
     enc_out, n_mod = None, 0
     if cfg.modality is not None and modality_embeds is None:
         raise ValueError(f"{cfg.name} takes modality_embeds (B, n_mod, "
@@ -203,6 +223,7 @@ def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
         n_mod = modality_embeds.shape[1]
         x = torch.cat([modality_embeds.to(x.dtype) @ params["mod_proj"], x],
                       dim=1)
+    x = _maybe_shard_seq(cfg, x)
     positions = _positions(cfg, n_mod, L_text, B, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     L_total = n_mod + L_text
@@ -236,6 +257,7 @@ def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
                 rep[f"pos{j}"], cfg, spec, x, positions, capacity,
                 enc_out=enc_out)
             aux = aux + a
+        x = _maybe_shard_seq(cfg, x)
         outs.append(rep_caches)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -287,7 +309,7 @@ def lm_decode_step(params, cfg, tokens, cache):
     cache's tensors are updated in place and the returned dict holds
     them with ``length`` advanced by one."""
     lead, period, n_reps = layer_groups(cfg)
-    x = F.embedding(tokens, params["embed"])
+    x = embedding(tokens, params["embed"])
     length = int(cache["length"])
     enc_out = cache.get("enc_out")
     new_cache = {"length": length + 1}

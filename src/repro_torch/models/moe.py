@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Rng, dense_init, mlp_apply, mlp_init
+from repro_torch.sharding.dtensor import replicated
 
 
 def moe_init(rng: Rng, cfg, dtype):
@@ -116,7 +117,10 @@ def moe_route(params, cfg, xt, capacity_factor: float | None = None):
     capacity = capacity_of(T, K, E, cf)
     flat_expert = expert_ids.reshape(-1)                       # (T*K,)
     sorted_expert, order = torch.sort(flat_expert, stable=True)
-    counts = torch.bincount(flat_expert, minlength=E)
+    # a fixed-size count (bincount's output size depends on the data);
+    # integer adds, so the order the scatter adds in does not matter
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
     group_start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - group_start[sorted_expert]
     keep_sorted = rank < capacity
@@ -147,31 +151,49 @@ def _with_zero_row(x):
     return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
 
 
+def _dispatch(xt, slot_src, K: int, E: int, cap: int):
+    """Slot s reads entry slot_src[s] of the (T·K, d) entries (row T·K
+    is zero) -> (E, cap, d)."""
+    T, d = xt.shape
+    entries = _with_zero_row(xt[:, None, :].expand(T, K, d).reshape(T * K, d))
+    return entries[slot_src].view(E, cap, d)
+
+
+def _combine(y_e, expert_ids, tok_slot, gates):
+    """Entry (t, k) reads slot tok_slot[t, k] of the (E·cap, d) expert
+    outputs (row E·cap is zero); a token's entries are added in
+    ascending expert order from zero -> (T, d)."""
+    T, K = expert_ids.shape
+    asc = torch.argsort(expert_ids, dim=1)
+    slots = torch.gather(tok_slot, 1, asc)
+    gates = torch.gather(gates, 1, asc).to(y_e.dtype)
+    contrib = gates[:, :, None] * _with_zero_row(y_e)[slots]  # (T, K, d)
+    y = torch.zeros((T, y_e.shape[1]), dtype=y_e.dtype, device=y_e.device)
+    for k in range(K):
+        y = y + contrib[:, k]
+    return y
+
+
 def moe_apply(params, cfg, x, *, capacity_factor: float | None = None):
-    """x: (B, L, d) -> (y, aux_loss)."""
+    """x: (B, L, d) -> (y, aux_loss). On DTensors (a step on a mesh) the
+    routing, the dispatch and the combine run on the whole token set
+    (`sharding.dtensor.replicated`: DTensor has no rule for their sorts,
+    bincount and index scatters), the expert matmuls on the placed
+    weights."""
     B, L, d = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * L
     xt = x.reshape(T, d)
-    r = moe_route(params, cfg, xt, capacity_factor)
+    r = replicated(lambda w, t: moe_route({"w_router": w}, cfg, t,
+                                          capacity_factor),
+                   params["w_router"], xt)
     cap = r["capacity"]
-
-    # dispatch: slot s reads entry slot_src[s] of the (T·K, d) entries
-    # (row T·K is zero)
-    entries = _with_zero_row(xt[:, None, :].expand(T, K, d).reshape(T * K, d))
-    x_e = entries[r["slot_src"]].view(E, cap, d)
-    y_e = _expert_ffn(params, cfg, x_e).reshape(E * cap, d)
-
-    # combine: entry (t, k) reads slot tok_slot[t, k] (row E·cap is zero),
-    # a token's entries added in ascending expert order from zero
-    asc = torch.argsort(r["expert_ids"], dim=1)
-    slots = torch.gather(r["tok_slot"], 1, asc)
-    gates = torch.gather(r["gates"], 1, asc).to(y_e.dtype)
-    contrib = gates[:, :, None] * _with_zero_row(y_e)[slots]  # (T, K, d)
-    y = torch.zeros((T, d), dtype=y_e.dtype, device=x.device)
-    for k in range(K):
-        y = y + contrib[:, k]
-    y = y.reshape(B, L, d)
+    x_e = replicated(lambda t, s: _dispatch(t, s, K, E, cap), xt,
+                     r["slot_src"])
+    y_e = _expert_ffn(params, cfg, x_e)
+    y = replicated(lambda ye, *rt: _combine(ye.reshape(E * cap, d), *rt),
+                   y_e, r["expert_ids"], r["tok_slot"],
+                   r["gates"]).reshape(B, L, d)
 
     if cfg.num_shared_experts > 0:
         y = y + mlp_apply(params["shared"], x, cfg.mlp_act)

@@ -24,6 +24,10 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import (Rng, as_dtype, dense_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.sharding.dtensor import (batch_layout, is_dtensor,
+                                         kernel_axes, local_call, reshape)
+from repro_torch.sharding.rules import P
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 
 def _dims(cfg):
@@ -80,14 +84,17 @@ def mamba_forward(params, cfg, x, *, ssd_impl: str | None = None,
     (conv tail + final SSM state) for prefill -> decode handoff."""
     Bsz, L, _ = x.shape
     d_in, nh, hp, N, conv_dim = _dims(cfg)
-    proj = x @ params["w_in"]
+    # on a mesh the projection is gathered to the batch layout: DTensor
+    # propagates the split, the conv's shifted slices and their
+    # backward into sequence shards that its matmul rules refuse
+    proj = batch_layout(x @ params["w_in"])
     z, xc, Bm, Cm, dt = _split_proj(cfg, proj)
     xbc_pre = torch.cat([xc, Bm, Cm], dim=-1)
     xbc = F.silu(_causal_conv(params, xbc_pre, cfg))
     xc, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    xh = xc.reshape(Bsz, L, nh, hp)
+    xh = reshape(xc, Bsz, L, nh, hp)
     # pad L to a chunk multiple; dt = 0 padding is exact (decay 1, no input)
     chunk = min(cfg.ssm_chunk, L)
     pad = (-L) % chunk
@@ -104,7 +111,7 @@ def mamba_forward(params, cfg, x, *, ssd_impl: str | None = None,
     if pad:
         y = y[:, :L]
     y = (y + xh * params["D"][None, None, :, None]).to(x.dtype)
-    y = y.reshape(Bsz, L, d_in)
+    y = reshape(y, Bsz, L, d_in)
     y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
     y = y @ params["w_out"]
     if return_cache:
@@ -122,17 +129,16 @@ def mamba_init_cache(cfg, batch: int, dtype, device="cuda"):
     }
 
 
-def mamba_decode(params, cfg, x, cache):
-    """One-token decode. x: (B, 1, d). Returns (y, cache): the new conv
-    window and state are written into ``cache["conv"]`` and
-    ``cache["state"]`` in place."""
+def _mamba_decode_core(params, cfg, x, conv, state):
+    """One-token decode on plain tensors: (out (B, 1, d), the new conv
+    window, the new SSM state)."""
     Bsz = x.shape[0]
     d_in, nh, hp, N, conv_dim = _dims(cfg)
     proj = x[:, 0] @ params["w_in"]
     z, xc, Bm, Cm, dt = _split_proj(cfg, proj)
     xbc = torch.cat([xc, Bm, Cm], dim=-1)          # (B, conv_dim)
     # full window = [cache, new]
-    window = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)],
+    window = torch.cat([conv, xbc[:, None, :].to(conv.dtype)],
                        dim=1)                      # (B, W, conv_dim)
     # the forward conv applies conv_w[lag] to x[t - lag]; window[i] holds
     # lag W - 1 - i, so the kernel is flipped here to match (`_causal_conv`)
@@ -144,11 +150,36 @@ def mamba_decode(params, cfg, x, cache):
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     xh = xc2.reshape(Bsz, nh, hp)
-    y, state = ssd_ops.ssd_decode_step(cache["state"], xh, dt, A, Bm2, Cm2)
+    y, state = ssd_ops.ssd_decode_step(state, xh, dt, A, Bm2, Cm2)
     y = (y + xh * params["D"][None, :, None]).to(x.dtype)
     y = y.reshape(Bsz, d_in)
     y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    out = (y @ params["w_out"])[:, None, :]
-    cache["conv"].copy_(window[:, 1:])
+    return (y @ params["w_out"])[:, None, :], window[:, 1:], state
+
+
+def mamba_decode(params, cfg, x, cache):
+    """One-token decode. x: (B, 1, d). Returns (y, cache): the new conv
+    window and state are written into ``cache["conv"]`` and
+    ``cache["state"]`` in place. On DTensors (a step on a mesh) each
+    rank decodes its own batch rows with the mixer's weights whole
+    (`local_map`): DTensor lacks rules for some of the step's ops (the
+    card's torch has none for the kernel flip)."""
+    if is_dtensor(x):
+        ws, treedef = tree_flatten(params)
+        b, _ = kernel_axes(x, x.shape[0])
+        rows = lambda n: P(b, *[None] * (n - 1))    # noqa: E731
+
+        def local(x_, conv, state, *ws_):
+            return _mamba_decode_core(tree_unflatten(treedef, list(ws_)),
+                                      cfg, x_, conv, state)
+
+        out, conv, state = local_call(
+            local, (x, cache["conv"], cache["state"], *ws),
+            (rows(3), rows(3), rows(4), *[P(*[None] * w.ndim) for w in ws]),
+            (rows(3), rows(3), rows(4)))
+    else:
+        out, conv, state = _mamba_decode_core(params, cfg, x, cache["conv"],
+                                              cache["state"])
+    cache["conv"].copy_(conv)
     cache["state"].copy_(state)
     return out, cache

@@ -239,15 +239,30 @@ def test_guard_is_a_bitwise_noop_on_a_clean_round(cnn):
 
 
 def test_later_slice_knobs_raise(cnn):
-    """The sharded axis (a later slice) raises, naming its slice; the
-    failure plane's and staleness's knobs are refused off the vmap axis,
-    staleness with compression and an unknown aggregator, as in the
-    reference."""
+    """The sharded axis runs: with no process group (a world of one) its
+    packed round is bitwise the vmap round. The failure plane's and
+    staleness's knobs are refused off the vmap axis (the sharded one
+    too), staleness with compression and an unknown aggregator, as in
+    the reference."""
     _, ta = _algos(cnn, "fomaml")
-    tp = plane_for(_t(_phi(cnn, "fomaml")))
-    with pytest.raises(NotImplementedError, match="slice"):
-        tfm.make_packed_meta_train_step(ta, adam(1e-2), tp,
-                                        client_axis="sharded")
+    phi = _t(_phi(cnn, "fomaml"))
+    tp = plane_for(phi)
+    sup, qry = _batches(40, 3)
+    outs = []
+    for axis in ("sharded", "vmap"):
+        step = tfm.make_packed_meta_train_step(ta, adam(1e-2), tp,
+                                               client_axis=axis)
+        outs.append(step(tfm.init_packed_state(adam(1e-2), tp, phi),
+                         _t(sup), _t(qry)))
+    (s0, m0), (s1, m1) = outs
+    assert torch.equal(s0["phi"], s1["phi"])
+    assert all(torch.equal(m0[k], m1[k]) for k in m1)
+    for kw in ({"aggregator": "trimmed", "client_axis": "sharded"},
+               {"staleness": StalenessConfig(), "client_axis": "sharded"},
+               {"compression": CompressionConfig("int8"),
+                "client_axis": "sharded"}):
+        with pytest.raises(ValueError):
+            tfm.make_packed_meta_train_step(ta, adam(1e-2), tp, **kw)
     for kw in ({"aggregator": "median"},
                {"aggregator": "trimmed", "client_axis": "scan"},
                {"faults": object(), "client_axis": "chunked"},

@@ -38,7 +38,12 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert len(mods) > 20
     assert {"repro_torch.configs.qwen2_vl_7b",
             "repro_torch.configs.seamless_m4t_medium",
-            "repro_torch.kernels._checks"} <= set(mods)
+            "repro_torch.kernels._checks",
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.sharding", "repro_torch.sharding.collectives",
+            "repro_torch.sharding.context", "repro_torch.sharding.dtensor",
+            "repro_torch.sharding.ep_moe",
+            "repro_torch.sharding.rules"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

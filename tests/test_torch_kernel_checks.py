@@ -51,6 +51,10 @@ class FakeExt:
 
 @pytest.fixture
 def ext(monkeypatch):
+    # the launch counters go back to their values after the test: a
+    # later test in this process reads them as its own path's counts
+    for mod, name in COUNTERS:
+        monkeypatch.setattr(mod, name, getattr(mod, name))
     fake = FakeExt()
     for mod in MODULES:
         monkeypatch.setattr(mod, "get_ext", lambda: fake)

@@ -121,9 +121,14 @@ def test_train_step_matches_reference(arch, algo, G):
 
 
 def test_launcher_reduced_runs_and_reference_loads_its_checkpoint(tmp_path):
+    """The CLI runs on the 1x1 host mesh with the state as DTensors; its
+    checkpoint (gathered to plain tensors) loads in the reference's
+    `load_server_state` and equals the meshless in-process run's bit for
+    bit."""
     out = train_launcher.main(["--arch", "smollm-360m", "--reduced",
                                "--steps", "2", "--device", "cpu",
                                "--ckpt", str(tmp_path)])
+    assert out["mesh"] == {"data": 1, "model": 1}
     assert [r["step"] for r in out["records"]] == [1, 2]
     assert all(np.isfinite(r["query_loss"]) for r in out["records"])
     assert out["shape"]["seq_len"] == 64
@@ -143,8 +148,13 @@ def test_launcher_reduced_runs_and_reference_loads_its_checkpoint(tmp_path):
 
 
 def test_launcher_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="slice"):
-        train_launcher.main(["--arch", "smollm-360m", "--multi-pod"])
+    """--multi-pod in a world of one raises naming the 512 ranks its
+    mesh needs, and leaves no process group behind; an inference shape
+    and a card that is not there raise."""
+    with pytest.raises(ValueError, match="512 ranks"):
+        train_launcher.main(["--arch", "smollm-360m", "--multi-pod",
+                             "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="serve"):
         train_launcher.train(
             reduced_config(get_config("smollm-360m")),

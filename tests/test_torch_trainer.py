@@ -20,7 +20,7 @@ from repro.federated.comm import CommTracker as JaxComm
 from repro.federated.server import FederatedTrainer as JaxTrainer
 from repro.models.paper.models import femnist_cnn as jax_femnist_cnn
 from repro.optim import adam as jax_adam
-from repro_torch.convert import from_numpy_tree
+from repro_torch.convert import from_numpy_tree, to_numpy_tree
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.losses import classification_loss
 from repro_torch.data import make_femnist
@@ -152,23 +152,52 @@ def test_plan_blocks_match_reference_and_async_classes_raise():
 
 @pytest.mark.parametrize("kw", [{"unreliability": object()},
                                 {"round_deadline": 2.0},
-                                {"mesh": object()}, {"mesh_axis": "data"},
+                                {"mesh": "1x1"}, {"mesh_axis": "data"},
                                 {"over_select": 0.5},
                                 {"client_axis": "sharded"}])
-def test_trainer_knobs_of_later_slices_raise(kw):
-    """The multi-device slice's knobs raise naming it. The population
-    plane's are ported: off the packed pipeline they raise the
-    reference's ValueError naming the population plane."""
-    algo = make_algorithm("fomaml", lambda p, b: 0, lambda p, b: (0, {}), 0.1)
+def test_trainer_knobs_of_later_slices_raise(kw, tmp_path):
+    """The population plane's knobs, off the packed pipeline, raise the
+    reference's ValueError naming the population plane. The sharded
+    axis's knobs run: ``client_axis="sharded"`` with no process group (a
+    world of one), on a 1x1 host mesh (``mesh``), or on the mesh's
+    "data" axis (``mesh_axis``; a gloo group of one over a FileStore),
+    gives 2 rounds whose history and φ are bitwise the vmap trainer's."""
     if {"unreliability", "round_deadline", "over_select"} & set(kw):
+        algo = make_algorithm("fomaml", lambda p, b: 0,
+                              lambda p, b: (0, {}), 0.1)
         with pytest.raises(ValueError, match="population plane"):
             FederatedTrainer(algo, adam(1e-3), [], device="cpu",
                              **{**TRAIN, "packed": False,
                                 "client_plane": False, **kw})
         return
-    with pytest.raises(NotImplementedError, match="slice"):
-        FederatedTrainer(algo, adam(1e-3), [], device="cpu",
-                         **{**TRAIN, **kw})
+    import contextlib
+
+    import torchdist
+    from repro_torch.launch.mesh import make_host_mesh
+    tm = femnist_cnn(62, hidden=8, device="cpu")
+    clients = make_femnist(num_clients=12, mean_samples=20,
+                           seed=0).split_clients(0)[0]
+
+    def run(**extra):
+        tr = FederatedTrainer(make_algorithm("fomaml", *classification_loss(
+            tm.apply), 0.05), adam(1e-3), clients, impl="cuda",
+            device="cpu", **{**TRAIN, **extra})
+        state = tr.run(tr.init(0, tm.init), 2)
+        return tr.history, tr.phi_tree(state)
+
+    ctx = contextlib.nullcontext() if "client_axis" in kw else \
+        torchdist.world(tmp_path)
+    with ctx:
+        extra = {"client_axis": "sharded"}
+        if "mesh" in kw or "mesh_axis" in kw:
+            extra["mesh"] = make_host_mesh(1, 1, device_type="cpu")
+            extra["mesh_axis"] = kw.get("mesh_axis")
+        h0, p0 = run(**extra)
+    h1, p1 = run()
+    assert h0 == h1
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree.leaves(to_numpy_tree(p0)),
+        jax.tree.leaves(to_numpy_tree(p1))))
 
 
 def _exclusions():
