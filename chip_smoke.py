@@ -46,7 +46,16 @@ Phases, each printing one JSON line:
            (Mamba2-370M's prefill, adaptation, round and served-prefill
            shapes, an odd chunk, and an input whose above-diagonal
            decay overflows, where the chunked oracle gives NaN and K9
-           stays finite). Times kernel, plain version and one PyTorch
+           stays finite). K7, K8 and K9 also at every folded shape the
+           serve and trace phases give them (SmolLM's 16 requests'
+           prefill, (16, 15, 5, 64, 64), and decode step, B 16 C 64: the
+           kernels line's K8 case; its trace's 4 requests; the granite,
+           qwen2.5 and mixtral serves' 2 requests; Mamba2's 16 served and
+           4 traced prompts through K9), and K7, K8 and
+           K9 under `torch.func.vmap` over 4 requests: one launch,
+           bitwise equal to 4 kernel calls, no merge copy, and a refused
+           call (K7 at bf16 hd 256) raising under vmap with no launch.
+           Times kernel, plain version and one PyTorch
            library call (a yardstick the port never calls) two ways:
            `call_ms`, CUDA events around one call (median of 20 after
            warm-up; the host's wrapper time is inside the window), and
@@ -65,6 +74,15 @@ Phases, each printing one JSON line:
            launch count set to 0 just before and read just after; checks
            finite output, cache hits, a served row bitwise equal to a
            solo `adapt_packed`, and the distance to the all-plain route.
+           The 16 prompts are one prompt-shape group, generated in one
+           `torch.func.vmap` (`ServingEngine.generate_batch`): K8 224
+           times (32 layers × 7 steps × 1 group); one generation of the
+           group launches K7 once a layer and K8 once a layer a step;
+           on 2 requests, tokens equal to the per-request route's
+           (`generate`, kernels on) or a first difference at a top-two
+           logit gap within the bf16 limit, first-step logits within
+           that limit, and the plain route under vmap (K7, K8, K9 plain)
+           within it too (`batched_generation`). Seconds and peak GB.
   trace    torch.profiler over a further adaptation and decode: device
            busy share, device time by kernel group, and each kernel's
            launches in the span beside its group (device µs a launch).
@@ -169,8 +187,9 @@ Phases, each printing one JSON line:
            weights, seed 0): 16 requests of the serve phase's traffic,
            supports of 128-token sequences, prompts of 200 tokens (two
            chunks after padding), 8 new tokens; K1 and K9 launched, K7
-           and K8 not; the serve phase's row and plain-route checks; the
-           prefill -> decode handoff of one adapted row over 2 decode
+           and K8 not; the serve phase's row, plain-route and batched
+           generation checks (K9 once a layer for the group's prefill);
+           the prefill -> decode handoff of one adapted row over 2 decode
            steps against `lm_apply`, in f32 and in bf16.
   trace_ssm  the trace phase over the Mamba2 engine.
   train_ssm  2 packed FOMAML rounds of Mamba2-370M at full width on the
@@ -202,8 +221,9 @@ Phases, each printing one JSON line:
            second-order backward through the kernels' Functions); (iv)
            granite-3-2b and qwen2.5-3b served at full width
            (`DENSE_SERVE`; adapt_batch cut to 1: a miss, then a hit),
-           K1, K7 and K8 launched, finite rows and prefill logits, adapt
-           and decode ms, peak GB.
+           K1, K7 and K8 launched (K8 once a layer a step for the group
+           of two), finite rows and prefill logits, adapt and decode ms,
+           peak GB, the batched generation checks of the serve phase.
   serve_moe  the MoE and MLA families at full width, depth cut to one
            card (`MOE_CUTS`), one JSON line a part with its seconds and
            peak GB: (i) `moe_apply` at mixtral-8x22b's serve shape, at
@@ -1000,6 +1020,8 @@ def check_k7(torch):
         (4, 15, 5, 64, 64, 64, "bfloat16", True, None, 0),   # adapt forward
         (4, 15, 5, 128, 64, 64, "bfloat16", True, None, 0),  # the LM round
         (1, 15, 5, 64, 64, 64, "bfloat16", True, None, 0),   # prefill
+        (16, 15, 5, 64, 64, 64, "bfloat16", True, None, 0),  # the serve
+        # phase's prefill of 16 requests, folded into one launch
         (4, 15, 5, 100, 64, 64, "bfloat16", True, None, 0),  # ragged tile
         (4, 15, 5, 64, 64, 64, "bfloat16", True, 16, 0),     # sliding window
         (2, 6, 2, 100, 64, 32, "float32", True, None, 3),    # q_offset, hd_v
@@ -1011,7 +1033,11 @@ def check_k7(torch):
         (LAUNCH_CUT["fomaml"][0] // 2, 15, 5, 4096, 64, 64, "bfloat16",
          True, None, 0),                         # the launcher at L=4096
         (2, 16, 2, 64, 128, 128, "bfloat16", True, None, 0),  # qwen2.5 adapt
+        # and its serve's prefill of 2 requests
+        (2, 32, 8, 64, 64, 64, "bfloat16", True, None, 0),  # granite's
+        # serve: prefill of 2 requests, folded
         (2, 48, 8, 64, 128, 128, "bfloat16", True, 4096, 0),  # mixtral adapt
+        # and its serve's prefill of 2 requests
         (1, 48, 8, 4608, 128, 128, "bfloat16", True, 4096, 0),  # mixtral
         # handoff prompt, past the window
         (1, 32, 8, 4096, 128, 128, "bfloat16", True, None, 0),  # jamba prefill
@@ -1225,7 +1251,9 @@ def check_k8(torch):
     from repro_torch.kernels.decode_attention import flash_decode as k8
     from repro_torch.kernels.decode_attention import ops as dec_ops
     cases = [  # (B, C, Kv, G, hd, dtype, kv_length)
-        (1, 64, 5, 3, 64, "bfloat16", "int"),          # serving decode step
+        (16, 64, 5, 3, 64, "bfloat16", "int"),         # the serving decode
+        # step of 16 requests, folded into one launch
+        (1, 64, 5, 3, 64, "bfloat16", "int"),          # one request's step
         (16, 48, 5, 3, 64, "bfloat16", "ragged"),
         (16, 100, 5, 3, 64, "bfloat16", "ragged"),
         (4, 100, 2, 4, 64, "float32", "ragged"),
@@ -1236,6 +1264,14 @@ def check_k8(torch):
         (4, 4096, 5, 3, 64, "bfloat16", "zero_row"),   # a 0 row through the combine
         (4, 100, 2, 4, 64, "float32", "zero_row"),     # a 0 row, one split
         (1, 64, 2, 8, 128, "bfloat16", "int"),         # qwen2.5's decode step
+        (2, 64, 2, 8, 128, "bfloat16", "int"),         # qwen2.5's serve:
+        # 2 requests folded
+        (2, 64, 8, 4, 64, "bfloat16", "int"),          # granite's serve
+        (2, 64, 8, 6, 128, "bfloat16", "int"),         # mixtral's serve
+        (1, 64, 8, 6, 128, "bfloat16", "int"),         # mixtral's traced
+        # request, a group of one
+        (4, 64, 5, 3, 64, "bfloat16", "int"),          # the trace's 4
+        # SmolLM requests folded
         (128, 4096, 8, 6, 128, "bfloat16", "int"),     # mixtral's ring at
         # decode_32k
         (128, 32768, 8, 4, 128, "bfloat16", "int"),    # jamba at decode_32k
@@ -1411,12 +1447,17 @@ def ssd_library_chain(torch, Bm, Cm, xdt, chunk):
 
 # (name, B, nh, L, hp, N, chunk, dt_scale): Mamba2-370M's prefill at full
 # width (8 chunks), the adaptation's shape, the round's (4 clients), the
-# served prefill (one prompt, two chunks), an odd chunk, and an input
-# whose above-diagonal decay overflows f32 exp (dt·|A| ≈ 9 a step)
+# served prefill (one prompt, two chunks; the serve's 16 and the trace's
+# 4 prompts folded into one launch), an odd chunk, and an input whose
+# above-diagonal decay overflows f32 exp (dt·|A| ≈ 9 a step)
 K9_CASES = (("prefill", 4, 32, 1024, 64, 128, 128, 1.0),
             ("adapt", 2, 32, 128, 64, 128, 128, 1.0),
             ("round", 4, 32, 128, 64, 128, 128, 1.0),
             ("served prefill", 1, 32, 256, 64, 128, 128, 1.0),
+            ("served prefill, 16 requests folded", 16, 32, 256, 64, 128,
+             128, 1.0),
+            ("traced prefill, 4 requests folded", 4, 32, 256, 64, 128, 128,
+             1.0),
             ("odd chunk", 2, 32, 200, 64, 128, 100, 1.0),
             ("overflow", 1, 32, 256, 64, 128, 128, 30.0))
 
@@ -1658,8 +1699,81 @@ def phase_kernels(torch, cfg):
         rows += r
         summaries[name] = s
         torch.cuda.synchronize()
+    rows += check_vmap_fold(torch)
     emit({"phase": "kernels", "ok": True, "n_plane": n_plane, "checks": rows})
     return summaries
+
+
+def check_vmap_fold(torch):
+    """K7, K8 and K9 under `torch.func.vmap` over R requests, on the card
+    at the served shapes: one launch for the whole map (the request axis
+    folded into the batch axis, `kernels/_vmap.py`), bitwise equal to R
+    separate kernel calls (each batch row is computed alone), no merge
+    copy; and a call the binding refuses (K7 at bf16 hd 256) raises under
+    vmap too, with no launch and no plain fall-back."""
+    from repro_torch.kernels import _checks, _vmap
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.ssd.ssd_scan import ssd_intra_chunk
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    R = 4
+    k9_in = (rand(R, 1, 32, 256, 64, dtype=torch.float32),
+             -torch.rand((R, 1, 32, 256), device="cuda", generator=gen),
+             rand(R, 1, 256, 128, dtype=torch.float32),
+             rand(R, 1, 256, 128, dtype=torch.float32))
+    cases = (
+        ("flash_attention", "(R=4) x (1, 64, 15, 64) bf16 causal",
+         lambda q, k, v: attn_ops.flash_attention(q, k, v, causal=True),
+         (rand(R, 1, 64, 15, 64), rand(R, 1, 64, 5, 64),
+          rand(R, 1, 64, 5, 64))),
+        ("flash_decode", "(R=4) x B=1 C=64 Kv=5 G=3 bf16, int kv_length",
+         lambda q, k, v: dec_ops.decode_attention(q, k, v, 64),
+         (rand(R, 1, 15, 64), rand(R, 1, 64, 5, 64), rand(R, 1, 64, 5, 64))),
+        ("flash_decode", "(R=4) x B=1 C=64 Kv=5 G=3 bf16, (B,) kv_length",
+         lambda q, k, v, n: dec_ops.decode_attention(q, k, v, n),
+         (rand(R, 1, 15, 64), rand(R, 1, 64, 5, 64), rand(R, 1, 64, 5, 64),
+          torch.randint(1, 65, (R, 1), device="cuda", generator=gen,
+                        dtype=torch.int32))),
+        ("ssd_chunk", "(R=4) x B=1 nh=32 L=256 hp=64 N=128 chunk 128",
+         lambda *t: ssd_intra_chunk(*t, chunk=128), k9_in))
+    rows = []
+    for name, case, fn, args in cases:
+        copies = _vmap.copy_bytes
+        reset_launches()
+        got = torch.func.vmap(fn)(*args)
+        torch.cuda.synchronize()
+        launched = read_launches()[name]
+        each = [fn(*(a[r] for a in args)) for r in range(R)]
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        each = [e if isinstance(e, tuple) else (e,) for e in each]
+        equal = all(torch.equal(g[r], each[r][i]) for i, g in enumerate(got)
+                    for r in range(R))
+        row = {"name": "vmap_fold", "kernel": name, "case": case,
+               "launches": launched, "bitwise_equal": equal,
+               "copy_bytes": _vmap.copy_bytes - copies}
+        rows.append(row)
+        if launched != 1 or not equal or row["copy_bytes"]:
+            raise PhaseFailed(f"vmap fold: {row}")
+    reset_launches()
+    q = rand(2, 1, 8, 4, 256)
+    try:
+        torch.func.vmap(lambda q_: attn_ops.flash_attention(q_, q_, q_))(q)
+    except _checks.Refused as e:
+        refused = str(e)[:120]
+    else:
+        raise PhaseFailed("K7 at bf16 hd 256 under vmap did not raise")
+    if read_launches()["flash_attention"]:
+        raise PhaseFailed("a refused K7 call under vmap launched")
+    rows.append({"name": "vmap_fold", "kernel": "flash_attention",
+                 "case": "(R=2) x (1, 8, 4, 256) bf16: refused",
+                 "raised": refused, "launches": 0})
+    return rows
 
 
 def drive_serve(torch, cfg, *, sup_len, prompt_len, new_tokens, launched,
@@ -1717,6 +1831,14 @@ def drive_serve(torch, cfg, *, sup_len, prompt_len, new_tokens, launched,
     for name in launched:
         if launches[name] <= 0:
             errors.append(f"{name} was not launched on the serving path")
+    # decode launches K8 once an attention layer a step for each
+    # prompt-shape group, not once a request
+    groups = len({tuple(r.prompt.shape) for r in reqs})
+    k8_want = generation_launches(cfg, new_tokens, groups)["flash_decode"]
+    if launches["flash_decode"] != k8_want:
+        errors.append(f"K8 launched {launches['flash_decode']} times, not "
+                      f"{k8_want} (attention layers x (new_tokens - 1) x "
+                      f"{groups} groups)")
     for name in idle:
         if launches[name] != 0:
             errors.append(f"{name} launched {launches[name]} times on a "
@@ -1777,22 +1899,179 @@ def drive_serve(torch, cfg, *, sup_len, prompt_len, new_tokens, launched,
            "requests": len(reqs), "support_len": sup_len,
            "prompt_len": prompt_len, "max_new_tokens": new_tokens,
            "summary": summary, "adapt_ms_by_flush": flush_ms,
+           "prompt_shape_groups": groups, "k8_launches_expected": k8_want,
            "launches": launches,
            "launches_per_request": {k: v / len(reqs)
                                     for k, v in launches.items()},
            "peak_mem_gb": peak_gb, "solo_bitwise_equal": solo_equal,
            "plain_route": plain_cmp, "plain_tol_ratio": plain_tol_ratio}
+    res["batched"] = batched_generation(
+        torch, cfg, engine, reqs, {r["rid"]: r for r in report.records},
+        new_tokens, errors)
     return res, errors, launches, (engine, mk, mp, new_tokens), misses
 
 
+def generation_launches(cfg, new_tokens: int, groups: int = 1) -> dict:
+    """What generating `groups` prompt-shape groups launches for a
+    decoder-only config, each group one `torch.func.vmap`: K7 once an
+    attention layer (the prefill), K8 once an attention layer a decode
+    step (none for MLA, whose absorbed decode has no kernel), K9 once a
+    Mamba layer (the prefill); whatever the group's size."""
+    from repro_torch.models.lm import layer_groups
+    lead, period, n_reps = layer_groups(cfg)
+
+    def count(kind):
+        return (sum(s[0] == kind for s in lead)
+                + n_reps * sum(s[0] == kind for s in period))
+
+    attn = count("attn")
+    decode = 0 if cfg.attention == "mla" else attn * (new_tokens - 1)
+    return {"flash_attention": attn * groups, "flash_decode": decode * groups,
+            "ssd_chunk": count("mamba") * groups}
+
+
+def stepwise_generate(torch, engine, params, prompt, new_tokens: int):
+    """The per-request route: `ServingEngine.generate`'s loop on one
+    request (its prefill and decode steps, in its order), keeping every
+    step's logits. Returns (tokens (new_tokens,), [(V,) f32 logits])."""
+    out, steps = [], []
+    with torch.no_grad():
+        logits, cache = engine._prefill_fn(params, prompt[None])
+        for t in range(new_tokens):
+            if t:
+                logits, cache = engine._decode_fn(params, cache, tok[:, None])
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+            steps.append(logits[0].float())
+    return torch.cat(out), steps
+
+
+def batched_generation(torch, cfg, engine, reqs, records, new_tokens: int,
+                       errors, n: int = 2):
+    """The serving engine's batched route (`generate_batch`: one
+    `torch.func.vmap` over a prompt-shape group, each request under its
+    own θ_u) on the card, for the group of `reqs` (one prompt shape),
+    from the rows the serve adapted (`records` by rid):
+
+    - launches: one batched generation of the group launches K7, K8 and
+      K9 as `generation_launches` says, and no other kernel;
+    - against the per-request route (`stepwise_generate`), kernels on,
+      on the first `n` requests: tokens equal, or, where they differ,
+      the per-request route's top-two logit gap at the first differing
+      step within the limit (step and gap reported); the batched
+      route's first-step logits within the limit of the per-request
+      route's. Per-request weights make every projection a batched
+      matmul, whose bf16 rounding may differ from a single one's;
+    - against the plain route under vmap (`all_plain`: K7, K8, K9 plain,
+      none launched): first-step logits within the limit.
+
+    The limit is §2's bf16 handoff limit: twice the bf16 rounding
+    spread, max |logits(θ_u) − logits(θ_u cast to f32)| over the n
+    requests' first steps. Also reports the group's generation seconds
+    and the bytes the fold copied."""
+    import numpy as np
+    from repro_torch.kernels import _vmap
+    from repro_torch.utils.pytree import tree_map
+    group = [r for r in reqs if r.prompt is not None]
+    rows = [records[r.rid]["row"] for r in group]
+    prompts = torch.stack([torch.as_tensor(r.prompt, dtype=torch.int32)
+                           for r in group]).to("cuda")
+
+    def first_logits():
+        with torch.no_grad():
+            return torch.func.vmap(
+                lambda p, x: engine._prefill_fn(p, x[None])[0][0])(
+                engine.plane.unpack_rows(rows), prompts).float()
+
+    torch.cuda.synchronize()
+    copies = _vmap.copy_bytes
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = engine.generate_batch(rows, prompts, new_tokens)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    launches = read_launches()
+    copied = _vmap.copy_bytes - copies
+    want = generation_launches(cfg, new_tokens)
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        errors.append(f"{cfg.name}: one batched generation launched "
+                      f"{launches}, not {want}")
+    served_equal = all(np.array_equal(records[r.rid]["tokens"],
+                                      toks[i].cpu().numpy())
+                       for i, r in enumerate(group))
+    if not served_equal:        # the same route on the same inputs
+        errors.append(f"{cfg.name}: a second batched generation of the "
+                      f"served group gave other tokens than the serve")
+    lg_batched = first_logits()
+
+    per, spread = [], 0.0
+    for i in range(min(n, len(group))):
+        params = engine.unpack_row(rows[i])
+        toks_i, steps = stepwise_generate(torch, engine, params, prompts[i],
+                                          new_tokens)
+        params32 = tree_map(lambda x: x.float(), params)
+        with torch.no_grad():
+            lg32 = engine._prefill_fn(params32, prompts[i][None])[0][0]
+        del params32, params
+        spread = max(spread, float((steps[0] - lg32.float()).abs().max()))
+        differ = (toks_i != toks[i]).nonzero()
+        first = int(differ[0]) if differ.numel() else None
+        gap = None
+        if first is not None:
+            top = torch.topk(steps[first], 2).values
+            gap = float(top[0] - top[1])
+        per.append({"rid": group[i].rid, "tokens_equal": first is None,
+                    "first_differing_step": first, "top_two_gap": gap,
+                    "first_step_logit_gap": float(
+                        (lg_batched[i] - steps[0]).abs().max())})
+    limit = 2.0 * spread
+    for p in per:
+        if not p["first_step_logit_gap"] <= limit:
+            errors.append(f"{cfg.name}: batched first-step logits {p} "
+                          f"beyond the bf16 limit {limit}")
+        if not p["tokens_equal"] and not p["top_two_gap"] <= limit:
+            errors.append(f"{cfg.name}: batched tokens differ from the "
+                          f"per-request route's at a top-two gap beyond "
+                          f"the bf16 limit: {p}, limit {limit}")
+
+    reset_launches()
+    with all_plain():
+        lg_plain = first_logits()
+        toks_plain = engine.generate_batch(rows, prompts, new_tokens)
+    plain_launches = read_launches()
+    plain_gap = float((lg_plain - lg_batched).abs().max())
+    if not plain_gap <= limit:
+        errors.append(f"{cfg.name}: plain route under vmap {plain_gap} from "
+                      f"the kernel route, beyond the bf16 limit {limit}")
+    if any(plain_launches[k] for k in want):
+        errors.append(f"{cfg.name}: the plain route launched "
+                      f"{plain_launches}")
+    return {"requests": len(group), "launches": launches,
+            "launches_expected": want, "generate_s": batched_s,
+            "fold_copy_bytes": copied,
+            "served_tokens_equal": served_equal,
+            "per_request": per, "bf16_spread": spread, "limit": limit,
+            "plain_first_step_gap": plain_gap,
+            "plain_tokens_equal": bool(torch.equal(toks_plain, toks))}
+
+
 def phase_serve(torch, cfg):
-    """SmolLM-360M: supports and prompts of 64 tokens; K1, K7 and K8."""
+    """SmolLM-360M: supports and prompts of 64 tokens; K1, K7 and K8;
+    the group of 16 generated in one vmap (`batched_generation`)."""
     from repro_torch.kernels.attention import ops as attn_ops
+    _reset_peak(torch)
+    t0 = time.perf_counter()
     res, errors, launches, ctx, _ = drive_serve(
         torch, cfg, sup_len=64, prompt_len=64, new_tokens=8,
         launched=("inner_update_plane", "flash_attention", "flash_decode"),
         idle=(), plain_route=lambda: attn_ops.use_impl("torch"))
-    emit({"phase": "serve", "ok": not errors, **res, "errors": errors})
+    peak = _peak_gb(torch)
+    if not peak < 80:
+        errors.append(f"phase peak {peak} GB, not under 80")
+    emit({"phase": "serve", "ok": not errors, **res,
+          "phase_wall_s": time.perf_counter() - t0,
+          "phase_peak_gb": peak, "errors": errors})
     if errors:
         raise PhaseFailed("; ".join(errors))
     return launches, ctx
@@ -2278,6 +2557,8 @@ def phase_serve_ssm(torch, mcfg):
     chunk), prompts of 200 tokens (padded to 256: two chunks, the
     inter-chunk recurrence and the dt = 0 padding), 8 new tokens; K1 and
     K9 launched, K7 and K8 not; then the handoff at full width."""
+    _reset_peak(torch)
+    t0 = time.perf_counter()
     res, errors, launches, ctx, misses = drive_serve(
         torch, mcfg, sup_len=128, prompt_len=200, new_tokens=8,
         launched=("inner_update_plane", "ssd_chunk"),
@@ -2287,7 +2568,12 @@ def phase_serve_ssm(torch, mcfg):
     prompt = mp(np.random.RandomState(3))
     res["handoff"] = serve_handoff(torch, mcfg, engine, misses[0]["row"],
                                    prompt, errors)
-    emit({"phase": "serve_ssm", "ok": not errors, **res, "errors": errors})
+    peak = _peak_gb(torch)
+    if not peak < 80:
+        errors.append(f"phase peak {peak} GB, not under 80")
+    emit({"phase": "serve_ssm", "ok": not errors, **res,
+          "phase_wall_s": time.perf_counter() - t0,
+          "phase_peak_gb": peak, "errors": errors})
     if errors:
         raise PhaseFailed("; ".join(errors))
     return launches, ctx
@@ -2666,9 +2952,11 @@ def serve_dense(torch, arch, errors, *, layers=None, trace=False):
     """`build_engine` + `ServingEngine.serve` of a config at full width
     (bf16, random weights, seed 0; depth cut to `layers` if given): a
     warm-up request, then DENSE_SERVE's two requests with every kernel's
-    count from 0; K1, K7 and K8 launched, one miss and one hit, finite
-    rows, tokens in range, finite prefill logits of the adapted row,
-    adapt and decode ms, peak GB. With `trace`, torch.profiler spans
+    count from 0; K1, K7 and K8 launched (K8 once a layer a step for the
+    group of two), one miss and one hit, finite rows, tokens in range,
+    finite prefill logits of the adapted row, adapt and decode ms, peak
+    GB; the group's batched route against the per-request and plain
+    routes (`batched_generation`). With `trace`, torch.profiler spans
     over one more request's adaptation and over its decode."""
     from repro_torch.configs import get_config
     from repro_torch.federated.serving import TrafficModel
@@ -2718,6 +3006,10 @@ def serve_dense(torch, arch, errors, *, layers=None, trace=False):
     for name in ("inner_update_plane", "flash_attention", "flash_decode"):
         if launches[name] <= 0:
             errors.append(f"{arch} serve: {name} not launched")
+    k8_want = generation_launches(cfg, d["new_tokens"])["flash_decode"]
+    if launches["flash_decode"] != k8_want:
+        errors.append(f"{arch} serve: K8 launched {launches['flash_decode']} "
+                      f"times, not {k8_want} (one group)")
     for rec in report.records:
         toks = rec.get("tokens")
         if not bool(torch.isfinite(rec["row"]).all()):
@@ -2736,7 +3028,15 @@ def serve_dense(torch, arch, errors, *, layers=None, trace=False):
            "adapt_ms": miss["adapt_ms"], "decode_ms": miss["decode_ms"],
            "prefill_logits_finite": finite, "logits_shape": list(
                logits.shape), "peak_mem_gb": peak, "launches": launches}
-    del report, miss, logits
+    del miss, logits
+    res["batched"] = batched_generation(
+        torch, cfg, engine, reqs, {r["rid"]: r for r in report.records},
+        d["new_tokens"], errors)
+    res["peak_with_batched_gb"] = _peak_gb(torch)
+    if not res["peak_with_batched_gb"] < 80:
+        errors.append(f"{arch} serve: peak {res['peak_with_batched_gb']} GB, "
+                      f"not under 80")
+    del report
     if trace:
         req = TrafficModel(seed=1, **traffic).requests(1, mk, mp)
 

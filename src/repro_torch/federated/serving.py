@@ -13,10 +13,15 @@ answers the prompt with θ_u through prefill (K7) and decode (K8).
                     keyed (client, φ-version, support digest).
   ServingEngine     batches cache-miss adaptations through
                     `MetaAlgorithm.adapt_packed_batch` on the (C, N)
-                    plane, then decodes request by request, each under
-                    its own unpacked θ_u (the reference vmaps `gen_one`
-                    over requests; a per-request loop is the eager
-                    counterpart and launches no kernel under vmap).
+                    plane, then generates each prompt-shape group as
+                    one `torch.func.vmap` of `generate` (the reference's
+                    `jax.jit(jax.vmap(gen_one))`), each request under its
+                    own θ_u: the group's unpacked bf16 parameter trees
+                    are stacked and mapped, so every projection is a
+                    batched matmul, and K7, K8 and K9 fold the request
+                    axis into their batch axis (`kernels/_vmap.py`) and
+                    launch once a layer and step for the whole group.
+                    A group of one runs `generate` unmapped.
 
 Rows are independent (row c only enters client c's loss), so a served
 φ_u equals that client's solo `adapt_packed` bit for bit at any batch
@@ -25,6 +30,7 @@ size — pinned on the card by chip_smoke.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import threading
 import time
@@ -252,9 +258,9 @@ class ServingEngine:
          `adapt_batch` by repeating the last request (rows are
          independent, so padding never perturbs real rows);
       3. with `max_new_tokens > 0`, requests are grouped by prompt shape
-         and each is decoded greedily under its own θ_u; a record's
-         decode_ms is the wall time of its whole group, as in the
-         reference.
+         and each group is decoded greedily in one `generate_batch`,
+         each request under its own θ_u; a record's decode_ms is the
+         wall time of its whole group, as in the reference.
 
     Times are host wall clock around work that ends in a device
     synchronize. The engine is a single-threaded orchestrator; only
@@ -326,12 +332,11 @@ class ServingEngine:
 
     # -- decode -----------------------------------------------------------
 
-    @torch.no_grad()
-    def generate(self, row, prompt, max_new_tokens: int):
-        """Greedy decode of one prompt under the adapted row: prefill
-        (capacity = prompt length, as the reference's `gen_one`), then
-        `max_new_tokens - 1` decode steps. Returns (max_new_tokens,) int32."""
-        params = self.plane.unpack(row)
+    def _generate(self, params, prompt, max_new_tokens: int):
+        """The reference's `gen_one` on an unpacked θ_u: prefill
+        (capacity = prompt length), then `max_new_tokens - 1` greedy
+        decode steps. The cache's length stays a Python int, so the
+        same code runs under `torch.func.vmap`."""
         logits, cache = self._prefill_fn(params, prompt[None])
         tok = torch.argmax(logits, dim=-1).to(torch.int32)       # (1,)
         out = [tok]
@@ -340,6 +345,30 @@ class ServingEngine:
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(tok)
         return torch.cat(out)
+
+    @torch.no_grad()
+    def generate(self, row, prompt, max_new_tokens: int):
+        """Greedy decode of one prompt under the adapted row: prefill
+        (capacity = prompt length, as the reference's `gen_one`), then
+        `max_new_tokens - 1` decode steps. Returns (max_new_tokens,) int32."""
+        return self._generate(self.plane.unpack(row), prompt, max_new_tokens)
+
+    @torch.no_grad()
+    def generate_batch(self, rows, prompts, max_new_tokens: int):
+        """`generate` mapped over a group of R requests with one
+        `torch.func.vmap`, as the reference's `jax.jit(jax.vmap(gen_one))
+        (rows, prompts)`. rows: R adapted (n_padded,) rows; prompts:
+        (R, L) int32. The map runs over the stacked unpacked parameter
+        trees (`FlatPlane.unpack_rows`: R bf16 trees, not R more f32
+        rows). A group of one runs `generate` itself: the map would
+        fold nothing and costs host time on every op. Returns
+        (R, max_new_tokens) int32."""
+        if len(rows) == 1:
+            return self.generate(rows[0], prompts[0], max_new_tokens)[None]
+        params = self.plane.unpack_rows(rows)
+        gen = functools.partial(self._generate,
+                                max_new_tokens=max_new_tokens)
+        return torch.func.vmap(gen)(params, prompts)
 
     # -- the serve loop ---------------------------------------------------
 
@@ -378,11 +407,12 @@ class ServingEngine:
                                       []).append(req)
             for shape in list(groups):
                 greqs = groups.pop(shape)
+                prompts = torch.stack([self._to_device(r.prompt, torch.int32)
+                                       for r in greqs])
                 t0 = time.perf_counter()
-                toks = [self.generate(records[r.rid]["row"],
-                                      self._to_device(r.prompt, torch.int32),
-                                      max_new_tokens) for r in greqs]
-                toks = torch.stack(toks).cpu().numpy()
+                toks = self.generate_batch(
+                    [records[r.rid]["row"] for r in greqs], prompts,
+                    max_new_tokens).cpu().numpy()
                 wall_ms = (time.perf_counter() - t0) * 1e3
                 for i, r in enumerate(greqs):
                     records[r.rid]["tokens"] = toks[i]

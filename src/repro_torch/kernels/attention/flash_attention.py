@@ -18,6 +18,12 @@ backward recomputes attention with the plain version under autograd
 (`kernels/_recompute.py`). That backward is itself differentiable, so
 MAML's and Meta-SGD's second-order terms reach through it.
 
+Every launch on the card goes through that Function, with or without a
+gradient, so K7 is reachable under `torch.func.vmap`: its ``vmap`` rule
+folds the request axis into the batch axis (`kernels/_vmap.py`) and
+launches once for the whole group, as Pallas batches the reference's
+`pallas_call` under `jax.vmap` (the serving engine's prefill).
+
 On a CPU tensor the wrapper runs the plain version (`ref.py`); on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _checks
+from repro_torch.kernels import _checks, _vmap
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels._recompute import recompute_vjp
 from repro_torch.kernels.attention import ref
@@ -57,13 +63,17 @@ def _launch(q, k, v, causal, window, q_offset):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward; backward by recomputation with the plain version."""
+    """Kernel forward; backward by recomputation with the plain version;
+    under `torch.func.vmap`, one launch over the folded batch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
-        ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, q_offset)
+    def forward(q, k, v, causal, window, q_offset):
         return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:3])
+        ctx.args = inputs[3:]
 
     @staticmethod
     def backward(ctx, ct):
@@ -72,6 +82,14 @@ class _FlashAttention(torch.autograd.Function):
                               ctx.saved_tensors, (ct,),
                               ctx.needs_input_grad[:3])
         return (*grads, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset):
+        out = _vmap.fold(
+            lambda q_, k_, v_: _FlashAttention.apply(q_, k_, v_, causal,
+                                                     window, q_offset),
+            info.batch_size, (q, k, v), in_dims[:3])
+        return out, 0
 
 
 def flash_attention_bhld(q, k, v, *, causal: bool = True, window=None,
@@ -82,6 +100,4 @@ def flash_attention_bhld(q, k, v, *, causal: bool = True, window=None,
     192)."""
     if not q.is_cuda:
         return _plain_bhld(q, k, v, causal, window, q_offset)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
-    return _launch(q, k, v, causal, window, q_offset)
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -15,27 +15,15 @@ None` does: K7 has no ragged-length input and is never attempted.
 """
 from __future__ import annotations
 
-import contextlib
-
+from repro_torch.kernels._impl import ImplSwitch
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention.flash_attention import flash_attention_bhld
 from repro_torch.sharding.dtensor import is_dtensor, kernel_axes, local_call
 from repro_torch.sharding.rules import P
 
-_IMPLS = ("torch", "cuda")
-_DEFAULT_IMPL = "cuda"
-
-
-@contextlib.contextmanager
-def use_impl(impl: str):
-    """Scoped default-impl override (restores on exit)."""
-    global _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
-    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
-    try:
-        yield
-    finally:
-        _DEFAULT_IMPL = prev
+_IMPL = ImplSwitch()
+set_default_impl, get_default_impl, use_impl = (
+    _IMPL.set, _IMPL.get, _IMPL.use)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -47,8 +35,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     batch over pod+data and the heads over model where they split
     evenly (`sharding.dtensor.kernel_axes`): each rank runs this
     function on its own shards."""
-    impl = impl or _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
+    impl = _IMPL.resolve(impl)
     if is_dtensor(q) and kv_length is None:
         b, h = kernel_axes(q, q.shape[0], q.shape[2],
                            group=q.shape[2] // k.shape[2])

@@ -12,6 +12,14 @@ serving step's short cache, so one launch there. A Python-int
 kv_length goes to the kernel as an argument, so a call launches no
 fill. Any cache length C is accepted.
 
+The launch sits in an ``autograd.Function`` (no backward: decode runs
+without a gradient) whose ``vmap`` rule folds the request axis of
+`torch.func.vmap` into the batch axis (`kernels/_vmap.py`): the serving
+engine's batch of R requests decodes with one launch a layer and step.
+A Python-int kv_length stays an argument; a (B,) tensor becomes (R·B,),
+repeated R times where it is not mapped. `splits_for` sees the folded
+batch.
+
 On a CPU tensor the wrapper runs the plain version (`ref.py`); on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -21,7 +29,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _checks
+from repro_torch.kernels import _checks, _vmap
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels.decode_attention import ref
 
@@ -54,12 +62,31 @@ def splits_for(k_cache, kv_length) -> int:
                       _sm_count(k_cache.device))
 
 
+class _FlashDecode(torch.autograd.Function):
+    """Kernel launch; under `torch.func.vmap`, one launch over the folded
+    batch. The output is not differentiable."""
+
+    @staticmethod
+    def forward(q, k_cache, v_cache, kv_length):
+        return _launch(q, k_cache, v_cache, kv_length)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k_cache, v_cache, kv_length):
+        out = _vmap.fold(_FlashDecode.apply, info.batch_size,
+                         (q, k_cache, v_cache, kv_length), in_dims)
+        return out, 0
+
+
 def flash_decode(q, k_cache, v_cache, kv_length):
     """q: (B, H, hd); caches: (B, C, Kv, hd); kv_length: a Python int for
     every row, or (B,) int. Returns (B, H, hd) in q's dtype."""
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_length)
-    return _launch(q, k_cache, v_cache, kv_length)
+    return _FlashDecode.apply(q, k_cache, v_cache, kv_length)
 
 
 def _launch(q, k_cache, v_cache, kv_length):

@@ -6,29 +6,17 @@ with `use_impl`.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from repro_torch.kernels._impl import ImplSwitch
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.decode_attention.flash_decode import flash_decode
 from repro_torch.sharding.dtensor import is_dtensor, kernel_axes, local_call
 from repro_torch.sharding.rules import P
 
-_IMPLS = ("torch", "cuda")
-_DEFAULT_IMPL = "cuda"
-
-
-@contextlib.contextmanager
-def use_impl(impl: str):
-    """Scoped default-impl override (restores on exit)."""
-    global _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
-    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
-    try:
-        yield
-    finally:
-        _DEFAULT_IMPL = prev
+_IMPL = ImplSwitch()
+set_default_impl, get_default_impl, use_impl = (
+    _IMPL.set, _IMPL.get, _IMPL.use)
 
 
 def decode_attention(q, k_cache, v_cache, kv_length, *,
@@ -38,8 +26,7 @@ def decode_attention(q, k_cache, v_cache, kv_length, *,
     DTensor operands (a step on a mesh) enter through `local_map`, the
     batch over pod+data and the heads over model where they split
     evenly: each rank runs this function on its own shards."""
-    impl = impl or _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
+    impl = _IMPL.resolve(impl)
     B = q.shape[0]
     if is_dtensor(q) or is_dtensor(k_cache):
         t = q if is_dtensor(q) else k_cache

@@ -11,10 +11,9 @@ the reference's xla/pallas switch (`repro/kernels/meta_update/ops.py:43-60`).
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from repro_torch.kernels._impl import ImplSwitch
 from repro_torch.kernels.meta_update import ref
 from repro_torch.kernels.meta_update.aggregate import (masked_mean_flat,
                                                        masked_mean_ref,
@@ -35,26 +34,10 @@ from repro_torch.sharding.dtensor import is_dtensor, local_call
 from repro_torch.utils.flat import plane_for
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
-_IMPLS = ("torch", "cuda")
-_DEFAULT_IMPL = "cuda"
-
-
-@contextlib.contextmanager
-def use_impl(impl: str):
-    """Scoped default-impl override (restores on exit)."""
-    global _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
-    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
-    try:
-        yield
-    finally:
-        _DEFAULT_IMPL = prev
-
-
-def resolve_impl(impl: str | None) -> str:
-    impl = impl or _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
-    return impl
+_IMPL = ImplSwitch()
+set_default_impl, get_default_impl, use_impl = (
+    _IMPL.set, _IMPL.get, _IMPL.use)
+resolve_impl = _IMPL.resolve
 
 
 def meta_update(theta, alpha, grads, *, impl: str | None = None):

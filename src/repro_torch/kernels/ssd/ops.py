@@ -11,30 +11,18 @@ per call, or scoped with `use_impl`.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from repro_torch.kernels._impl import ImplSwitch
 from repro_torch.kernels.ssd import ref
 from repro_torch.kernels.ssd.ssd_scan import ssd_intra_chunk
 from repro_torch.sharding.dtensor import (is_dtensor, kernel_axes, local_call,
                                          summed_over_batch)
 from repro_torch.sharding.rules import P, placements
 
-_IMPLS = ("torch", "cuda")
-_DEFAULT_IMPL = "cuda"
-
-
-@contextlib.contextmanager
-def use_impl(impl: str):
-    """Scoped default-impl override (restores on exit)."""
-    global _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
-    prev, _DEFAULT_IMPL = _DEFAULT_IMPL, impl
-    try:
-        yield
-    finally:
-        _DEFAULT_IMPL = prev
+_IMPL = ImplSwitch()
+set_default_impl, get_default_impl, use_impl = (
+    _IMPL.set, _IMPL.get, _IMPL.use)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
@@ -43,8 +31,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
 
     With return_final_state, also returns the (B, nh, hp, N) state after
     the last token (for prefill -> decode handoff)."""
-    impl = impl or _DEFAULT_IMPL
-    assert impl in _IMPLS, impl
+    impl = _IMPL.resolve(impl)
     if is_dtensor(x):
         # a step on a mesh: each rank scans its own batch rows and heads;
         # A's gradient is each rank's share, summed over the batch dims

@@ -17,6 +17,10 @@ under a gradient the kernel sits in an ``autograd.Function`` whose
 backward recomputes the plain version (`ref.ssd_intra_chunk_plain`)
 under autograd (`kernels/_recompute.py`), differentiable again for
 the second-order meta-learners; a backward kernel is later work.
+Every launch on the card goes through that Function, so under
+`torch.func.vmap` (a batch of served Mamba2 prefills) its ``vmap`` rule
+folds the request axis into the batch axis (`kernels/_vmap.py`): one
+launch for the group.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _checks
+from repro_torch.kernels import _checks, _vmap
 from repro_torch.kernels._build import get_ext
 from repro_torch.kernels._recompute import recompute_vjp
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
@@ -52,13 +56,17 @@ def _launch(xdt, a, Bm, Cm, chunk):
 
 
 class _SsdIntraChunk(torch.autograd.Function):
-    """Kernel forward; backward by recomputation with the plain version."""
+    """Kernel forward; backward by recomputation with the plain version;
+    under `torch.func.vmap`, one launch over the folded batch."""
 
     @staticmethod
-    def forward(ctx, xdt, a, Bm, Cm, chunk):
-        ctx.save_for_backward(xdt, a, Bm, Cm)
-        ctx.chunk = chunk
+    def forward(xdt, a, Bm, Cm, chunk):
         return _launch(xdt, a, Bm, Cm, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:4])
+        ctx.chunk = inputs[4]
 
     @staticmethod
     def backward(ctx, gy, gS):
@@ -68,6 +76,13 @@ class _SsdIntraChunk(torch.autograd.Function):
             ctx.saved_tensors, (gy, gS), ctx.needs_input_grad[:4])
         return (*grads, None)
 
+    @staticmethod
+    def vmap(info, in_dims, xdt, a, Bm, Cm, chunk):
+        out = _vmap.fold(
+            lambda *t: _SsdIntraChunk.apply(*t, chunk),
+            info.batch_size, (xdt, a, Bm, Cm), in_dims[:4])
+        return out, (0, 0)
+
 
 def ssd_intra_chunk(xdt, a, Bm, Cm, *, chunk: int):
     """xdt (B, nh, L, hp), a (B, nh, L), Bm / Cm (B, L, N), float32, any
@@ -75,7 +90,4 @@ def ssd_intra_chunk(xdt, a, Bm, Cm, *, chunk: int):
     float32."""
     if not xdt.is_cuda:
         return ssd_intra_chunk_plain(xdt, a, Bm, Cm, chunk=chunk)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (xdt, a, Bm, Cm)):
-        return _SsdIntraChunk.apply(xdt, a, Bm, Cm, chunk)
-    return _launch(xdt, a, Bm, Cm, chunk)
+    return _SsdIntraChunk.apply(xdt, a, Bm, Cm, chunk)

@@ -119,7 +119,7 @@ def moe_route(params, cfg, xt, capacity_factor: float | None = None):
     sorted_expert, order = torch.sort(flat_expert, stable=True)
     # a fixed-size count (bincount's output size depends on the data);
     # integer adds, so the order the scatter adds in does not matter
-    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add(
         0, flat_expert, torch.ones_like(flat_expert))
     group_start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - group_start[sorted_expert]
@@ -127,20 +127,24 @@ def moe_route(params, cfg, xt, capacity_factor: float | None = None):
     slot_sorted = sorted_expert * capacity + rank
 
     # dropped entries aim at one spare position past the slots, cut off
-    # after the scatter (no host sync, no kept slot written twice)
+    # after the scatter (no host sync, no kept slot written twice).
+    # Every write here is out of place, so the routing runs under
+    # `torch.func.vmap` (the serving engine's batch of requests).
     slot_or_spare = torch.where(keep_sorted, slot_sorted,
                                 torch.full_like(slot_sorted, E * capacity))
     slot_src = torch.full((E * capacity + 1,), T * K, dtype=torch.long,
-                          device=dev).scatter_(0, slot_or_spare, order)
+                          device=dev).scatter(0, slot_or_spare, order)
     slot_src = slot_src[:-1].view(E, capacity)
-    slot_src[:, 0] = torch.where(counts > capacity,
-                                 torch.full_like(slot_src[:, 0], T * K),
-                                 slot_src[:, 0])
+    first = torch.where(counts > capacity,
+                        torch.full_like(slot_src[:, 0], T * K),
+                        slot_src[:, 0])
+    slot_src = torch.cat([first[:, None], slot_src[:, 1:]], dim=1)
 
-    tok_slot = torch.empty(T * K, dtype=torch.long, device=dev)
-    tok_slot[order] = slot_or_spare
-    keep = torch.empty(T * K, dtype=torch.bool, device=dev)
-    keep[order] = keep_sorted
+    # `order` is a permutation: each entry is written once
+    tok_slot = torch.empty(T * K, dtype=torch.long, device=dev).scatter(
+        0, order, slot_or_spare)
+    keep = torch.empty(T * K, dtype=torch.bool, device=dev).scatter(
+        0, order, keep_sorted)
     return {"gates": gates, "expert_ids": expert_ids, "aux": aux,
             "capacity": capacity, "counts": counts,
             "keep": keep.view(T, K), "slot_src": slot_src.reshape(-1),

@@ -89,6 +89,22 @@ class FlatPlane:
                for s, p in zip(self.slots, parts)]
         return tree_unflatten(self.treedef, out)
 
+    def unpack_rows(self, rows):
+        """R (n_padded,) planes -> one tree with a leading (R,) axis on
+        every leaf: ``unpack`` of each row (the same casts, so the same
+        bits), written leaf by leaf into one buffer of the leaf's dtype,
+        so no (R, n_padded) f32 stack is made."""
+        rows = list(rows)
+        out = []
+        for s in self.slots:
+            leaf = torch.empty((len(rows),) + tuple(s.shape),
+                               dtype=dtype_from_name(s.dtype),
+                               device=rows[0].device)
+            for i, r in enumerate(rows):
+                leaf[i].copy_(r[s.offset:s.offset + s.size].view(s.shape))
+            out.append(leaf)
+        return tree_unflatten(self.treedef, out)
+
     def pack_batch(self, tree, dtype=torch.float32):
         """tree with a leading batch axis on every leaf -> (B, n_padded)."""
         leaves = tree_flatten(tree)[0]
