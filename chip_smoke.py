@@ -104,7 +104,8 @@ Phases, each printing one JSON line:
            a round under int8, and the int8 run again with impl="torch",
            bitwise equal; (ii) int8+ef with DP for 5 rounds, kernel and
            plain routes bitwise equal; (iii) the committed FEMNIST
-           comparison plan (five methods; cut to 40 rounds), bytes held
+           comparison plan (five methods; cut to 40 rounds) under
+           ``REPRO_SANITIZE=1`` (no tensor in any record), bytes held
            exactly; (iv) 2 FOMAML rounds of SmolLM-360M at full width
            with int8 uploads, error feedback over 8 client rows and DP,
            round 1 held against the all-plain route.
@@ -275,16 +276,33 @@ Phases, each printing one JSON line:
            dropped entries against a count from the router logits); the
            training launcher (`launch/train.train`) on the 1x1 mesh with
            DTensor state, SmolLM-360M at train_4k's 4,096 tokens cut to 1
-           client of 1 + 1 sequences, one FOMAML step against the meshless
-           step (loss, φ bitwise or within 2·lr plus a bf16 ulp), K7 and
-           K1 launched through `local_map`. (ii) Two spawned ranks on the
+           client of 1 + 1 sequences, one FOMAML step from the state
+           drawn shard by shard and one from an injected φ placed by
+           `distribute`, each against the meshless step (loss, φ bitwise
+           or within 2·lr plus a bf16 ulp) and the two bitwise equal, K7
+           and K1 launched through `local_map` in each. (ii) Two spawned ranks on the
            one card over gloo (each rank's CUDA tensors staged through
            pinned host buffers; not an interconnect measurement): the
            sharded round at m = 5 (one zero-weight pad row) within the f32
            rule of the vmap round (meta-gradient at rtol 1e-5, φ within
            2·lr), each rank's K2 bitwise its plain version on the same
-           rows, and the expert-parallel layer with 80 experts a rank
-           against `moe_apply`. Collective calls and bytes are printed.
+           rows, the expert-parallel layer with 80 experts a rank
+           against `moe_apply`, and the launchers' shard-only init:
+           SmolLM-360M's train state (`launch/train.train`) and decode
+           weights and cache (`launch/serve.decode_state`) drawn shard by
+           shard on 2x1 and 1x2 meshes, bitwise DTensor's own cut of the
+           whole draw, then qwen2.5-3b's train state (30.86 GB whole)
+           drawn shard by shard on the 2x1 mesh with each rank's peak
+           allocated bytes printed against its shard and the whole state
+           (at most the shard plus two of its largest unit leaf in f32);
+           then, in a world on the backend `staged_gloo` (DTensor's
+           collectives as `StagedGloo`, gloo on pinned host copies:
+           gloo given CUDA tensors ends the process,
+           `tools/probe_gloo_cuda.py`, and NCCL takes one rank a card),
+           the launcher's SmolLM-360M step on the 1x2 mesh from the
+           shard-only state against the meshless step (loss, φ bitwise
+           or within 2·lr plus a bf16 ulp of the larger entry), K7 and
+           K1 launched on each rank. Collective calls and bytes are printed.
 
 `python3 chip_smoke.py --launch-cuts fomaml:2,fomaml:16,maml:2` runs no
 phase: it builds the kernels and prints, for each cut `algo:S` (S
@@ -3880,17 +3898,34 @@ def comm_dp(torch, errors, rounds=5):
 COMPARE_ROUNDS = 40
 
 
+@contextlib.contextmanager
+def sanitizing():
+    """``REPRO_SANITIZE=1`` for the duration: `run_comparison` then
+    checks every method's record for tensors
+    (`analysis.sanitizers.assert_no_tracers`)."""
+    old = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_SANITIZE"]
+        else:
+            os.environ["REPRO_SANITIZE"] = old
+
+
 def comm_compare(torch, errors, rounds=COMPARE_ROUNDS, eval_every=2):
     """(iii) the committed FEMNIST comparison plan on the client plane:
     FedAvg, FedAvg(Meta), MAML, FOMAML and Meta-SGD, cut to
-    `COMPARE_ROUNDS`."""
+    `COMPARE_ROUNDS`, under ``REPRO_SANITIZE=1`` (`sanitizing`)."""
     from repro_torch.federated.experiment import format_table, run_comparison
     from repro_torch.launch.compare import comparison_plan
     committed = _committed("femnist_compare.json")
     plan = comparison_plan("femnist", rounds=rounds, eval_every=eval_every)
     reset_launches()
     t0 = time.perf_counter()
-    out = run_comparison(plan, device="cuda")
+    with sanitizing():
+        out = run_comparison(plan, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -3914,7 +3949,7 @@ def comm_compare(torch, errors, rounds=COMPARE_ROUNDS, eval_every=2):
                         committed_test_acc=committed["methods"][m]["test_acc"],
                         seconds=rec["seconds"])
     print(format_table(out), flush=True)
-    return {"rounds": rounds, "eval_every": eval_every,
+    return {"rounds": rounds, "eval_every": eval_every, "sanitized": True,
             "target_acc": out["target_acc"],
             "committed_target_acc": committed["target_acc"],
             "wall_s": wall, "launches": launches, "table": table}, \
@@ -5643,12 +5678,156 @@ def md_ep_check(torch, cfg, params, x, mesh, errors, *, rank0=True):
     return rec
 
 
+def same_shards(torch, a, b) -> bool:
+    """Every tensor leaf of ``a`` and ``b`` a DTensor with equal
+    placements, global shape, dtype and local values (bitwise); other
+    leaves equal."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.utils.pytree import tree_flatten
+    (la, ta), (lb, tb) = tree_flatten(a), tree_flatten(b)
+    if ta != tb:
+        return False
+    for x, y in zip(la, lb):
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return False
+        elif not (isinstance(x, DTensor) and isinstance(y, DTensor)
+                  and x.placements == y.placements and x.shape == y.shape
+                  and x.dtype == y.dtype
+                  and torch.equal(x.to_local(), y.to_local())):
+            return False
+    return True
+
+
+def todays_shards(tree, specs, mesh):
+    """Today's route's shards of a whole tree this rank drew: DTensor's
+    own cut (`distribute_tensor` with ``src_data_rank=None``), the
+    shards `distribute` sends from rank 0's identical draw, with no
+    collective (gloo takes no CUDA tensor in its scatter)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding.rules import map_with_specs, placements
+    return map_with_specs(lambda x, s: distribute_tensor(
+        x, mesh, placements(s, mesh), src_data_rank=None), tree, specs)
+
+
+def tree_nbytes(torch, tree) -> int:
+    """Bytes of a tree's tensors (a DTensor's local shard)."""
+    from repro_torch.utils.pytree import tree_leaves
+    n = 0
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            x = x.to_local() if hasattr(x, "to_local") else x
+            n += x.numel() * x.element_size()
+    return n
+
+
+def largest_unit_f32(torch, cfg) -> int:
+    """Bytes of the largest leaf of one of `init_lm`'s draw units (a
+    layer's leaf, or the embedding drawn whole) in f32."""
+    from repro_torch.models.layers import Rng
+    from repro_torch.models.lm import init_units
+    from repro_torch.utils.pytree import tree_leaves
+    return max(x.numel() * 4 for _, u, _ in init_units(Rng(0, "meta"), cfg)
+               for x in tree_leaves(u))
+
+
+# the decode state drawn on the two ranks: 2 sequences of 4,096 slots
+MD_DECODE = dict(batch=2, seq=4096)
+
+
+def md_shard_init(torch, errors):
+    """The launchers' shard-only init on the two ranks. SmolLM-360M at
+    full width on the 2x1 (FSDP) and 1x2 (tensor-parallel) meshes: the
+    FOMAML train state through `launch/train.train(steps=0)` and the
+    decode weights and cache through `launch/serve.decode_state`, each
+    bitwise `todays_shards` of the whole draw. Then qwen2.5-3b's train
+    state (30.86 GB whole) drawn shard by shard on the 2x1 mesh, init
+    and placement only: this rank's peak allocated bytes over the init
+    against its shard's bytes and the whole state's (today's route,
+    which holds the whole state on each rank, is not run at this
+    width)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.sharding.rules import (cache_pspecs, param_pspecs,
+                                            state_pspecs)
+    out = {}
+    cfg = get_config("smollm-360m")
+    shape = tl.cut_shape(INPUT_SHAPES["train_4k"], seqs_per_client=2,
+                         clients=1)
+    _, init_state, _, _ = make_train_step(cfg)
+    for data, model in ((2, 1), (1, 2)):
+        mesh = make_host_mesh(data, model, device_type="cuda")
+        t0 = time.perf_counter()
+        new, _ = tl.train(cfg, shape, steps=0, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        whole = init_state(0, device="cuda")
+        old = todays_shards(whole, state_pspecs(
+            whole, param_pspecs(whole["phi"]["theta"], mesh), mesh), mesh)
+        del whole
+        train_ok = same_shards(torch, new, old)
+        shard_b = tree_nbytes(torch, new)
+        del new, old
+        dnew = serve.decode_state(cfg, **MD_DECODE, device="cuda", mesh=mesh)
+        wp, wc = serve.decode_state(cfg, **MD_DECODE, device="cuda")
+        dold = (todays_shards(wp, param_pspecs(wp, mesh), mesh),
+                todays_shards(wc, cache_pspecs(wc, mesh), mesh))
+        del wp, wc
+        decode_ok = same_shards(torch, dnew, dold)
+        del dnew, dold
+        tag = f"smollm_{data}x{model}"
+        out[tag] = {"train_bitwise": train_ok, "decode_bitwise": decode_ok,
+                    "train_state_shard_gb": shard_b / 1e9,
+                    "sharded_train_init_s": init_s}
+        if not (train_ok and decode_ok):
+            errors.append(f"{tag}: sharded init differs from today's "
+                          f"shards (train {train_ok}, decode {decode_ok})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    qcfg = get_config("qwen2.5-3b")
+    mesh = make_host_mesh(2, 1, device_type="cuda")
+    _, qinit, _, _ = make_train_step(qcfg)
+    whole_b = tree_nbytes(torch, qinit(0, device="meta"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = qinit(0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    shard_b = tree_nbytes(torch, state)
+    unit_b = largest_unit_f32(torch, qcfg)
+    del state
+    out["qwen2.5-3b_2x1"] = {
+        "init_peak_gb": peak / 1e9, "shard_gb": shard_b / 1e9,
+        "whole_state_gb": whole_b / 1e9,
+        "largest_unit_leaf_f32_gb": unit_b / 1e9,
+        "peak_over_shard_gb": (peak - shard_b) / 1e9, "init_s": init_s}
+    # the shard plus one unit's largest leaf in its f32 staging and its
+    # cast copy (the prediction in PERF.md)
+    bound = shard_b + 2 * unit_b
+    out["qwen2.5-3b_2x1"]["peak_bound_gb"] = bound / 1e9
+    if peak > bound:
+        errors.append(f"qwen2.5-3b sharded init peaked at {peak / 1e9} GB, "
+                      f"over its shard plus two unit leaves, {bound / 1e9} "
+                      f"GB (the whole state is {whole_b / 1e9} GB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _md_child(rank, world, store, out_dir):
     """One rank of the two-rank world on the one card (gloo; its CUDA
     tensors staged through pinned host buffers by
-    `sharding.collectives`): the sharded round at m = 5 and the
-    expert-parallel layer on a 1x2 model mesh. Writes its record to
-    ``out_dir/rank{rank}.json``; a failure exits nonzero."""
+    `sharding.collectives`): the sharded round at m = 5, the
+    expert-parallel layer on a 1x2 model mesh and the launchers'
+    shard-only init (`md_shard_init`); then, in a second world,
+    the launcher's step on two ranks (`md_launcher_world2`). Writes its
+    record to ``out_dir/rank{rank}.json``; a failure exits nonzero."""
     import torch
     import torch.distributed as dist
     errors, rec = [], {"rank": rank}
@@ -5681,7 +5860,20 @@ def _md_child(rank, world, store, out_dir):
         rec["ep"] = md_ep_check(torch, mcfg, params, x, mesh, errors,
                                 rank0=rank == 0)
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec["shard_init"] = md_shard_init(torch, errors)
+        rec["shard_init_s"] = time.perf_counter() - t0
         dist.barrier()
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec["launcher"] = md_launcher_world2(torch, rank, world,
+                                             store + ".staged", errors)
+        rec["launcher_s"] = time.perf_counter() - t0
     except Exception as e:       # noqa: BLE001 — recorded, then exit 1
         errors.append(f"{type(e).__name__}: {e}")
         rec["trace"] = traceback.format_exc()[-3000:]
@@ -5729,68 +5921,159 @@ def md_two_ranks(torch, errors):
     return recs
 
 
-def md_launcher(torch, errors):
-    """The training launcher on the 1x1 NCCL host mesh: SmolLM-360M at
-    full width, train_4k's 4,096 tokens cut to 1 client of 1 + 1
-    sequences, one FOMAML step with the state and batch as DTensors,
-    against the same step with no mesh from the same φ: the loss, and φ
-    bitwise or within 2·lr plus one bf16 ulp of the entry (Adam's first
-    step moves an entry by at most lr). K7 and K1 launched on the mesh
-    (through `local_map`)."""
+def md_step_against(torch, a, r0, b, r1, name, errors, *,
+                    both_ulps=False) -> dict:
+    """A launcher step on a mesh (φ leaves ``b``, record ``r1``) held
+    against the meshless step (``a``, ``r0``): the loss within 1e-5
+    relative, and φ bitwise or within 2·lr plus one bf16 ulp of the
+    mesh's entry (Adam's first step moves an entry by at most lr). With
+    ``both_ulps`` the ulp is the larger entry's, since each side rounds
+    its own entry: where a near-zero gradient's sign differs, the two
+    steps go opposite ways and one side ends near zero."""
+    lr = LAUNCH_LR["outer_lr"]
+    eps = torch.finfo(torch.bfloat16).eps
+    bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
+    over = max(float(((x.float() - y.float()).abs() - 2 * lr - eps * (
+        torch.maximum(x.float().abs(), y.float().abs()) if both_ulps
+        else y.float().abs())).max()) for x, y in zip(a, b))
+    gap = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(a, b))
+    if not bitwise and over > 0:
+        errors.append(f"launcher {name}: φ gap {gap} past the limit")
+    if abs(r0["query_loss"] - r1["query_loss"]) > 1e-5 * abs(
+            r0["query_loss"]):
+        errors.append(f"launcher {name} loss {r1['query_loss']} != "
+                      f"{r0['query_loss']}")
+    return {"loss": r1["query_loss"], "meshless_loss": r0["query_loss"],
+            "step_s": r1["wall_s"], "phi_bitwise": bitwise,
+            "phi_max_abs_gap": gap, "phi_max_over_tol": over,
+            "phi_tol": "2·lr + eps(bf16)·" + (
+                "max(|φ|, |φ_meshless|)" if both_ulps else "|φ|")
+            + f" (lr {lr})"}
+
+
+def md_launched(launches, name, errors):
+    for k in ("flash_attention", "inner_update_plane"):
+        if launches[k] <= 0:
+            errors.append(f"{k} not launched by the launcher {name}")
+
+
+def md_launcher_setup():
+    """SmolLM-360M at full width, train_4k's 4,096 tokens cut to 1
+    client of 1 + 1 sequences."""
     from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import train as tl
+    return get_config("smollm-360m"), tl.cut_shape(
+        INPUT_SHAPES["train_4k"], seqs_per_client=2, clients=1)
+
+
+def md_launcher(torch, errors):
+    """The training launcher on the 1x1 NCCL host mesh (`md_launcher_setup`),
+    one FOMAML step with the state and batch as DTensors, twice: from
+    the state drawn shard by shard (`init_state(mesh=...)`) and from an
+    injected φ, the whole seed-0 draw, placed by `distribute`. Each is
+    held against the same step with no mesh from the whole draw of the
+    same seed (`md_step_against`), and the two mesh runs bitwise equal.
+    K7 and K1 launched on the mesh in each run (through `local_map`);
+    the path's counts are the shard-only run's."""
     from repro_torch.launch import train as tl
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.utils.pytree import tree_leaves, tree_map
-    cfg = get_config("smollm-360m")
-    shape = tl.cut_shape(INPUT_SHAPES["train_4k"], seqs_per_client=2,
-                         clients=1)
-    _, init_state, _, _ = make_train_step(cfg)
-    phi = init_state(0, device="cuda")["phi"]
+    cfg, shape = md_launcher_setup()
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    phi = make_train_step(cfg)[1](0, device="cuda")["phi"]
     runs = {}
-    for name, mesh in (("meshless", None),
-                       ("mesh", make_host_mesh(1, 1, device_type="cuda"))):
+    for name, m, inj in (("meshless", None, None), ("mesh", mesh, None),
+                         ("mesh_injected", mesh, phi)):
         reset_launches()
-        state, recs = tl.train(cfg, shape, steps=1, device="cuda",
-                               phi=tree_map(torch.clone, phi),
-                               log_every=10 ** 9, mesh=mesh, **LAUNCH_LR)
-        runs[name] = (tl.full(state["phi"]), recs[0], read_launches())
+        state, recs = tl.train(
+            cfg, shape, steps=1, device="cuda", log_every=10 ** 9, mesh=m,
+            phi=None if inj is None else tree_map(torch.clone, inj),
+            **LAUNCH_LR)
+        runs[name] = (tree_leaves(tl.full(state["phi"])), recs[0],
+                      read_launches())
         del state
-    (p0, r0, _), (p1, r1, launches) = runs["meshless"], runs["mesh"]
-    a, b = tree_leaves(p0), tree_leaves(p1)
-    bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
-    lr = LAUNCH_LR["outer_lr"]
-    over = max(float(((x.float() - y.float()).abs() - 2 * lr
-                      - torch.finfo(torch.bfloat16).eps * y.float().abs())
-                     .max()) for x, y in zip(a, b))
-    gap = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    del phi
+    a, r0, _ = runs["meshless"]
     rec = {"seq_len": shape.seq_len, "support": 1, "query": 1,
-           "loss": {"meshless": r0["query_loss"], "mesh": r1["query_loss"]},
-           "step_s": {"meshless": r0["wall_s"], "mesh": r1["wall_s"]},
-           "phi_bitwise": bitwise, "phi_max_abs_gap": gap,
-           "phi_tol": f"2·lr + eps(bf16)·|φ| (lr {lr})", "launches": launches}
-    if not bitwise and over > 0:
-        errors.append(f"launcher on the mesh: φ gap {gap} past the limit")
-    if abs(r0["query_loss"] - r1["query_loss"]) > 1e-5 * abs(
-            r0["query_loss"]):
-        errors.append(f"launcher loss {r1['query_loss']} != "
-                      f"{r0['query_loss']}")
-    for name in ("flash_attention", "inner_update_plane"):
-        if launches[name] <= 0:
-            errors.append(f"{name} not launched by the launcher on a mesh")
-    del runs, p0, p1, a, b
+           "meshless_step_s": r0["wall_s"]}
+    for name in ("mesh", "mesh_injected"):
+        b, r1, launches = runs[name]
+        rec[name] = {**md_step_against(torch, a, r0, b, r1, name, errors),
+                     "launches": launches}
+        md_launched(launches, name, errors)
+    (b, r1, _), (c, r2, _) = runs["mesh"], runs["mesh_injected"]
+    rec["mesh_runs_bitwise"] = (r1["query_loss"] == r2["query_loss"] and all(
+        torch.equal(x, y) for x, y in zip(b, c)))
+    if not rec["mesh_runs_bitwise"]:
+        errors.append("launcher: the shard-only and the injected-φ runs on "
+                      "the mesh differ")
+    launches = runs["mesh"][2]
+    del runs, a, b, c
     return rec, launches
+
+
+def md_launcher_world2(torch, rank, world, store, errors):
+    """The training launcher's step on the two ranks, on a 1x2 mesh
+    (tensor-parallel over model), in a world on the backend
+    `staged_gloo`: DTensor's collectives run as
+    `sharding.collectives.StagedGloo`, gloo on pinned host copies (gloo
+    ends the process on DTensor's all-gather of a CUDA tensor:
+    `tools/probe_gloo_cuda.py`). `md_launcher_setup`'s step from the
+    state drawn shard by shard, against the meshless step from the
+    whole draw of the same seed on rank 0 (`md_step_against`, the ulp
+    of the larger entry). K7 and K1 launched on the mesh. (On the 2x1
+    mesh the batch of one sequence cannot shard, so DTensor splits each
+    FSDP matmul's contraction and sums bf16 partials: the loss moves by
+    1.6e-5 relative, past the limit; `PERF.md` §7.)"""
+    import torch.distributed as dist
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.utils.pytree import tree_leaves
+    dist.init_process_group(coll.register_staged_gloo(),
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    cfg, shape = md_launcher_setup()
+    mesh = make_host_mesh(1, 2, device_type="cuda")
+    reset_launches()
+    coll.reset()
+    state, recs = tl.train(cfg, shape, steps=1, device="cuda",
+                           log_every=10 ** 9, mesh=mesh, **LAUNCH_LR)
+    launches = read_launches()
+    rec = {"mesh": "1x2", "seq_len": shape.seq_len, "launches": launches,
+           "collectives": {"calls": dict(coll.calls),
+                           "bytes": dict(coll.bytes_)}}
+    md_launched(launches, f"on rank {rank}", errors)
+    b = tree_leaves(tl.full(state["phi"]))
+    r1 = recs[0]
+    del state
+    if rank == 0:
+        state, recs = tl.train(cfg, shape, steps=1, device="cuda",
+                               log_every=10 ** 9, **LAUNCH_LR)
+        rec.update(md_step_against(torch, tree_leaves(state["phi"]),
+                                   recs[0], b, r1, "on two ranks", errors,
+                                   both_ulps=True))
+        del state
+    else:
+        rec.update(loss=r1["query_loss"], step_s=r1["wall_s"])
+    del b
+    dist.barrier()
+    return rec
 
 
 def phase_multi_device(torch):
     """The multi-device plane on the one card: (i) the sharded FedMeta
     round at an NCCL world of 1, bitwise the vmap round; (ii) the
     expert-parallel MoE layer on the 1x1 mesh against `moe_apply`; (iii)
-    the launcher on the 1x1 mesh against the meshless step; (iv) two
-    ranks over gloo on the one card (not an interconnect measurement):
-    the sharded round at m = 5 within the f32 rule of the vmap round,
-    each rank's K2 bitwise its plain version, and the expert-parallel
-    layer with 80 experts a rank."""
+    the launcher on the 1x1 mesh, from the shard-only draw and from an
+    injected φ, against the meshless step; (iv) two ranks over gloo on
+    the one card (not an interconnect measurement): the sharded round
+    at m = 5 within the f32 rule of the vmap round, each rank's K2
+    bitwise its plain version, the expert-parallel layer with 80
+    experts a rank, the launchers' shard-only init, and the launcher's
+    step on the 1x2 mesh against the meshless step."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import ensure_world, make_host_mesh
@@ -5826,6 +6109,8 @@ def phase_multi_device(torch):
     w2 = next((r for r in parts["world2_gloo"] if r["rank"] == 0), None)
     if w2 is not None and "sharded" in w2:
         paths["multi_device_sharded_w2"] = w2["sharded"]["launches"]
+    if w2 is not None and "launcher" in w2:
+        paths["multi_device_launcher_w2"] = w2["launcher"]["launches"]
     emit({"phase": "multi_device", "ok": not errors, **parts,
           "world1_s": t1 - t0, "world2_s": time.perf_counter() - t1,
           "errors": errors})

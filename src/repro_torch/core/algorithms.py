@@ -328,15 +328,18 @@ class MetaSGD(MetaAlgorithm):
     def init_state(self, key, model_init):
         """θ from ``model_init(seed)``; α around inner_lr with a small
         uniform spread (paper [12]), drawn from a generator split off
-        ``key`` on θ's device."""
+        ``key`` on θ's device. Beside a θ of DTensors each α leaf is
+        drawn whole, then cut to its θ leaf's placement
+        (`sharding.rules.shard_like`)."""
+        from repro_torch.sharding.rules import shard_like
         split = Rng(key, device="cpu")
         theta = model_init(split.next_seed())
         device = tree_flatten(theta)[0][0].device
         gen = Rng(split.next_seed(), device=device)
         alpha = tree_map(
-            lambda p: self.inner_lr * (0.5 + torch.rand(
+            lambda p: shard_like(p, self.inner_lr * (0.5 + torch.rand(
                 p.shape, dtype=torch.float32, device=device,
-                generator=gen.next())),
+                generator=gen.next()))),
             theta)
         return {"theta": theta, "alpha": alpha}
 

@@ -45,6 +45,8 @@ import dataclasses
 import time
 from typing import Callable, Optional, Sequence
 
+from repro_torch.analysis.sanitizers import (assert_no_tracers,
+                                             sanitizers_enabled)
 from repro_torch.federated.fedavg import FedAvgTrainer
 from repro_torch.federated.privacy import DPConfig
 from repro_torch.federated.server import (FederatedTrainer, evaluate_global,
@@ -522,7 +524,10 @@ def run_comparison(plan: ExperimentPlan, log: Callable = None, *,
     FedMeta methods start from the 40-way local head and FedAvg from the
     global one) and ``finetune_idx`` inject the reference's draws. Beside the
     reference's keys the record carries ``states``, each method's final
-    train state (not written to the file)."""
+    train state (not written to the file). Under ``REPRO_SANITIZE=1``
+    each method's record, its state aside, is checked for tensors
+    (`analysis.sanitizers.assert_no_tracers`), as the reference checks
+    for tracers."""
     from repro_torch.convert import initial_params
     say = log or (lambda *a, **k: None)
     su = DATASETS.get(plan.dataset, {})
@@ -568,6 +573,13 @@ def run_comparison(plan: ExperimentPlan, log: Callable = None, *,
             "comm": tr.comm.summary(), "seconds": seconds,
             "state": state,
         }
+        if sanitizers_enabled():
+            # invariant plane: everything entering the artifact must be
+            # host data; the "state" entry stays tensors on purpose (it
+            # leaves through `out["states"]`, not the artifact)
+            assert_no_tracers({k: v for k, v in results[method].items()
+                               if k != "state"},
+                              where=f"{plan.dataset}/{method} record")
         say(f"[{plan.dataset}] {method}: test_acc={test_acc:.4f} "
             f"comm_MB={tr.comm.summary()['comm_MB']:.2f} "
             f"phi_MB={tr.comm.summary()['phi_MB']:.4f} ({seconds:.1f}s)")

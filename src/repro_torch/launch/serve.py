@@ -114,37 +114,54 @@ def main(argv=None):
                             args.steps, device=args.device, mesh=mesh)
 
 
-def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
-                 params=None, mesh=None):
-    """`steps` greedy decode steps of `batch` sequences against a cache
-    of `seq` slots that already holds 64 tokens: the CLI's body. The
-    weights are `params`, or a fresh init from seed 0. An
-    encoder-decoder's cache holds a zero encoder output of
-    ``num_modality_tokens`` frames, which every step cross-attends to.
-    With ``mesh`` the weights (`param_pspecs`), the cache
-    (`cache_pspecs`) and each step's tokens (the batch over pod+data)
-    are placed on it and it is the ambient mesh. Returns the run's
-    record."""
-    decode = make_decode_step(cfg)
+def decode_state(cfg, batch: int, seq: int, *, device="cuda", params=None,
+                 mesh=None):
+    """(params, cache) of `decode_steps`: the weights are ``params`` or a
+    fresh init from seed 0, the cache ``seq`` slots of zeros marked as
+    holding 64 tokens (an encoder-decoder's with a zero encoder output
+    of ``num_modality_tokens`` frames). With ``mesh`` both are DTensors
+    placed by `param_pspecs` and `cache_pspecs`: each rank draws its own
+    shards of fresh weights (`init_lm`'s ``mesh``) and makes its shards
+    of the cache's zeros, with no collective; given ``params`` are
+    placed whole (`distribute`)."""
+    # on a mesh the cache's shapes come from the meta device
+    cache_dev = device if mesh is None else "meta"
     if params is None:
-        params = init_lm(0, cfg, device=device)
+        params = init_lm(0, cfg, device=device, mesh=mesh)
+    elif mesh is not None:
+        from repro_torch.sharding.rules import distribute, param_pspecs
+        params = distribute(params, param_pspecs(params, mesh), mesh)
     enc_out = None
     if cfg.is_encoder_decoder:
         # the reference's decode cache: a zero encoder output of
         # num_modality_tokens frames (`repro/launch/steps.py:208-213`)
         enc_out = torch.zeros((batch, cfg.num_modality_tokens, cfg.d_model),
-                              dtype=as_dtype(cfg.dtype), device=device)
+                              dtype=as_dtype(cfg.dtype), device=cache_dev)
     cache = init_decode_cache(cfg, batch, seq, enc_out=enc_out,
-                              device=device)
+                              device=cache_dev)
     cache["length"] = min(64, seq)
+    if mesh is not None:
+        from repro_torch.sharding.rules import cache_pspecs, zeros_placed
+        cache = zeros_placed(cache, cache_pspecs(cache, mesh), mesh)
+    return params, cache
+
+
+def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
+                 params=None, mesh=None):
+    """`steps` greedy decode steps of `batch` sequences against a cache
+    of `seq` slots that already holds 64 tokens: the CLI's body. The
+    weights and cache are `decode_state`'s. With ``mesh`` the weights,
+    the cache and each step's tokens (the batch over pod+data) are
+    placed on it and it is the ambient mesh. Returns the run's
+    record."""
+    decode = make_decode_step(cfg)
+    params, cache = decode_state(cfg, batch, seq, device=device,
+                                 params=params, mesh=mesh)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
     place_tok = lambda t: t                       # noqa: E731
     if mesh is not None:
         from repro_torch.sharding.dtensor import activation_spec
-        from repro_torch.sharding.rules import (cache_pspecs, distribute,
-                                                param_pspecs)
-        params = distribute(params, param_pspecs(params, mesh), mesh)
-        cache = distribute(cache, cache_pspecs(cache, mesh), mesh)
+        from repro_torch.sharding.rules import distribute
         tspec = {"t": activation_spec(mesh, 2, batch)}
         place_tok = lambda t: distribute({"t": t}, tspec,  # noqa: E731
                                          mesh)["t"]

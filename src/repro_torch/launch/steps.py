@@ -89,11 +89,16 @@ def make_train_step(cfg, *, algo_name: str = "fomaml",
     are averaged the same way.
 
     Returns (train_step, init_state, algo, optimizer).
-    ``init_state(key=0, *, phi=None, device="cuda")`` draws φ from the
-    seed ``key`` on ``device``, or starts from an injected ``phi`` (a
-    reference φ carried over by `convert`: torch cannot replay
-    `jax.random`). ``scan_clients`` and ``unroll_layers`` change nothing
-    (module docstring).
+    ``init_state(key=0, *, phi=None, device="cuda", mesh=None)`` draws
+    φ from the seed ``key`` on ``device``, or starts from an injected
+    ``phi`` (a reference φ carried over by `convert`: torch cannot
+    replay `jax.random`). With ``mesh`` the state is DTensors placed as
+    `launch.train.place_state` places the whole state, bitwise: a drawn
+    φ is made shard by shard on each rank (`init_lm`'s ``mesh``), with
+    no collective; an injected φ is placed whole (`distribute` sends
+    rank 0's); the moments are zeros at the shards' shapes and the step
+    count is cut locally. ``scan_clients`` and ``unroll_layers`` change
+    nothing (module docstring).
 
     On a mesh the state and batch are DTensors placed by
     `sharding.rules` (`launch/train.place_state`); each client's rows
@@ -105,11 +110,21 @@ def make_train_step(cfg, *, algo_name: str = "fomaml",
     optimizer = adam(outer_lr, state_dtype=as_dtype(opt_state_dtype))
     whole_phi = algo_name.startswith("meta-sgd")
 
-    def init_state(key=0, *, phi=None, device="cuda"):
+    def init_state(key=0, *, phi=None, device="cuda", mesh=None):
+        if mesh is not None:
+            from repro_torch.sharding.rules import (distribute, param_pspecs,
+                                                    place_local, state_pspecs)
         if phi is None:
-            phi = algo.init_state(key, lambda k: init_lm(k, cfg,
-                                                         device=device))
-        return {"phi": phi, "opt": optimizer.init(phi)}
+            phi = algo.init_state(key, lambda k: init_lm(
+                k, cfg, device=device, mesh=mesh))
+        elif mesh is not None:
+            spec = param_pspecs(phi["theta"], mesh)
+            phi = distribute(phi, {k: spec for k in phi}, mesh)
+        state = {"phi": phi, "opt": optimizer.init(phi)}
+        if mesh is None:
+            return state
+        return place_local(state, state_pspecs(
+            state, param_pspecs(phi["theta"], mesh), mesh), mesh)
 
     def per_group(phi, sup, qry):
         acc = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),

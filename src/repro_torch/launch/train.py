@@ -10,7 +10,9 @@ The CLI runs on a device mesh (`launch/mesh.launcher_mesh`): the
 production mesh in a world of 256 ranks (one pod) or 512 with
 ``--multi-pod``, the 1x1 host mesh in a world of one (a run started
 without torchrun). The state and each batch are DTensors placed by the
-ported specs (`sharding/rules.py`, `launch/steps.input_specs`), and the
+ported specs (`sharding/rules.py`, `launch/steps.input_specs`); each
+rank draws only its own shards of the state, so a state larger than one
+card launches, as the reference's ``out_shardings`` init does. The
 step is `make_train_step`'s, unchanged: the kernels run on local shards
 through `local_map`. ``--reduced`` takes the reference's reduced config
 and shape (64 tokens, 2 clients of 2 sequences). ``--seqs-per-client``
@@ -111,19 +113,20 @@ def train(cfg, shape, *, algo: str = "fomaml", steps: int = 10,
     ``phi`` injects the initial parameters; else φ is drawn from seed 0
     on ``device``. ``on_step(it, state, metrics)``, if given,
     runs after each step. With ``mesh`` the state and the batches are
-    placed on it as DTensors (`place_state`, `input_specs`) and the step
-    runs with it as the ambient mesh; the returned state is then
-    DTensors too (`full` gathers it)."""
+    placed on it as DTensors (`input_specs`) and the step runs with it
+    as the ambient mesh; the returned state is then DTensors too
+    (`full` gathers it). A drawn state is made shard by shard on each
+    rank, an injected ``phi`` placed whole (`make_train_step`'s
+    ``init_state(mesh=...)``)."""
     if shape.kind != "train":
         raise ValueError("use launch/serve.py for inference shapes")
     device = check_device(device)
     train_step, init_state, _, _ = make_train_step(
         cfg, algo_name=algo, inner_lr=inner_lr, outer_lr=outer_lr,
         remat=remat)
-    state = init_state(0, phi=phi, device=device)
+    state = init_state(0, phi=phi, device=device, mesh=mesh)
     if mesh is not None:
         from repro_torch.launch.steps import input_specs
-        state = place_state(state, mesh)
         bspec = input_specs(cfg, shape, mesh)["pspec"]
     records = []
     for it in range(steps):

@@ -43,6 +43,7 @@ from repro_torch.models.layers import (Rng, as_dtype, dense_init, embed_init,
 from repro_torch.sharding.context import get_mesh
 from repro_torch.sharding.dtensor import (activation_spec, batch_layout,
                                          constrain, embedding, is_dtensor)
+from repro_torch.sharding.rules import set_path
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -77,40 +78,67 @@ def _reps(stack, n_reps):
 
 # ---------------------------------------------------------------- init
 
-def init_lm(key, cfg, *, device="cuda"):
-    """Parameters from an int seed (or an `Rng`), on `device`, drawn in
-    the reference's order: embed, lead blocks, the stack (with
-    cross-attention in each block of an encoder-decoder), final norm,
-    lm_head, mod_proj, then the encoder's stack of ("attn", "mlp")
-    blocks and its final norm."""
-    rng = key if isinstance(key, Rng) else Rng(key, device)
+def init_units(rng: Rng, cfg):
+    """`init_lm`'s draws in the reference's order, one unit at a time:
+    (path, tree, rep), ``path`` the unit's key path in the parameter
+    tree, ``rep`` None for a unit that stands alone or (r, n) for
+    repetition r of n stacked on a leading axis. The order: embed, lead
+    blocks, the stack (with cross-attention in each block of an
+    encoder-decoder), final norm, lm_head, mod_proj, then the encoder's
+    stack of ("attn", "mlp") blocks and its final norm."""
     dtype = as_dtype(cfg.dtype)
     d, vocab = cfg.d_model, cfg.vocab_size
-    params = {"embed": embed_init(rng, vocab, d, dtype)}
+    yield ("embed",), embed_init(rng, vocab, d, dtype), None
     lead, period, n_reps = layer_groups(cfg)
     for i, spec in enumerate(lead):
-        params[f"lead_{i}"] = block_init(rng, cfg, spec, dtype)
-    stack = {}
+        yield (f"lead_{i}",), block_init(rng, cfg, spec, dtype), None
     for j, spec in enumerate(period):
-        reps = [block_init(rng, cfg, spec, dtype,
-                           cross=cfg.is_encoder_decoder)
-                for _ in range(n_reps)]
-        stack[f"pos{j}"] = tree_map(lambda *xs: torch.stack(xs), *reps)
-        del reps
-    params["stack"] = stack
-    params["final_norm"] = rmsnorm_init(d, dtype, rng.device)
+        for r in range(n_reps):
+            yield (("stack", f"pos{j}"),
+                   block_init(rng, cfg, spec, dtype,
+                              cross=cfg.is_encoder_decoder), (r, n_reps))
+    yield ("final_norm",), rmsnorm_init(d, dtype, rng.device), None
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(rng, d, vocab, dtype)
+        yield ("lm_head",), dense_init(rng, d, vocab, dtype), None
     if cfg.modality is not None:
-        params["mod_proj"] = dense_init(rng, d, d, dtype)
+        yield ("mod_proj",), dense_init(rng, d, d, dtype), None
     if cfg.is_encoder_decoder:
-        reps = [block_init(rng, cfg, ENC_SPEC, dtype)
-                for _ in range(cfg.num_encoder_layers)]
-        params["encoder"] = {
-            "stack": tree_map(lambda *xs: torch.stack(xs), *reps),
-            "final_norm": rmsnorm_init(d, dtype, rng.device),
-        }
-        del reps
+        n_enc = cfg.num_encoder_layers
+        for r in range(n_enc):
+            yield (("encoder", "stack"),
+                   block_init(rng, cfg, ENC_SPEC, dtype), (r, n_enc))
+        yield (("encoder", "final_norm"),
+               rmsnorm_init(d, dtype, rng.device), None)
+
+
+def init_lm(key, cfg, *, device="cuda", mesh=None):
+    """Parameters from an int seed (or an `Rng`), on `device`, drawn in
+    `init_units`' order; the stacked leaves are the repetitions' draws
+    stacked.
+
+    With ``mesh`` they are DTensors placed by `param_pspecs`, and each
+    rank makes only its own shards (`sharding.rules.materialize_units`):
+    it draws one unit at a time, as the whole draw does, keeps its
+    shard and drops the rest. The shards are bitwise those that `distribute`
+    cuts from the whole draw, with no collective; a rank holds its
+    shards and one unit (one layer, its f32 staging) at most."""
+    rng = key if isinstance(key, Rng) else Rng(key, device)
+    if mesh is not None:
+        from repro_torch.sharding.rules import (materialize_units,
+                                                param_pspecs)
+        shapes = init_lm(Rng(0, "meta"), cfg)
+        return materialize_units(init_units(rng, cfg),
+                                 param_pspecs(shapes, mesh), mesh)
+    params, reps = {}, {}
+    for path, tree, rep in init_units(rng, cfg):
+        if rep is None:
+            set_path(params, path, tree)
+            continue
+        reps.setdefault(path, []).append(tree)
+        del tree
+        if rep[0] == rep[1] - 1:
+            set_path(params, path, tree_map(lambda *xs: torch.stack(xs),
+                                        *reps.pop(path)))
     return params
 
 

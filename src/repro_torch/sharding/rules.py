@@ -220,15 +220,18 @@ def placements(spec, mesh) -> tuple:
                  for n in names)
 
 
-def map_with_specs(fn, tree, specs):
-    """``fn(leaf, spec)`` over a tree and its spec tree (a `P` is a leaf
-    there, though it is a tuple); leaves that are not tensors (a
-    cache's ``length``) pass through."""
+def map_with_specs(fn, tree, specs, *rest):
+    """``fn(leaf, spec, *rest_leaves)`` over a tree, its spec tree (a
+    `P` is a leaf there, though it is a tuple) and trees laid out as
+    ``tree``; leaves that are not tensors (a cache's ``length``) pass
+    through."""
     if isinstance(specs, P):
-        return fn(tree, specs) if hasattr(tree, "shape") else tree
+        return fn(tree, specs, *rest) if hasattr(tree, "shape") else tree
     if isinstance(tree, dict):
-        return {k: map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
-    return type(tree)(map_with_specs(fn, v, s) for v, s in zip(tree, specs))
+        return {k: map_with_specs(fn, v, specs[k], *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return type(tree)(map_with_specs(fn, v, s, *rs)
+                      for v, s, *rs in zip(tree, specs, *rest))
 
 
 def distribute(tree, specs, mesh):
@@ -244,3 +247,112 @@ def distribute(tree, specs, mesh):
         return distribute_tensor(x, mesh, pl)
 
     return map_with_specs(place, tree, specs)
+
+
+# ------------------------------------------------- shard-only placement
+#
+# The launchers on a mesh make each rank's shards only: the state's
+# shapes come from the meta device, and each rank cuts what it draws to
+# its own shard (`distribute_tensor` with ``src_data_rank=None`` splits
+# locally, as `distribute` splits rank 0's copy before it scatters). No
+# collective runs, and the whole state is never live on one rank.
+
+def local_shard(x, pl, mesh):
+    """This rank's shard of ``x``, a whole tensor that every rank holds
+    the same, as a plain tensor: a copy, so it keeps none of the rest
+    of ``x`` alive."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh, pl,
+                             src_data_rank=None).to_local().clone()
+
+
+def cut(x, pl, mesh):
+    """`local_shard` of ``x`` as a DTensor of ``x``'s shape."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_shard(x, pl, mesh), mesh, pl,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def shard_like(ref, x):
+    """``x`` placed as ``ref``: ``x`` itself beside a plain tensor, else
+    `cut` to ref's mesh and placements."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return x
+    return cut(x, ref.placements, ref.device_mesh)
+
+
+def place_local(tree, specs, mesh):
+    """`distribute` for a tree that every rank holds the same, with no
+    collective: a plain tensor is `cut` to its spec; a DTensor must
+    already have its spec's placements."""
+    from torch.distributed.tensor import DTensor
+
+    def place(x, s):
+        pl = placements(s, mesh)
+        if isinstance(x, DTensor):
+            if tuple(x.placements) != pl:
+                raise ValueError(f"placed {x.placements}, spec {s}")
+            return x
+        return cut(x, pl, mesh)
+
+    return map_with_specs(place, tree, specs)
+
+
+def zeros_placed(shapes, specs, mesh):
+    """A tree of zeros laid out as ``shapes`` (meta tensors), as
+    DTensors by ``specs``: each rank makes its shard only."""
+    from torch.distributed.tensor import zeros
+    return map_with_specs(
+        lambda m, s: zeros(m.shape, dtype=m.dtype, device_mesh=mesh,
+                           placements=placements(s, mesh)), shapes, specs)
+
+
+def get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def set_path(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def materialize_units(units, specs, mesh):
+    """This rank's shards, as DTensors placed by ``specs``, of a tree
+    that is drawn one unit at a time (`models.lm.init_units`). Each
+    unit's leaves are cut to the rank's shard before the next unit is
+    drawn, so the rank holds its shards and one unit at a time. A unit
+    with ``rep`` (r, n) is repetition r of leaves stacked on a leading
+    axis, which stays whole: its shard is row r of the stacked shard."""
+    from torch.distributed.tensor import Shard, empty
+    out = {}
+    for path, unit, rep in units:
+        sub_specs = get_path(specs, path)
+        if rep is None:
+            set_path(out, path, map_with_specs(
+                lambda x, s: cut(x, placements(s, mesh), mesh),
+                unit, sub_specs))
+            continue
+        r, n = rep
+
+        def fill(x, s, buf=None):
+            pl = placements(s, mesh)
+            if buf is None:
+                buf = empty((n, *x.shape), dtype=x.dtype, device_mesh=mesh,
+                            placements=pl)
+            # the repetition's leaf: the stacked placements one dim down
+            row = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                   for p in pl]
+            buf.to_local()[r].copy_(local_shard(x, row, mesh))
+            return buf
+
+        if r == 0:
+            set_path(out, path, map_with_specs(fill, unit, sub_specs))
+        else:
+            map_with_specs(fill, unit, sub_specs, get_path(out, path))
+        del unit
+    return out
