@@ -209,7 +209,7 @@ Phases, each printing one JSON line:
            `train.main(["--arch", "smollm-360m", "--reduced", "--steps",
            "2"])` (on the 1x1 host mesh); (ii) SmolLM-360M at full width and train_4k's 4,096
            tokens, cut in sequences a client and clients (`LAUNCH_CUT`):
-           2 FOMAML steps and 1 MAML step through `train.train`, K1 and
+           1 FOMAML step and 1 MAML step through `train.train`, K1 and
            K7 launched, finite loss, φ moved, per-step ms and peak GB;
            FOMAML's step 1 against the plain route (K1, K7 plain, neither
            launched) in bf16 (the meta-gradient, Adam's first moment,
@@ -263,6 +263,33 @@ Phases, each printing one JSON line:
            route (K7, K8 plain) within twice the bf16 spread; (v)
            decode_32k at 4 of 28 layers (K8 at G = 7).
 
+  long_shapes  the two assigned shapes no other phase runs, at full
+           width (`LONG_BATCHES`, `LONG_500K_CLI`), one JSON line a part
+           with its seconds and peak GB: (i) prefill_32k through
+           `make_prefill_step`: SmolLM-360M (32 layers, K7 once a layer)
+           and Mamba2-370M (48 layers, K9 once a layer) over 32,768-token
+           prompts, the shape's batch of 32 or the next of LONG_BATCHES
+           whose peak stays under 76 GB (the cut and the batches tried
+           printed), traced (device busy share, device ms by group),
+           finite logits; Mamba2's inter-chunk recurrence (256 steps a
+           layer) timed alone at the layer's shapes against the wall;
+           (ii) the handoff at 32,768 tokens, B = 1, 4 decode steps, for
+           both models (SmolLM into a cache of L + 4 slots, so K8 reads
+           every slot the prefill filled) within twice the bf16 spread;
+           (iii) K7 at (1, 15, 5, 32,768, 64) against float64 on 192
+           query rows of every head over all keys at its derived bf16
+           bound, its plain version run in blocks of queries; K9 at (1,
+           32, 32,768, 64, N 128) against float64 on the first, middle
+           and last of its 256 chunks, and the whole scan with its
+           inter-chunk recurrence against the float64 chunked oracle; K8
+           at B = 1 over 32,768 filled slots against its plain version;
+           each with SDPA or the matmul chain beside it and its bound;
+           (iv) long_500k through `launch/serve.main` (SmolLM-360M,
+           qwen2.5-3b: their 8,192-slot window rings; Mamba2-370M: its
+           state) and deepseek-v2 at its cut through `decode_steps` (the
+           MLA latents over all 524,288 slots): 4 steps, the window and
+           cache bytes against a reckoning from the config, ms a step,
+           finite logits, K8 once a layer a step on the rings only.
   multi_device  the multi-device plane on the one card, in two worlds:
            (i) an NCCL world of 1 (a FileStore in a temp dir): the
            sharded FedMeta round (`client_axis="sharded"`, the packed
@@ -383,21 +410,31 @@ def nvidia_smi() -> str:
         return ""
 
 
+# a call slower than this (a plain version at full width: K5's sort, K8's
+# over 17 GB of cache) is warmed once and timed SLOW_ITERS times
+SLOW_CALL_MS = 50.0
+SLOW_ITERS = 5
+
+
 def time_ms(fn, torch, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
+    """Median device time of one call, CUDA events around each call; the
+    first warm-up call is timed, and past SLOW_CALL_MS the call is warmed
+    no more and timed at most SLOW_ITERS times."""
+    def one():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end)
+
+    if one() > SLOW_CALL_MS:
+        warmup, iters = 1, min(iters, SLOW_ITERS)
+    for _ in range(warmup - 1):
+        fn()
+    torch.cuda.synchronize()
+    return statistics.median(one() for _ in range(iters))
 
 
 def l2_flush_buffer(torch):
@@ -1694,6 +1731,12 @@ def check_refusals(torch):
                           f"raise: {direct}")
 
 
+# `check_k8`'s case of a cache of prefill_32k's length filled to its end:
+# the 32,768-token handoff's K8 call, the long shapes' row of the kernels
+# line
+K8_LONG_CASE = "B=1 C=32768 Kv=5 G=3 hd=64 bfloat16 kv_length=int"
+
+
 def phase_kernels(torch, cfg):
     from repro_torch.models import init_lm
     from repro_torch.utils.flat import plane_for
@@ -1717,9 +1760,11 @@ def phase_kernels(torch, cfg):
         rows += r
         summaries[name] = s
         torch.cuda.synchronize()
+    long_k8 = next(r for r in rows if r["name"] == "flash_decode"
+                   and r["case"] == K8_LONG_CASE)
     rows += check_vmap_fold(torch)
     emit({"phase": "kernels", "ok": True, "n_plane": n_plane, "checks": rows})
-    return summaries
+    return summaries, dict(long_k8, shape="prefill_32k handoff")
 
 
 def check_vmap_fold(torch):
@@ -2792,8 +2837,8 @@ def launch_traced_step(torch, cfg, phi, cut=None):
 
 
 def launch_full_width(torch, cfg, errors):
-    """SmolLM-360M at full width, L = 4,096, through `train.train`: 2
-    FOMAML steps and 1 MAML step (K1 and K7 launched, finite loss, φ
+    """SmolLM-360M at full width, L = 4,096, through `train.train`: 1
+    FOMAML step and 1 MAML step (K1 and K7 launched, finite loss, φ
     moved), FOMAML's step 1 against the plain route in bf16 (φ within
     2·lr plus one bf16 ulp, the meta-gradient within 1/8 of its largest
     entry, the train phase's limits), one traced FOMAML step, one step
@@ -2807,7 +2852,7 @@ def launch_full_width(torch, cfg, errors):
     runs = {}
 
     res, state, box = _launch_run(torch, cfg, "fomaml", LAUNCH_CUT["fomaml"],
-                                  2, phi0, keep_step1=True)
+                                  1, phi0, keep_step1=True)
     moved = any(not torch.equal(a, b) for a, b in
                 zip(tree_leaves(state["phi"]), tree_leaves(phi0)))
     del state
@@ -3710,6 +3755,554 @@ def phase_serve_multimodal(torch):
     return paths
 
 
+# ----------------------------------------------------------- long_shapes
+
+# prefill_32k (32 prompts of 32,768 tokens, `make_prefill_step`) and
+# long_500k (one sequence against 524,288 slots, the serve CLI), the two
+# assigned shapes (`configs/shapes.py`) no other phase runs. Full width
+# and depth, bf16, random weights from seed 0. A prefill takes the
+# shape's batch of 32 (LONG_BATCHES' first), else the next whose measured peak
+# stays under LONG_PEAK_GB (a batch that runs out of memory, or peaks
+# past it, is listed as tried). deepseek-v2 decodes long_500k at its
+# MOE_CUTS depth (its lead layer and 1 of 59 MoE layers), in process.
+LONG_L = 32768
+LONG_BATCHES = {"smollm-360m": (32, 16), "mamba2-370m": (32, 16, 8)}
+LONG_PEAK_GB = 76.0
+LONG_EXTRA = 4                       # tokens decoded in the handoff
+LONG_KERNEL = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk"}
+LONG_500K_CLI = ("smollm-360m", "qwen2.5-3b", "mamba2-370m")
+LONG_500K_CUT = ("deepseek-v2-236b",)
+LONG_PLAIN_BLOCK = 2048              # K7's plain version, queries a call
+BF16_U = 2.0 ** -8                   # bf16 unit roundoff (8 bits)
+
+
+def long_tokens(torch, cfg, batch, length, seed=3):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, length), device="cuda",
+                         generator=gen, dtype=torch.int32)
+
+
+def long_prefill_once(torch, cfg, params, batch):
+    """One traced `make_prefill_step` over `batch` prompts of LONG_L
+    tokens (device activity only; its wall is the step's ms): the record
+    and the path's launches, counted from 0."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.utils.pytree import tree_leaves
+    toks = long_tokens(torch, cfg, batch, LONG_L)
+    _reset_peak(torch)
+    held = torch.cuda.memory_allocated() / 1e9
+    out = []
+    reset_launches()
+
+    def run():
+        with torch.no_grad():
+            out.append(make_prefill_step(cfg)(params, toks))
+
+    _, trace = _traced(torch, run)
+    launches = read_launches()
+    logits, cache = out.pop()
+    rec = {"batch": batch, "ms": trace["wall_ms_traced"],
+           "peak_gb": _peak_gb(torch), "held_gb": held,
+           "logits_shape": list(logits.shape),
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "cache_gb": sum(nbytes(t) for t in tree_leaves(cache)
+                           if isinstance(t, torch.Tensor)) / 1e9,
+           "launches": launches, "trace": trace}
+    del logits, cache, toks
+    return rec
+
+
+def long_prefill(torch, arch, errors):
+    """prefill_32k through `make_prefill_step` at full width and depth:
+    the first batch of LONG_BATCHES that runs and peaks under
+    LONG_PEAK_GB; its kernel launched once a layer, finite (batch,
+    vocab) logits. Mamba2 also times its inter-chunk recurrence alone at
+    the layer's shapes, once a layer (`ssd_ops.inter_chunk_states`, a
+    Python loop of 256 steps), against the prefill's wall."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    cfg = get_config(arch)
+    params = init_lm(0, cfg, device="cuda")
+    tried, rec = [], None
+    for batch in LONG_BATCHES[arch]:
+        got = None
+        try:
+            got = long_prefill_once(torch, cfg, params, batch)
+        except torch.OutOfMemoryError as e:
+            tried.append({"batch": batch, "out_of_memory": str(e)[:160]})
+        if got is not None and got["peak_gb"] < LONG_PEAK_GB:
+            rec = got
+            break
+        if got is not None:
+            tried.append({"batch": batch, "peak_gb": got["peak_gb"],
+                          "ms": got["ms"]})
+        # the failed attempt's tensors die with its traceback, here
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rec is None:
+        errors.append(f"{arch}: no batch of {LONG_BATCHES[arch]} fits "
+                      f"under {LONG_PEAK_GB} GB: {tried}")
+        return {"arch": arch, "tried": tried}, {}
+    kernel, layers = LONG_KERNEL[arch], cfg.num_layers
+    rec.update(arch=arch, seq_len=LONG_L, tried=tried,
+               batch_cut=rec["batch"] < LONG_BATCHES[arch][0],
+               num_layers=layers, kernel=kernel)
+    if rec["launches"][kernel] != layers:
+        errors.append(f"{arch} prefill: {kernel} launched "
+                      f"{rec['launches'][kernel]} times, not {layers}")
+    if not (rec["logits_finite"]
+            and rec["logits_shape"] == [rec["batch"], cfg.vocab_size]):
+        errors.append(f"{arch} prefill logits {rec['logits_shape']}, "
+                      f"finite {rec['logits_finite']}")
+    if arch == "mamba2-370m":
+        rec["inter_chunk"] = inter_chunk_wall(torch, cfg, rec["batch"])
+        rec["inter_chunk"]["share_of_prefill_wall"] = (
+            rec["inter_chunk"]["wall_ms"] / rec["ms"])
+    del params
+    return rec, {f"prefill_32k_{arch}": rec["launches"]}
+
+
+def inter_chunk_wall(torch, cfg, batch):
+    """`ssd_ops.inter_chunk_states` alone at a Mamba2 prefill's shapes,
+    once a layer, as the prefill calls it: the host's time to dispatch
+    the steps and the wall to the end of their device work (the card
+    synchronized), both summed over the layers."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    nh, hp, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    nc = LONG_L // cfg.ssm_chunk
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    S = torch.randn((batch, nh, nc, N, hp), device="cuda", generator=gen)
+    decay = torch.rand((batch, nh, nc), device="cuda", generator=gen)
+    ssd_ops.inter_chunk_states(S[:1], decay[:1])          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cfg.num_layers):
+        S_in, last = ssd_ops.inter_chunk_states(S, decay)
+        del S_in, last
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del S, decay
+    return {"layers": cfg.num_layers, "steps_a_layer": nc,
+            "host_ms": host * 1e3, "wall_ms": wall * 1e3}
+
+
+def long_handoff(torch, arch, errors):
+    """The prefill -> decode handoff at prefill_32k's 32,768 tokens, B =
+    1, full width and depth: prefill, then LONG_EXTRA decode steps, each
+    step's logits against `lm_apply` over the extended prompt
+    (`handoff_gaps`), held within twice the bf16 rounding spread of the
+    full forward (against the same forward in f32, layer by layer). The
+    attention model prefills into a cache of L + LONG_EXTRA slots, so K8
+    reads every slot the prefill filled (a cache of L slots would drop
+    prompt token 0 at the first decode: the reference's ring quirk);
+    Mamba2 runs `make_prefill_step` itself."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    cfg = get_config(arch)
+    params = init_lm(0, cfg, device="cuda")
+    toks = long_tokens(torch, cfg, 1, LONG_L + LONG_EXTRA, seed=5)[0].cpu()
+    gqa = arch != "mamba2-370m"
+    reset_launches()
+    t0 = time.perf_counter()
+    gaps, full_bf16 = handoff_gaps(
+        torch, cfg, params, toks[:LONG_L], toks[LONG_L:],
+        capacity=LONG_L + LONG_EXTRA if gqa else None)
+    launches = read_launches()
+    handoff_s = time.perf_counter() - t0
+    full_f32 = lm_logits_f32_by_layer(torch, cfg, params,
+                                      toks[None].cuda())[0, LONG_L - 1:]
+    spread = float((full_bf16 - full_f32).abs().max())
+    tol = 2.0 * spread
+    rec = {"arch": arch, "prompt_len": LONG_L, "decoded": LONG_EXTRA,
+           "cache_capacity": LONG_L + LONG_EXTRA if gqa else LONG_L,
+           "gaps_bf16": gaps, "bf16_rounding_spread": spread,
+           "bf16_tol": tol, "max_abs_logit": float(full_f32.abs().max()),
+           "handoff_s": handoff_s, "launches": launches}
+    del full_bf16, full_f32, params
+    if not max(gaps) <= tol:
+        errors.append(f"{arch} 32k handoff gaps {gaps} above {tol}")
+    want = ("flash_attention", "flash_decode") if gqa else ("ssd_chunk",)
+    for name in want:
+        if launches[name] <= 0:
+            errors.append(f"{arch} 32k handoff: {name} not launched")
+    return rec, {f"handoff_32k_{arch}": launches}
+
+
+def k7_f64_rows(torch, q, k, v, rows):
+    """K7's function in float64 on the bf16 inputs at the query rows
+    ``rows`` over all keys (causal, q_offset 0), and each element's
+    bound for K7's bf16 route: the float32 bound of
+    `tests/test_torch_kernels.py::_attention_f64` — (2·max Δs + 2·γ_Lk +
+    16u)·Σ p|v|, Δs_j = γ_hd·scale·Σ|q k_j| + u|s_j| — plus 2^-16·Σ p|v|
+    for P carried as hi + lo bf16 terms, and the output's rounding to
+    bf16, 2^-8 of its magnitude."""
+    B, L, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    u = U32
+    gamma = lambda n: n * u / (1 - n * u)               # noqa: E731
+    scale = 1.0 / math.sqrt(hd)
+    idx = torch.as_tensor(rows, device=q.device)
+    qd = q[:, idx].double().reshape(B, len(rows), Kv, G, hd)
+    kd, vd = k.double(), v.double()
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qd, kd) * scale
+    ds = (gamma(hd) * scale * torch.einsum("bqkgd,bjkd->bkgqj", qd.abs(),
+                                           kd.abs()) + u * s.abs())
+    keep = (torch.arange(L, device=q.device)[None, :] <= idx[:, None])
+    s = torch.where(keep, s, float("-inf"))
+    dmax = torch.where(keep, ds, 0.0).amax(-1)            # (B, Kv, G, R)
+    del ds
+    p = torch.softmax(s, dim=-1)
+    del s
+    o = torch.einsum("bkgqj,bjkd->bqkgd", p, vd).reshape(B, len(rows), H, -1)
+    pv = torch.einsum("bkgqj,bjkd->bqkgd", p, vd.abs()).reshape(
+        B, len(rows), H, -1)
+    rel = 2 * dmax + 2 * gamma(L) + 16 * u + 2.0 ** -16
+    rel = rel.permute(0, 3, 1, 2).reshape(B, len(rows), H)[..., None]
+    return o, rel * pv * (1 + BF16_U) + BF16_U * o.abs()
+
+
+def k7_plain_blocked(torch, q, k, v):
+    """K7's plain version over all queries, LONG_PLAIN_BLOCK queries a
+    call (q_offset at the block's start, keys up to its end): the whole
+    (Lq, Lk) score matrix of one call would take 64 GB at 32,768 tokens
+    and 15 heads."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    L = q.shape[1]
+    return torch.cat([attn_ops.flash_attention(
+        q[:, a:a + LONG_PLAIN_BLOCK], k[:, :a + LONG_PLAIN_BLOCK],
+        v[:, :a + LONG_PLAIN_BLOCK], causal=True, q_offset=a, impl="torch")
+        for a in range(0, L, LONG_PLAIN_BLOCK)], dim=1)
+
+
+def check_k7_long(torch):
+    """K7 at SmolLM-360M's prefill_32k layer, (1, 15, 5, 32,768, 64)
+    bf16 causal, against float64 over all keys for the first, a middle
+    and the last 64 query positions of every head (`k7_f64_rows`); its
+    plain version run block by block, held the same way on those rows.
+    Timed against SDPA (causal, no mask); the bound is causal attention's
+    operations, 2·H·pairs·(hd + hd_v), over the bf16 peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops as attn_ops
+    B, H, Kv, L, hd = 1, 15, 5, LONG_L, 64
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.randn((B, L, H, hd), device="cuda", generator=gen).bfloat16()
+    k = torch.randn((B, L, Kv, hd), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, L, Kv, hd), device="cuda", generator=gen).bfloat16()
+    kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda")  # noqa
+    out = kernel()
+    plain = k7_plain_blocked(torch, q, k, v)
+    rows = (list(range(64)) + list(range(L // 2 - 32, L // 2 + 32))
+            + list(range(L - 64, L)))
+    o64, limit = k7_f64_rows(torch, q, k, v, rows)
+    idx = torch.as_tensor(rows, device="cuda")
+
+    def held(x):
+        d = (x[:, idx].double() - o64).abs()
+        return float(d.max()), float((d / limit).max())
+    err, worst = held(out)
+    err_p, worst_p = held(plain)
+    kernel_vs_plain = float((out.float() - plain.float()).abs().max())
+    del o64, limit, plain
+    torch.cuda.synchronize()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    row = {"name": "flash_attention", "shape": "prefill_32k",
+           "case": f"B={B} H={H} Kv={Kv} L={L} hd={hd} hd_v={hd} bfloat16 "
+                   f"causal=True window=None q_offset=0",
+           "rows_checked": "queries 0-63, 16352-16415, 32704-32767, every "
+                           "head, over all keys",
+           "max_abs_err": err, "worst_of_limit": worst,
+           "plain_max_abs_err": err_p, "plain_worst_of_limit": worst_p,
+           "kernel_minus_plain_max": kernel_vs_plain,
+           "tol": "per element vs float64: (2·maxΔs + 2γ_Lk + 16u + 2^-16)"
+                  "·Σp|v|·(1 + 2^-8) + 2^-8·|o|",
+           "call_ms": time_ms(kernel, torch, iters=5, warmup=1),
+           "plain_ms": time_ms(lambda: k7_plain_blocked(torch, q, k, v),
+                               torch, iters=3, warmup=1),
+           "plain_route": f"blocks of {LONG_PLAIN_BLOCK} queries",
+           "library": "F.scaled_dot_product_attention",
+           "library_ms": library_time_ms(sdpa, torch)}
+    row.update(device_times(torch, kernel, sdpa if row["library_ms"]
+                            else None, blocks=2, calls=10))
+    pairs = attention_pairs(L, L, True, None, 0)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(q, k, v, out), 2.0 * B * H * pairs * (hd + hd), "bfloat16")
+    del q, k, v, out, qt, kt, vt
+    torch.cuda.empty_cache()
+    if not (worst <= 1.0 and worst_p <= 1.0):
+        raise PhaseFailed(f"K7 at 32,768 tokens off its float64 bound: "
+                          f"{row}")
+    return row
+
+
+def ssd_scan_f64(torch, x, dt, A, Bm, Cm, chunk):
+    """The whole chunked SSD scan (`ref.ssd_chunked_ref`'s algorithm) in
+    float64 on the float32 inputs: y (B, L, nh, hp), the final state
+    (B, nh, hp, N), and each element's bound on a float32 evaluation by
+    either chunked route. Each term T_ij = (C_i·B_j)·decay_ij·xdt_j of
+    y_i = Σ_{j≤i} T_ij passes through at most K = Q + N + 2·nc + 8
+    roundings (the N-term dot, the Q-term chunk sum, a multiply and an
+    add per chunk of the recurrence, the products and the final add),
+    and its decay is a product of exps of float32 cumsums, each off by
+    at most eps_c = expm1(((2Q + 3)|cum_last_c| + 2)u) relative in chunk
+    c (`ssd_f64_oracle`'s eps_D, one more rounding in a = dt·A). So
+    |ŷ − y| ≤ Σ_j |T_ij|((1 + γ_K)(1 + δ_ij) − 1) = (1 + γ_K)·Y⁺ − Y,
+    with Y = Σ_j |T_ij| (the scan on |x|, |B|, |C|) and Y⁺ the same
+    scan with every decay factor of chunk c times (1 + eps_c); the
+    state likewise with K = Q + 2·nc + 8."""
+    B, L, nh, hp = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = L // Q
+    u = U32
+
+    def scan(xx, Bb, Cc, inflate):
+        xf = xx.double().reshape(B, nc, Q, nh, hp)
+        dtf = dt.double().reshape(B, nc, Q, nh)
+        Bf = Bb.double().reshape(B, nc, Q, N)
+        Cf = Cc.double().reshape(B, nc, Q, N)
+        cum = torch.cumsum(dtf * A.double()[None, None, None], dim=2)
+        last = cum[:, :, -1]                                 # (B, nc, nh)
+        f = (1 + torch.expm1(((2 * Q + 3) * last.abs() + 2) * u)
+             if inflate else torch.ones_like(last))
+        xdt = xf * dtf[..., None]
+        tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+        D = torch.exp(torch.where(tri[None, None, :, :, None],
+                                  cum[:, :, :, None] - cum[:, :, None],
+                                  float("-inf"))) * f[:, :, None, None]
+        cb = torch.einsum("bcin,bcjn->bcij", Cf, Bf)
+        y = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, D, xdt)
+        del D
+        sdecay = torch.exp(last[:, :, None] - cum) * f[:, :, None]
+        S = torch.einsum("bcjn,bcjh,bcjhp->bchpn", Bf, sdecay, xdt)
+        decay = torch.exp(last) * f
+        S_prev = torch.zeros((B, nh, hp, N), dtype=torch.float64,
+                             device=x.device)
+        S_in = []
+        for c in range(nc):
+            S_in.append(S_prev)
+            S_prev = S[:, c] + S_prev * decay[:, c, :, None, None]
+        y = y + torch.einsum("bcin,bcih,bchpn->bcihp", Cf,
+                             torch.exp(cum) * f[:, :, None],
+                             torch.stack(S_in, 1))
+        return y.reshape(B, L, nh, hp), S_prev
+
+    y, state = scan(x, Bm, Cm, False)
+    ymag, smag = scan(x.abs(), Bm.abs(), Cm.abs(), False)
+    yinf, sinf = scan(x.abs(), Bm.abs(), Cm.abs(), True)
+    gamma = lambda n: n * u / (1 - n * u)                # noqa: E731
+    y_lim = (1 + gamma(Q + N + 2 * nc + 8)) * yinf - ymag
+    s_lim = (1 + gamma(Q + 2 * nc + 8)) * sinf - smag
+    return y, state, y_lim, s_lim
+
+
+def check_k9_long(torch):
+    """K9 at Mamba2-370M's prefill_32k layer for one prompt, (1, 32,
+    32,768, 64) with N 128 and chunks of 128 (256 chunks): the first,
+    the middle and the last chunk against `ssd_f64_oracle` at its
+    derived bound; then the whole scan as the layer runs it
+    (`ssd_ops.ssd_chunked`: K9 and the inter-chunk recurrence), output
+    and final state, against the chunked scan in float64 at the bound
+    `ssd_scan_f64` derives, which holds the float32 chunked oracle
+    (`ref.ssd_chunked_ref`) too. Timed against the matmul chain; bound
+    as `check_k9`'s."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref, ssd_scan
+    B, nh, L, hp, N, Q = 1, 32, LONG_L, 64, 128, 128
+    nc = L // Q
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x, dt, A, Bm, Cm = ssd_inputs(torch, gen, B, nh, L, hp, N)
+    xdt = (x * dt[..., None]).transpose(1, 2)
+    a = (dt * A[None, None, :]).transpose(1, 2)
+    kernel = lambda: ssd_scan.ssd_intra_chunk(  # noqa: E731
+        xdt, a, Bm, Cm, chunk=Q)
+    with torch.no_grad():
+        y, S = kernel()
+    chunks = {}
+    for c in (0, nc // 2, nc - 1):
+        sl = slice(c * Q, (c + 1) * Q)
+        y64, S64, y_lim, S_lim = ssd_f64_oracle(
+            torch, xdt[:, :, sl], a[:, :, sl], Bm[:, sl], Cm[:, sl], Q)
+        dy = (y[:, :, sl].double() - y64).abs()
+        dS = (S[:, :, c:c + 1].double() - S64).abs()
+        chunks[c] = {"max_abs_err": max(float(dy.max()), float(dS.max())),
+                     "worst_of_limit": max(float((dy / y_lim).max()),
+                                           float((dS / S_lim).max()))}
+    with torch.no_grad():
+        yk, st_k = ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q,
+                                       impl="cuda", return_final_state=True)
+        y64, st64, y_lim, st_lim = ssd_scan_f64(torch, x, dt, A, Bm, Cm, Q)
+        y32, st32 = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q,
+                                        return_final_state=True)
+    whole = {"y_max_abs": float(y64.abs().max()),
+             "state_max_abs": float(st64.abs().max())}
+    for route, (yy, ss) in (("kernel_route", (yk, st_k)),
+                            ("f32_oracle", (y32, st32))):
+        dy, ds = (yy.double() - y64).abs(), (ss.double() - st64).abs()
+        whole[route] = {"y_max_abs_err": float(dy.max()),
+                        "y_worst_of_limit": float((dy / y_lim).max()),
+                        "state_max_abs_err": float(ds.max()),
+                        "state_worst_of_limit": float((ds / st_lim).max())}
+        del dy, ds
+    whole["held"] = all(whole[r][k] <= 1.0 for r in ("kernel_route",
+                                                     "f32_oracle")
+                        for k in ("y_worst_of_limit",
+                                  "state_worst_of_limit"))
+    whole["tol"] = ("per element vs float64: (1 + γ_K)·Y⁺ − Y, K = Q + N "
+                    "+ 2·nc + 8 (state: Q + 2·nc + 8), Y = Σ_j |T_ij|, Y⁺ "
+                    "with each chunk's decays × (1 + eps_c)")
+    del yk, st_k, y64, st64, y32, st32, y_lim, st_lim
+    library = ssd_library_chain(torch, Bm, Cm, xdt.contiguous(), Q)
+    with torch.no_grad():
+        row = {"name": "ssd_chunk", "shape": "prefill_32k",
+               "case": f"B={B} nh={nh} L={L} hp={hp} N={N} Q={Q} "
+                       f"({nc} chunks)",
+               "chunks_vs_float64": chunks,
+               "max_abs_err": max(r["max_abs_err"] for r in chunks.values()),
+               "worst_of_limit": max(r["worst_of_limit"]
+                                     for r in chunks.values()),
+               "whole_scan_vs_float64": whole,
+               "call_ms": time_ms(kernel, torch),
+               "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_plain(
+                   xdt, a, Bm, Cm, chunk=Q), torch, iters=5, warmup=1),
+               "library": "torch.matmul chain: C Bᵀ, (C Bᵀ) @ xdt, Bᵀ @ "
+                          "xdt, batched over (b, h, c), f32, no decay",
+               "library_ms": library_time_ms(library, torch)}
+        row.update(device_times(torch, kernel, library if row["library_ms"]
+                                else None, blocks=2, calls=20))
+    least = B * nc * 2.0 * Q * Q * N + B * nh * nc * (
+        2.0 * Q * Q * hp + 2.0 * Q * N * hp)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(xdt, a, Bm, Cm, y, S), least, "float32")
+    del x, dt, A, Bm, Cm, xdt, a, y, S, library
+    torch.cuda.empty_cache()
+    if not (row["worst_of_limit"] <= 1.0 and whole["held"]):
+        raise PhaseFailed(f"K9 at 256 chunks off its bound: {row}")
+    return row
+
+
+def long_kernels(torch, errors):
+    """K7 and K9 at the long shapes' layers (one prompt), each held and
+    timed beside its library call and bound. K8 reading a 32,768-slot
+    cache filled to its end is `check_k8`'s "long cache, split" case of
+    the kernels phase (`K8_LONG_CASE`)."""
+    return {"rows": [check_k7_long(torch), check_k9_long(torch)]}, {}
+
+
+def long_cache_reckoning(cfg, slots: int) -> int:
+    """Bytes of a batch-1 decode cache of ``slots`` slots from the config
+    alone: a GQA layer holds K and V over its window (all slots without
+    one), an MLA layer its latents and rope keys over all slots (bf16), a
+    Mamba2 layer its conv window ((conv_width − 1) × (d_inner + 2N), bf16)
+    and its float32 (nh, hp, N) state."""
+    if cfg.layer_pattern == ("mamba",):
+        d_in = cfg.ssm_expand * cfg.d_model
+        conv = (cfg.conv_width - 1) * (d_in + 2 * cfg.ssm_state) * 2
+        state = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        return cfg.num_layers * (conv + state)
+    if cfg.attention == "mla":
+        return cfg.num_layers * slots * (cfg.kv_lora_rank
+                                         + cfg.rope_head_dim) * 2
+    window = min(slots, cfg.sliding_window or slots)
+    return cfg.num_layers * 2 * window * cfg.num_kv_heads * cfg.head_dim * 2
+
+
+def long_500k(torch, errors):
+    """long_500k through the serve CLI, `main(["--arch", a, "--shape",
+    "long_500k", "--steps", "4"])` (the 1x1 NCCL host mesh, as
+    decode_launcher runs decode_32k), for LONG_500K_CLI at full depth,
+    then deepseek-v2 at its cut through `decode_steps` with no mesh:
+    the resolved window, the cache's bytes against
+    `long_cache_reckoning`, ms a step, finite (1, vocab) logits, K8 once
+    a layer a step on the GQA rings and not on Mamba2's state or MLA's
+    absorbed decode."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import resolve_serving_config
+    shape = INPUT_SHAPES["long_500k"]
+    out, paths = {}, {}
+    runs = [(a, "cli") for a in LONG_500K_CLI] + [(a, "cut")
+                                                  for a in LONG_500K_CUT]
+    for arch, how in runs:
+        cfg = get_config(arch)
+        if how == "cut":
+            cfg = dataclasses.replace(cfg, num_layers=MOE_CUTS[arch])
+        scfg = resolve_serving_config(cfg, shape)
+        _reset_peak(torch)
+        reset_launches()
+        t0 = time.perf_counter()
+        if how == "cli":
+            rec = serve.main(["--arch", arch, "--shape", "long_500k",
+                              "--steps", "4"])
+        else:
+            rec = serve.decode_steps(scfg, shape.global_batch, shape.seq_len,
+                                     4)
+        launches = read_launches()
+        want_bytes = long_cache_reckoning(scfg, shape.seq_len)
+        rec = {**rec, "route": "serve.main on the 1x1 mesh" if how == "cli"
+               else f"decode_steps at {cfg.num_layers} layers, no mesh",
+               "s": time.perf_counter() - t0,
+               "ms_per_step": [t * 1e3 for t in rec["step_s"]],
+               "cache_bytes_reckoned": want_bytes,
+               "peak_gb": _peak_gb(torch), "launches": launches}
+        out[arch] = rec
+        paths[f"long_500k_{arch}"] = launches
+        if rec["cache_bytes"] != want_bytes:
+            errors.append(f"{arch} long_500k cache {rec['cache_bytes']} B, "
+                          f"reckoned {want_bytes}")
+        if rec["sliding_window"] != scfg.sliding_window:
+            errors.append(f"{arch}: window {rec['sliding_window']}")
+        if not rec["logits_finite"] or tuple(rec["logits_shape"]) != (
+                1, cfg.vocab_size):
+            errors.append(f"{arch} long_500k logits {rec['logits_shape']},"
+                          f" finite {rec['logits_finite']}")
+        gqa = cfg.attention == "gqa" and "attn" in cfg.layer_pattern
+        k8 = launches["flash_decode"]
+        if gqa and k8 != 4 * cfg.num_layers or not gqa and k8:
+            errors.append(f"{arch} long_500k: K8 launched {k8} times")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def phase_long_shapes(torch):
+    """prefill_32k and long_500k at full width, one JSON line a part with
+    its seconds and peak GB: the two prefills, the two 32,768-token
+    handoffs, K7 / K9 / K8 at these shapes, and long_500k's decodes."""
+    paths, failed, rows = {}, [], []
+    parts = (("prefill_smollm", lambda e: long_prefill(
+                 torch, "smollm-360m", e)),
+             ("prefill_mamba2", lambda e: long_prefill(
+                 torch, "mamba2-370m", e)),
+             ("handoff_smollm", lambda e: long_handoff(
+                 torch, "smollm-360m", e)),
+             ("handoff_mamba2", lambda e: long_handoff(
+                 torch, "mamba2-370m", e)),
+             ("kernels", lambda e: long_kernels(torch, e)),
+             ("long_500k", lambda e: long_500k(torch, e)))
+    for part, fn in parts:
+        errors = []
+        gc.collect()
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        res, launched = fn(errors)
+        paths.update(launched)
+        if part == "kernels":
+            rows = res["rows"]
+        emit({"phase": "long_shapes", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0,
+              "peak_mem_gb": _peak_gb(torch), "result": res,
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths, rows
+
+
 # ------------------------------------------------------------ train_comm
 
 # bytes of one FEMNIST round at m = 4 (download + upload) by upload
@@ -3893,9 +4486,10 @@ def comm_dp(torch, errors, rounds=5):
 
 
 # the committed FEMNIST plan's 100 rounds, cut to 40 when the
-# multi_device phase joined (about 0.46 s a round of the five methods on
-# an H100 80GB HBM3 at 700 W): bytes a round are held every round
-COMPARE_ROUNDS = 40
+# multi_device phase joined and to 20 when the long_shapes phase did
+# (about 0.46 s a round of the five methods on an H100 80GB HBM3 at 700
+# W): bytes a round are held every round
+COMPARE_ROUNDS = 20
 
 
 @contextlib.contextmanager
@@ -4136,10 +4730,22 @@ def k5_cancellation_bound(torch, G, live, trim):
     return (2 * m + 2 * trim + 5) * U32 * S / d
 
 
+# the committed robustness sweep's 40 rounds, cut to 20 when the
+# long_shapes phase joined. The reference's skipped rounds at 20, from
+# two CPU runs of
+#   PYTHONPATH=src python examples/robustness_femnist.py --rounds 20 \
+#       --outdir D
+# (equal cell for cell): every round of the non-finite 0.125 / mean
+# cell, none in the other 14 (as in the artifact's 40)
+FAULTS_ROUNDS = 20
+FAULTS_CUT_SKIPPED = {("nonfinite", 0.125, "mean"): FAULTS_ROUNDS}
+
+
 def faults_sweep(torch, errors):
-    """(i) The committed robustness sweep, all 15 cells, through
-    `launch/compare.sweep_robustness` from the port's own initial φ; then
-    the byzantine 0.25 / trimmed cell on impl="torch"."""
+    """(i) The committed robustness sweep, all 15 cells, cut to
+    `FAULTS_ROUNDS`, through `launch/compare.sweep_robustness` from the
+    port's own initial φ; then the byzantine 0.25 / trimmed cell on
+    impl="torch"."""
     from repro_torch.federated.experiment import DATASETS
     from repro_torch.federated.server import FederatedTrainer
     from repro_torch.kernels.meta_update import aggregate as k5
@@ -4152,7 +4758,7 @@ def faults_sweep(torch, errors):
     want = {(c["kind"], c["fraction"], c["aggregator"]): c
             for c in committed["cells"]}
     cfg = compare.ROBUSTNESS
-    rounds = cfg["rounds"]
+    rounds = FAULTS_ROUNDS
     walls, counts, states, hists = {}, {}, {}, {}
 
     def around(tag, run):
@@ -4168,7 +4774,8 @@ def faults_sweep(torch, errors):
 
     reset_launches()
     t0 = time.perf_counter()
-    sweep = compare.sweep_robustness(device="cuda", around=around, log=None)
+    sweep = compare.sweep_robustness(device="cuda", around=around, log=None,
+                                     rounds=rounds)
     torch.cuda.synchronize()
     sweep_wall = time.perf_counter() - t0
     path = read_launches()
@@ -4189,9 +4796,10 @@ def faults_sweep(torch, errors):
         tag = " ".join(str(x) for x in key)
         n = counts[tag]
         ref = want[key]
-        if cell["skipped_rounds"] != ref["skipped_rounds"]:
+        skip = FAULTS_CUT_SKIPPED.get(key, 0)
+        if cell["skipped_rounds"] != skip:
             errors.append(f"{tag}: skipped {cell['skipped_rounds']}, the "
-                          f"artifact {ref['skipped_rounds']}")
+                          f"reference {skip} of {rounds}")
         trimmed = cell["aggregator"] == "trimmed"
         want_k5, want_k2 = (rounds, 0) if trimmed else (0, rounds)
         if not (n["trimmed_mean"] == want_k5 and
@@ -4199,11 +4807,11 @@ def faults_sweep(torch, errors):
                 n["adam_flat"] == rounds and n["inner_update_plane"] > 0):
             errors.append(f"{tag}: launches {n} (K5 {want_k5}, K2 "
                           f"{want_k2}, K3 {rounds} expected)")
-        if ref["skipped_rounds"] == rounds and not _same_state(
+        if skip == rounds and not _same_state(
                 torch, states[tag], st0):
             errors.append(f"{tag}: every round skipped, but φ or the Adam "
                           f"state moved")
-        if ref["skipped_rounds"] < rounds and not bool(
+        if skip < rounds and not bool(
                 torch.isfinite(states[tag]["phi"]).all()):
             errors.append(f"{tag}: non-finite φ")
         table[tag] = {"final_test_acc": cell["final_test_acc"],
@@ -4244,7 +4852,8 @@ def faults_sweep(torch, errors):
         t0 = time.perf_counter()
         plain = compare.sweep_robustness(
             device="cuda", impl="torch", around=around_t, log=None,
-            cells=[("byzantine", 0.25, "trimmed")])["cells"][0]
+            cells=[("byzantine", 0.25, "trimmed")],
+            rounds=rounds)["cells"][0]
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
     finally:
@@ -4275,7 +4884,8 @@ def faults_sweep(torch, errors):
     rel = [abs(a["query_loss"] - b["query_loss"]) / abs(b["query_loss"])
            for a, b in zip(ht, kern)]
     del G, w, live, agg_k, agg_s, bound, gap, captured
-    return {"rounds": rounds, "cells": table, "headline": headline,
+    return {"rounds": rounds, "artifact_rounds": committed["config"]["rounds"],
+            "cells": table, "headline": headline,
             "sweep_wall_s": sweep_wall, "path_launches": path,
             "plain_route": {
                 "cell": "byzantine 0.25 trimmed", "wall_s": plain_wall,
@@ -4460,10 +5070,12 @@ SCENARIO_ROUND_BYTES = {
 # rounds are host-bound (eager dispatch), and a round of the five methods
 # with its evals took 8.7 s for Sent140, 10.3 s for Shakespeare and
 # 0.9 s for the recommender on an H100 80GB HBM3 at 700 W (the
-# recommender cut from 20 to 10 when the multi_device phase joined).
+# recommender cut from 20 to 10 when the multi_device phase joined,
+# Sent140 and Shakespeare from 4 to 2 and `lm` from 10 to 4 when the
+# long_shapes phase did).
 # Each cut is printed on the part's line.
-SCENARIO_RUNS = {"sent140": (4, 2), "recommend": (10, 2),
-                 "shakespeare": (4, 2), "lm": (10, 5)}
+SCENARIO_RUNS = {"sent140": (2, 2), "recommend": (10, 2),
+                 "shakespeare": (2, 2), "lm": (4, 2)}
 # the paper's widths (the reference's defaults): LEAF's Shakespeare
 # char-LSTM and the Sent140 LSTM with a learned 64-wide embedding;
 # bytes of one FOMAML round of 8 clients
@@ -5049,43 +5661,45 @@ def phase_train_async(torch, cfg):
 # ------------------------------------------------------- train_population
 
 # the committed artifact's three cells (results/experiments/
-# population_sent140.json) cut from its 60 rounds to their first 30 (an
-# eval every 3, as there): the 60 took 143 s on the H100 (host-bound
-# LSTM rounds); the whole 60 are replayed by `launch.compare --sweep
-# population` and held by `tools/compare_population.py`. The accounting
-# of the first 30 rounds is the reference's, from two CPU runs of
-#   PYTHONPATH=src python examples/population_scale.py --rounds 30 \
+# population_sent140.json) cut from its 60 rounds to 15 (an eval every
+# 3, as there; 30 until the long_shapes phase joined): the 60 took 143 s
+# on the H100 (host-bound LSTM rounds); the whole 60 are replayed by
+# `launch.compare --sweep population` and held by
+# `tools/compare_population.py`. The accounting of a 15-round run is the
+# reference's, from two CPU runs of
+#   PYTHONPATH=src python examples/population_scale.py --rounds 15 \
 #       --outdir D
 # which agree with each other field for field and in the registry's
-# counts (hits 643, misses 306, evictions 374)
-POP_ROUNDS = 30
+# counts (hits 293, misses 186, evictions 254); the same command at
+# --rounds 30 gives the 30-round cut's values field for field
+POP_ROUNDS = 15
 POP_CELL_FIELDS = ("rounds", "skipped_rounds", "dead_round_frac",
                    "mean_arrived", "cohort_fill", "client_updates")
 POP_COMM_FIELDS = ("selected_total", "arrived_total", "quarantined",
                    "download_MB", "upload_MB", "comm_MB", "phi_MB")
 POP_CUT = {
-    "clean": dict(rounds=30, skipped_rounds=0, dead_round_frac=0.0,
-                  mean_arrived=8.0, cohort_fill=1.0, client_updates=240,
-                  comm=dict(download_MB=44.79168, upload_MB=44.79168,
-                            comm_MB=89.58336, phi_MB=0.186632)),
-    "overselect": dict(rounds=30, skipped_rounds=10,
-                       dead_round_frac=0.3333333333333333,
-                       mean_arrived=3.066666666666667,
-                       cohort_fill=0.38333333333333336, client_updates=92,
-                       comm=dict(selected_total=1200, arrived_total=92,
-                                 quarantined=62, download_MB=223.9584,
-                                 upload_MB=17.170144, comm_MB=241.128544,
+    "clean": dict(rounds=15, skipped_rounds=0, dead_round_frac=0.0,
+                  mean_arrived=8.0, cohort_fill=1.0, client_updates=120,
+                  comm=dict(download_MB=22.39584, upload_MB=22.39584,
+                            comm_MB=44.79168, phi_MB=0.186632)),
+    "overselect": dict(rounds=15, skipped_rounds=4,
+                       dead_round_frac=0.26666666666666666,
+                       mean_arrived=2.533333333333333,
+                       cohort_fill=0.31666666666666665, client_updates=38,
+                       comm=dict(selected_total=600, arrived_total=38,
+                                 quarantined=72, download_MB=111.9792,
+                                 upload_MB=7.092016, comm_MB=119.071216,
                                  phi_MB=0.186632)),
-    "baseline": dict(rounds=30, skipped_rounds=17,
-                     dead_round_frac=0.5666666666666667,
-                     mean_arrived=0.6666666666666666,
-                     cohort_fill=0.08333333333333333, client_updates=20,
-                     comm=dict(selected_total=240, arrived_total=20,
-                               quarantined=12, download_MB=44.79168,
-                               upload_MB=3.73264, comm_MB=48.52432,
+    "baseline": dict(rounds=15, skipped_rounds=10,
+                     dead_round_frac=0.6666666666666666,
+                     mean_arrived=0.4666666666666667,
+                     cohort_fill=0.058333333333333334, client_updates=7,
+                     comm=dict(selected_total=120, arrived_total=7,
+                               quarantined=5, download_MB=22.39584,
+                               upload_MB=1.306424, comm_MB=23.702264,
                                phi_MB=0.186632)),
 }
-POP_CUT_ACCESSES = 643 + 306     # the registry's hits + misses
+POP_CUT_ACCESSES = 293 + 186     # the registry's hits + misses
 # the deployment scale: a lazily generated Sent140 fleet at the paper's
 # LSTM width, m = 8 on the client plane, the arrival model below
 POP_FLEETS = (1_000_000, 1_000)
@@ -5958,13 +6572,13 @@ def md_launched(launches, name, errors):
             errors.append(f"{k} not launched by the launcher {name}")
 
 
-def md_launcher_setup():
+def md_launcher_setup(seqs: int = 2):
     """SmolLM-360M at full width, train_4k's 4,096 tokens cut to 1
-    client of 1 + 1 sequences."""
+    client of ``seqs`` sequences (1 + 1 by default)."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch import train as tl
     return get_config("smollm-360m"), tl.cut_shape(
-        INPUT_SHAPES["train_4k"], seqs_per_client=2, clients=1)
+        INPUT_SHAPES["train_4k"], seqs_per_client=seqs, clients=1)
 
 
 def md_launcher(torch, errors):
@@ -6023,10 +6637,9 @@ def md_launcher_world2(torch, rank, world, store, errors):
     `tools/probe_gloo_cuda.py`). `md_launcher_setup`'s step from the
     state drawn shard by shard, against the meshless step from the
     whole draw of the same seed on rank 0 (`md_step_against`, the ulp
-    of the larger entry). K7 and K1 launched on the mesh. (On the 2x1
-    mesh the batch of one sequence cannot shard, so DTensor splits each
-    FSDP matmul's contraction and sums bf16 partials: the loss moves by
-    1.6e-5 relative, past the limit; `PERF.md` §7.)"""
+    of the larger entry). K7 and K1 launched on the mesh. (The 2x1 mesh
+    refuses a batch of one sequence a client half, as the reference's
+    jit does; `tools/two_rank_step.py` steps it at 2 + 2.)"""
     import torch.distributed as dist
     from repro_torch.launch import train as tl
     from repro_torch.launch.mesh import make_host_mesh
@@ -6159,7 +6772,7 @@ def main(argv=None) -> int:
         return name
 
     phase = mark("build")
-    summaries, paths = {}, {}
+    summaries, paths, long_rows = {}, {}, []
     try:
         from repro_torch.configs import get_config
         # full-f32 matmuls and convolutions, deterministic cuDNN algorithms
@@ -6169,7 +6782,7 @@ def main(argv=None) -> int:
         cfg = get_config("smollm-360m")
         phase_build(torch)
         phase = mark("kernels")
-        summaries = phase_kernels(torch, cfg)
+        summaries, long_k8 = phase_kernels(torch, cfg)
         phase = mark("refusals")
         check_refusals(torch)
         phase = mark("serve")
@@ -6233,6 +6846,12 @@ def main(argv=None) -> int:
         paths.update(phase_serve_multimodal(torch))
         gc.collect()
         torch.cuda.empty_cache()
+        phase = mark("long_shapes")
+        launched, long_rows = phase_long_shapes(torch)
+        long_rows.append(long_k8)
+        paths.update(launched)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase = mark("multi_device")
         paths.update(phase_multi_device(torch))
     except Exception as e:       # noqa: BLE001 — report, then fail
@@ -6267,6 +6886,22 @@ def main(argv=None) -> int:
             "device_ms": s["device_ms"],
             "library_device_ms": s["library_device_ms"],
             "case": s["case"]})
+    # the long shapes' cases, each with the launches of the path that
+    # runs it at that shape
+    long_path = {"flash_attention": "prefill_32k_smollm-360m",
+                 "ssd_chunk": "prefill_32k_mamba2-370m",
+                 "flash_decode": "handoff_32k_smollm-360m"}
+    for r in long_rows:
+        name, path = r["name"], long_path[r["name"]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": paths[path][name],
+            "launches_path": path, "shape": r["shape"],
+            "max_abs_err": r["max_abs_err"], "ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"], "case": r["case"]})
     t_done = time.perf_counter()
     ends = list(starts.values())[1:] + [t_done]
     emit({"phase": "done", "wall_s": t_done - t_start,

@@ -66,15 +66,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
     y_intra, S = ssd_intra_chunk(xdt.transpose(1, 2), a_t, Bm.float(), Cf,
                                  chunk=chunk)                 # S (B,nh,nc,N,hp)
 
-    # inter-chunk recurrence: a tiny state, O(nc) steps
     cum = torch.cumsum(a_t.reshape(B, nh, nc, chunk), dim=-1)
-    chunk_decay = torch.exp(cum[..., -1])                     # (B,nh,nc)
-    S_prev = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=x.device)
-    S_in = []
-    for c in range(nc):
-        S_in.append(S_prev)                                   # entering c
-        S_prev = S[:, :, c] + S_prev * chunk_decay[:, :, c, None, None]
-    S_in = torch.stack(S_in, 2)                               # (B,nh,nc,N,hp)
+    S_in, S_prev = inter_chunk_states(S, torch.exp(cum[..., -1]))
 
     # inter-chunk output: y_inter[i] = exp(cum_i) C_i . S_in
     y_inter = torch.einsum("bcin,bhcnp,bhci->bhcip",
@@ -84,6 +77,20 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
     if return_final_state:
         return y, S_prev.transpose(-1, -2)                    # (B,nh,hp,N)
     return y
+
+
+def inter_chunk_states(S, chunk_decay):
+    """The inter-chunk recurrence, a Python loop of one step a chunk:
+    S (B, nh, nc, N, hp) chunk states and chunk_decay (B, nh, nc) ->
+    (the state entering each chunk, stacked (B, nh, nc, N, hp); the
+    state after the last chunk (B, nh, N, hp))."""
+    B, nh, nc, N, hp = S.shape
+    S_prev = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=S.device)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S_prev)                                   # entering c
+        S_prev = S[:, :, c] + S_prev * chunk_decay[:, :, c, None, None]
+    return torch.stack(S_in, 2), S_prev
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm):

@@ -146,17 +146,27 @@ def decode_state(cfg, batch: int, seq: int, *, device="cuda", params=None,
     return params, cache
 
 
+def cache_nbytes(cache) -> int:
+    """Bytes of a decode cache's tensors at their global shapes (a
+    DTensor counts whole)."""
+    from repro_torch.utils.pytree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(cache)
+               if isinstance(x, torch.Tensor))
+
+
 def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
                  params=None, mesh=None):
     """`steps` greedy decode steps of `batch` sequences against a cache
     of `seq` slots that already holds 64 tokens: the CLI's body. The
     weights and cache are `decode_state`'s. With ``mesh`` the weights,
     the cache and each step's tokens (the batch over pod+data) are
-    placed on it and it is the ambient mesh. Returns the run's
-    record."""
+    placed on it and it is the ambient mesh. Returns the run's record,
+    with the config's sliding window and the cache's bytes (a GQA ring
+    holds the window's slots where one is set)."""
     decode = make_decode_step(cfg)
     params, cache = decode_state(cfg, batch, seq, device=device,
                                  params=params, mesh=mesh)
+    cache_bytes = cache_nbytes(cache)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
     place_tok = lambda t: t                       # noqa: E731
     if mesh is not None:
@@ -181,7 +191,8 @@ def decode_steps(cfg, batch: int, seq: int, steps: int, *, device="cuda",
             print(f"decode step {it}: {step_s[-1]:.4f}s  "
                   f"logits {tuple(logits.shape)}", flush=True)
     return {"arch": cfg.name, "num_layers": cfg.num_layers, "batch": batch,
-            "seq_len": seq, "logits_shape": tuple(logits.shape),
+            "seq_len": seq, "sliding_window": cfg.sliding_window,
+            "cache_bytes": cache_bytes, "logits_shape": tuple(logits.shape),
             "logits_finite": finite, "step_s": step_s}
 
 

@@ -117,17 +117,24 @@ def train(cfg, shape, *, algo: str = "fomaml", steps: int = 10,
     as the ambient mesh; the returned state is then DTensors too
     (`full` gathers it). A drawn state is made shard by shard on each
     rank, an injected ``phi`` placed whole (`make_train_step`'s
-    ``init_state(mesh=...)``)."""
+    ``init_state(mesh=...)``). A batch that the mesh cannot place (its
+    sequences do not divide over "data", as 1 + 1 on a 2x1 mesh) raises
+    ValueError before anything is drawn, as the reference's jit refuses
+    it (`sharding.rules.check_placeable`)."""
     if shape.kind != "train":
         raise ValueError("use launch/serve.py for inference shapes")
     device = check_device(device)
+    if mesh is not None:
+        from repro_torch.launch.steps import input_specs
+        from repro_torch.sharding.rules import check_placeable
+        spec = input_specs(cfg, shape, mesh)
+        if steps > 0:
+            check_placeable(spec["batch"], spec["pspec"], mesh)
+        bspec = spec["pspec"]
     train_step, init_state, _, _ = make_train_step(
         cfg, algo_name=algo, inner_lr=inner_lr, outer_lr=outer_lr,
         remat=remat)
     state = init_state(0, phi=phi, device=device, mesh=mesh)
-    if mesh is not None:
-        from repro_torch.launch.steps import input_specs
-        bspec = input_specs(cfg, shape, mesh)["pspec"]
     records = []
     for it in range(steps):
         batch = task_batch(cfg, shape, it, device)

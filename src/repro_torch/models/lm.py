@@ -216,6 +216,15 @@ def _rep_forward(rep, cfg, period, x, aux, positions, enc_out):
     return _maybe_shard_seq(cfg, x), aux
 
 
+def _writable(tree) -> bool:
+    """Whether ``tree``'s tensors can be copied into plain buffers in
+    place: not DTensors and not under a functorch transform (vmap,
+    grad), whose wrapped tensors take no such write."""
+    from torch._C._functorch import is_functorch_wrapped_tensor
+    return all(type(x) is torch.Tensor and not is_functorch_wrapped_tensor(x)
+               for x in tree_flatten(tree)[0])
+
+
 def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
              collect_cache: bool = False, cache_capacity: int | None = None,
              logits_mode: str = "all"):
@@ -236,7 +245,12 @@ def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
     checkpoint stashes no RNG state. The ``lead_*`` blocks and the
     prefill path (``collect_cache``) are never checkpointed, as in the
     reference. The reference's ``unroll_layers`` has no counterpart: the
-    layers always run as a Python loop."""
+    layers always run as a Python loop. The prefill writes each
+    repetition's cache into the stacked buffers as the repetition ends,
+    as the reference's scan stacks its outputs (`_writable`; DTensors
+    and functorch transforms stack at the end): a stack of every
+    repetition's cache at the end would hold the cache twice, 85.8 GB
+    for SmolLM-360M at prefill_32k's batch of 32."""
     B, L_text = tokens.shape
     lead, period, n_reps = layer_groups(cfg)
     tokens, modality_embeds = batch_layout((tokens, modality_embeds))
@@ -268,8 +282,8 @@ def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
                                  enc_out=enc_out)
         aux = aux + a
 
-    outs = []
-    for rep in _reps(params["stack"], n_reps):
+    outs, stacked = [], None
+    for r, rep in enumerate(_reps(params["stack"], n_reps)):
         if not collect_cache:
             if remat and torch.is_grad_enabled():
                 x, aux = checkpoint(_rep_forward, rep, cfg, period, x, aux,
@@ -286,14 +300,22 @@ def lm_apply(params, cfg, tokens, *, modality_embeds=None, remat: bool = True,
                 enc_out=enc_out)
             aux = aux + a
         x = _maybe_shard_seq(cfg, x)
-        outs.append(rep_caches)
+        if r == 0 and _writable(rep_caches):
+            stacked = tree_map(
+                lambda c: c.new_empty((n_reps,) + tuple(c.shape)), rep_caches)
+        if stacked is None:
+            outs.append(rep_caches)
+        else:
+            tree_map(lambda buf, c: buf[r].copy_(c), stacked, rep_caches)
+        del rep_caches
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:]          # serving prefill: next-token logits only
     logits = _logits(params, cfg, x)
     if collect_cache:
-        caches["stack"] = tree_map(lambda *xs: torch.stack(xs), *outs)
+        caches["stack"] = (stacked if stacked is not None else
+                           tree_map(lambda *xs: torch.stack(xs), *outs))
         caches["length"] = L_total
         if enc_out is not None:
             caches["enc_out"] = enc_out

@@ -234,11 +234,46 @@ def map_with_specs(fn, tree, specs, *rest):
                       for v, s, *rs in zip(tree, specs, *rest))
 
 
+def _leaves_with_specs(tree, specs, path=()):
+    """(path, leaf, spec) for each tensor of ``tree``, as
+    `map_with_specs` pairs them."""
+    if isinstance(specs, P):
+        if hasattr(tree, "shape"):
+            yield path, tree, specs
+        return
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree))
+    for k, v in items:
+        yield from _leaves_with_specs(v, specs[k], path + (k,))
+
+
+def check_placeable(tree, specs, mesh, *, prefix=()):
+    """Raise ValueError where a spec cuts a dim unevenly: a leaf's dim
+    must divide by the product of the mesh axes its spec puts on it.
+    JAX refuses such a placement (`device_put` or `jit` with a
+    NamedSharding: "the global size of its dimension d should be
+    divisible by n"), where DTensor would cut it unevenly and run a
+    program the reference cannot. ``tree`` may hold meta tensors."""
+    sizes = mesh_sizes(mesh)
+    for path, leaf, spec in _leaves_with_specs(tree, specs, tuple(prefix)):
+        for dim, entry in enumerate(spec):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            div = math.prod(sizes[n] for n in names if n is not None)
+            if leaf.shape[dim] % div:
+                where = "".join(f"[{k!r}]" for k in path)
+                raise ValueError(
+                    f"{where}: spec {spec} puts {entry!r} ({div} ways) on "
+                    f"dim {dim}, whose size {leaf.shape[dim]} does not "
+                    f"divide by {div} (shape {tuple(leaf.shape)})")
+
+
 def distribute(tree, specs, mesh):
     """Place every tensor of ``tree`` on ``mesh`` as a DTensor by its
     spec: each rank keeps its shard of the full tensor it holds, and a
-    DTensor is redistributed to the spec."""
+    DTensor is redistributed to the spec. A spec that cuts a dim
+    unevenly raises first (`check_placeable`)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
+    check_placeable(tree, specs, mesh)
 
     def place(x, s):
         pl = placements(s, mesh)
@@ -286,8 +321,10 @@ def shard_like(ref, x):
 def place_local(tree, specs, mesh):
     """`distribute` for a tree that every rank holds the same, with no
     collective: a plain tensor is `cut` to its spec; a DTensor must
-    already have its spec's placements."""
+    already have its spec's placements. A spec that cuts a dim unevenly
+    raises first (`check_placeable`)."""
     from torch.distributed.tensor import DTensor
+    check_placeable(tree, specs, mesh)
 
     def place(x, s):
         pl = placements(s, mesh)
@@ -302,8 +339,10 @@ def place_local(tree, specs, mesh):
 
 def zeros_placed(shapes, specs, mesh):
     """A tree of zeros laid out as ``shapes`` (meta tensors), as
-    DTensors by ``specs``: each rank makes its shard only."""
+    DTensors by ``specs``: each rank makes its shard only. A spec that
+    cuts a dim unevenly raises first (`check_placeable`)."""
     from torch.distributed.tensor import zeros
+    check_placeable(shapes, specs, mesh)
     return map_with_specs(
         lambda m, s: zeros(m.shape, dtype=m.dtype, device_mesh=mesh,
                            placements=placements(s, mesh)), shapes, specs)
@@ -327,12 +366,15 @@ def materialize_units(units, specs, mesh):
     unit's leaves are cut to the rank's shard before the next unit is
     drawn, so the rank holds its shards and one unit at a time. A unit
     with ``rep`` (r, n) is repetition r of leaves stacked on a leading
-    axis, which stays whole: its shard is row r of the stacked shard."""
+    axis, which stays whole: its shard is row r of the stacked shard.
+    A spec that cuts a dim unevenly raises before the unit is placed
+    (`check_placeable`, on the stacked shape for a repetition)."""
     from torch.distributed.tensor import Shard, empty
     out = {}
     for path, unit, rep in units:
         sub_specs = get_path(specs, path)
         if rep is None:
+            check_placeable(unit, sub_specs, mesh, prefix=path)
             set_path(out, path, map_with_specs(
                 lambda x, s: cut(x, placements(s, mesh), mesh),
                 unit, sub_specs))
@@ -351,6 +393,9 @@ def materialize_units(units, specs, mesh):
             return buf
 
         if r == 0:
+            check_placeable(map_with_specs(
+                lambda x, s: x.new_empty((n, *x.shape), device="meta"),
+                unit, sub_specs), sub_specs, mesh, prefix=path)
             set_path(out, path, map_with_specs(fill, unit, sub_specs))
         else:
             map_with_specs(fill, unit, sub_specs, get_path(out, path))

@@ -126,6 +126,14 @@ def k9_call(xdt, a, Bm, Cm, chunk=4):
     return k9._launch(xdt, a, Bm, Cm, chunk)
 
 
+def ssd_grid(nh, L, hp, N, B=1):
+    """K9 operands of a long sequence as stride-0 views (K9 takes any
+    strides), so only the wrapper's outputs take memory."""
+    one = torch.zeros(1)
+    return (one.expand(B, nh, L, hp), one.expand(B, nh, L),
+            one.expand(B, L, N), one.expand(B, L, N))
+
+
 BF = torch.bfloat16
 GOOD = {  # case: (binding, call)
     "K1 scalar alpha": ("inner_update", lambda: k1(z(2, 8), 0.1, z(2, 8))),
@@ -154,6 +162,10 @@ GOOD = {  # case: (binding, call)
         z(2, 6, 64), z(2, 16, 2, 64), kvl=torch.tensor([3, 16]))),
     "K9": ("ssd_chunk", lambda: k9_call(z(1, 2, 8, 4), z(1, 2, 8),
                                         z(1, 8, 4), z(1, 8, 4))),
+    "K9 grid at 65,535 head-chunks": ("ssd_chunk", lambda: k9_call(
+        *ssd_grid(nh=5, L=13107 * 128, hp=1, N=1), chunk=128)),
+    "K9 grid at prefill_32k, jamba's 128 heads": ("ssd_chunk", lambda: k9_call(
+        *ssd_grid(nh=128, L=32768, hp=1, N=1), chunk=128)),
 }
 
 REFUSED = {
@@ -267,6 +279,10 @@ REFUSED = {
                                   z(1, 8, 8)),
     "K9 device": lambda: k9_call(z(1, 2, 8, 4), z(1, 2, 8), meta(1, 8, 4),
                                  meta(1, 8, 4)),
+    # the y kernel's gridDim.y is heads x chunks, at most 65,535: jamba's
+    # 128 heads at 65,536 tokens (512 chunks of 128) make 65,536
+    "K9 grid past 65,535 head-chunks": lambda: k9_call(
+        *ssd_grid(nh=128, L=65536, hp=1, N=1), chunk=128),
 }
 
 

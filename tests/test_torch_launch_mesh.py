@@ -196,6 +196,54 @@ def test_launch_path_on_host_mesh_1x1(tmp_path, x, meshless, reference,
                     np.testing.assert_allclose(a, b, **NET, err_msg=k)
 
 
+def _cut(seqs):
+    """The reduced train shape at one client of ``seqs`` sequences."""
+    from repro_torch.launch import train as tl
+    return tl.cut_shape(tl.reduced_shape(INPUT_SHAPES["train_4k"]),
+                        seqs_per_client=seqs, clients=1)
+
+
+def refusals(mesh):
+    """On the 2x1 mesh: `distribute` of the launcher's batch at 1 + 1
+    sequences (a sequence axis of one over "data") and `train` at 1 + 1
+    raise ValueError, the latter before it draws anything; at 2 + 2
+    the launcher's step runs. Returns the messages, the draws made
+    before the refusal and (mesh, meshless) losses at 2 + 2."""
+    from repro_torch.launch import train as tl
+    from repro_torch.sharding.rules import distribute
+    cfg = reduced_config(get_config(ARCH))
+    one, two = _cut(2), _cut(4)
+    out = {}
+    batch = tl.task_batch(cfg, one, 0, "cpu")
+    try:
+        distribute(batch, input_specs(cfg, one, mesh)["pspec"], mesh)
+        out["distribute"] = None
+    except ValueError as e:
+        out["distribute"] = str(e)
+    drawn, real = [], tl.make_train_step
+
+    def spy(*a, **k):
+        step, init, algo, opt = real(*a, **k)
+        return step, lambda *a, **k: drawn.append(1) or init(*a, **k), \
+            algo, opt
+
+    tl.make_train_step = spy
+    try:
+        tl.train(cfg, one, steps=1, device="cpu", mesh=mesh,
+                 log_every=10 ** 9)
+        out["train"] = None
+    except ValueError as e:
+        out["train"] = str(e)
+    finally:
+        tl.make_train_step = real
+    out["drawn"] = len(drawn)
+    _, rec = tl.train(cfg, two, steps=1, device="cpu", mesh=mesh,
+                      log_every=10 ** 9)
+    _, ref = tl.train(cfg, two, steps=1, device="cpu", log_every=10 ** 9)
+    out["loss"] = (rec[0]["query_loss"], ref[0]["query_loss"])
+    return out
+
+
 def world2_worker(rank, x):
     from repro_torch.launch.mesh import make_host_mesh
     out = {}
@@ -203,6 +251,7 @@ def world2_worker(rank, x):
         mesh = make_host_mesh(*shape, device_type="cpu")
         out[shape] = run_port(x, mesh)
         out[(shape, "shard_seq")] = run_port(x, mesh, shard_seq=True)
+    out["refusals"] = refusals(make_host_mesh(2, 1, device_type="cpu"))
     return out
 
 
@@ -232,3 +281,87 @@ def test_scan_and_unroll_settings_are_bitwise_equal(x):
     b = run_port(x, scan_clients=False, unroll_layers=True)
     for p, q in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
         assert np.array_equal(p, q)
+
+
+def test_two_by_one_mesh_refuses_a_batch_of_one_sequence(world2):
+    """A spec that cuts a dim unevenly raises, as the reference's
+    `device_put` and `jit` do (`test_reference_refuses_the_same_spec`):
+    `distribute` at 1 + 1 on 2x1 names the leaf, the dim, its size and
+    the divisor; `train` raises before it draws the state; 2 + 2 runs,
+    its loss within rtol 1e-5 of the meshless step's."""
+    for r in world2:
+        got = r["refusals"]
+        assert got["distribute"] and "['support']['tokens']" in \
+            got["distribute"], got
+        assert "dim 2, whose size 1 does not divide by 2" in \
+            got["distribute"], got
+        assert got["train"] and "does not divide by 2" in got["train"], got
+        assert got["drawn"] == 0, got
+        np.testing.assert_allclose(got["loss"][0], got["loss"][1],
+                                   rtol=1e-5)
+
+
+JAX_PLACEMENT = r"""
+import dataclasses, json, sys
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs import INPUT_SHAPES, get_config, reduced_config
+from repro.launch.steps import input_specs
+seqs = int(sys.argv[1])
+cfg = reduced_config(get_config(sys.argv[2]))
+shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=64,
+                            global_batch=seqs, clients_per_round=1,
+                            seqs_per_client=seqs)
+mesh = Mesh(np.array(jax.devices()[:2]).reshape(2, 1), ("data", "model"))
+spec = input_specs(cfg, shape, mesh)
+leaves = jax.tree.leaves(spec["batch"])
+specs = jax.tree.leaves(spec["pspec"], is_leaf=lambda s: isinstance(s, P))
+out = {"devices": len(jax.devices())}
+for name, place in (
+        ("device_put", lambda x, s: jax.device_put(x, s)),
+        ("jit", lambda x, s: jax.jit(lambda a: a + 1, in_shardings=s)(x))):
+    try:
+        for x, s in zip(leaves, specs):
+            jax.block_until_ready(place(np.zeros(x.shape, x.dtype),
+                                        NamedSharding(mesh, s)))
+        out[name] = None
+    except ValueError as e:
+        out[name] = str(e)
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("seqs", [2, 4], ids=["1+1", "2+2"])
+def test_reference_refuses_the_same_spec(seqs):
+    """The reference's train batch spec on a 2x1 mesh of two host
+    devices: 1 + 1 refused by `device_put` and by `jit`'s
+    ``in_shardings``, 2 + 2 placed; the port's `check_placeable` gives
+    the same answer on the same spec."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import types
+    from repro_torch.sharding.rules import check_placeable
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               PYTHONPATH=os.path.join(root, "src"))
+    run = subprocess.run([sys.executable, "-c", JAX_PLACEMENT, str(seqs),
+                          ARCH], capture_output=True, text=True, env=env,
+                         timeout=300, check=True)
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["devices"] == 2
+    refused = seqs == 2
+    for name in ("device_put", "jit"):
+        assert bool(got[name]) == refused, got
+        if refused:
+            assert "should be divisible by 2" in got[name], got
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=types.SimpleNamespace(shape=(2, 1)))
+    spec = input_specs(reduced_config(get_config(ARCH)), _cut(seqs), mesh)
+    if refused:
+        with pytest.raises(ValueError, match="does not divide by 2"):
+            check_placeable(spec["batch"], spec["pspec"], mesh)
+    else:
+        check_placeable(spec["batch"], spec["pspec"], mesh)

@@ -6,9 +6,12 @@ mesh, against the meshless step: where and by how much they differ.
 
 Builds the kernels (`chip_smoke.phase_build`), then spawns two ranks on
 ``cuda:0`` in a world on the backend `staged_gloo` (DTensor's
-collectives as `repro_torch.sharding.collectives.StagedGloo`). Rank 0
+collectives as `repro_torch.sharding.collectives.StagedGloo`). First
+both ranks ask for the step at 1 + 1 sequences on the 2x1 mesh, which
+must raise ValueError before anything is drawn (a sequence axis of one
+does not split over "data"; the reference's jit refuses it too). Rank 0
 runs `chip_smoke.md_launcher_setup`'s step with no mesh (SmolLM-360M at
-full width, 1 + 1 sequences of 4,096 tokens, from the seed-0 draw);
+full width, 2 + 2 sequences of 4,096 tokens, from the seed-0 draw);
 then both ranks run it on each mesh from the state drawn shard by
 shard. For each mesh rank 0 prints the loss against the meshless one,
 the staged collectives' calls and bytes, and for each φ leaf the
@@ -65,9 +68,17 @@ def child(rank, store, out):
     dist.init_process_group(coll.register_staged_gloo(),
                             store=dist.FileStore(store, 2), rank=rank,
                             world_size=2)
-    cfg, shape = c.md_launcher_setup()
-    lr = c.LAUNCH_LR["outer_lr"]
     res = {}
+    cfg, one = c.md_launcher_setup(2)
+    try:
+        tl.train(cfg, one, steps=1, device="cuda", log_every=10 ** 9,
+                 mesh=make_host_mesh(2, 1, device_type="cuda"),
+                 **c.LAUNCH_LR)
+        res["refused_1+1_on_2x1"] = None
+    except ValueError as e:
+        res["refused_1+1_on_2x1"] = str(e)
+    cfg, shape = c.md_launcher_setup(4)
+    lr = c.LAUNCH_LR["outer_lr"]
     if rank == 0:
         phi0 = tree_leaves(make_train_step(cfg)[1](0, device="cuda")["phi"])
         st, r0 = tl.train(cfg, shape, steps=1, device="cuda",
@@ -121,8 +132,9 @@ def main():
     if codes != [0, 0] or not os.path.exists(path):
         print(f"exit codes {codes}", flush=True)
         return 1
-    print(json.dumps(json.load(open(path))), flush=True)
-    return 0
+    res = json.load(open(path))
+    print(json.dumps(res), flush=True)
+    return 0 if res["refused_1+1_on_2x1"] else 1
 
 
 if __name__ == "__main__":
