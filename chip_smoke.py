@@ -31,12 +31,17 @@ Phases, each printing one JSON line:
            (28 heads over 4 kv heads, 4,096 tokens), at seamless-m4t's
            bidirectional encoder (1,024 frames), decoder self-attention,
            cross-attention (4,096 text queries over 1,024 frames) and
-           decode-step cross-attention (128 rows of one query), and
+           decode-step cross-attention (128 rows of one query), at
+           nemotron-4-340b's prefill layer (96 heads over 8 kv heads,
+           qk and value dim 192: `<192, 192>`, 4,096 tokens) and a small
+           `<192, 192>` case with a window and a q_offset, and
            ragged kv_length on the card: the oracle,
            bitwise equal to impl="torch", no K7 launch; K8 also on
            mixtral's, jamba's, qwen2-vl's (G = 7) and seamless's (G = 1,
-           hd 64) decode_32k caches (128 rows of 4,096 or 32,768 slots;
-           the plain version row block by row block), G = 7 through
+           hd 64) and nemotron's (G = 12, hd 192, a full 25.8 GB cache)
+           decode_32k caches (128 rows of 4,096 or 32,768 slots;
+           the plain version row block by row block), nemotron's serving
+           step, ragged 4K caches and an f32 0 row at G = 12, G = 7 through
            the split combine, on a
            32K-slot cache split across blocks, ragged 4K-slot caches,
            rows with kv_length 0 against the mean of V, and a Python-int
@@ -46,7 +51,10 @@ Phases, each printing one JSON line:
            (Mamba2-370M's prefill, adaptation, round and served-prefill
            shapes, an odd chunk, and an input whose above-diagonal
            decay overflows, where the chunked oracle gives NaN and K9
-           stays finite). K7, K8 and K9 also at every folded shape the
+           stays finite), and K9 past 65,535 head-chunks (jamba's 128
+           heads at 65,536 tokens, 512 chunks: 3 chunks and the whole
+           scan against float64, `check_k9_long`, 32 heads at a time in
+           float64). K7, K8 and K9 also at every folded shape the
            serve and trace phases give them (SmolLM's 16 requests'
            prefill, (16, 15, 5, 64, 64), and decode step, B 16 C 64: the
            kernels line's K8 case; its trace's 4 requests; the granite,
@@ -61,8 +69,12 @@ Phases, each printing one JSON line:
            warm-up; the host's wrapper time is inside the window), and
            `device_ms` / `library_device_ms`, the device activity alone
            under torch.profiler with the L2 evicted before each call
-           (median of 4 blocks of 50 calls, kernel and yardstick in
-           turns).
+           (median of 2 blocks of 50 calls, kernel and yardstick in
+           turns). Last, every case of `tools/kernel_bits.py` (K7's,
+           K8's and K9's earlier shape classes) against the output
+           digests of the parent commit's kernels on the same inputs
+           (`tools/kernel_bits_parent.json`), bitwise where the toolchain
+           is the one that wrote them.
   refusals each kernel wrapper refuses, on CUDA tensors, a call its
            binding would refuse (a ValueError, no launch, no plain
            fall-back); each binding's own refused call, straight on the
@@ -144,7 +156,7 @@ Phases, each printing one JSON line:
   train_async  the async round engine and crash-safe checkpoints, through
            `FederatedTrainer.run`: (i) SmolLM-360M at full width (the
            SmolLM round's settings, `make_lm_clients` dialects of 128
-           tokens at the model's vocabulary), 4 rounds synchronous and
+           tokens at the model's vocabulary), 3 rounds synchronous and
            pipelined (prefetch 2 staged on a side stream, flush every 4,
            fused blocks of 2): history equal record for record and the
            state bitwise; 2 more rounds of each traced (round wall, busy
@@ -290,6 +302,19 @@ Phases, each printing one JSON line:
            MLA latents over all 524,288 slots): 4 steps, the window and
            cache bytes against a reckoning from the config, ms a step,
            finite logits, K8 once a layer a step on the rings only.
+  nemotron  nemotron-4-340b at full width (d_model 18,432, 96 heads over
+           8 kv heads of dim 192, relu2 d_ff 73,728, vocabulary 256,000),
+           depth cut (`NEMOTRON_LAYERS`), one JSON line a part with its
+           seconds, peak GB and K7 / K8 launches by path: its sizes
+           reckoned from the config against `init_lm`'s layout;
+           prefill_32k through `make_prefill_step` at 2 of 96 layers, the
+           first of 4, 2, 1 prompts that peaks under 76 GB (32, 16, 8
+           ran out of memory),
+           traced; a 4,096-token prefill at B = 1 and 4 decode steps
+           within twice the bf16 spread; K7 at (1, 96, 8, 32,768, 192)
+           against float64 on 192 query rows of every head; decode_32k
+           through `decode_steps` at 1 layer and batch 128; long_500k at 5
+           layers (the 8,192-slot window), cache bytes as reckoned.
   multi_device  the multi-device plane on the one card, in two worlds:
            (i) an NCCL world of 1 (a FileStore in a temp dir): the
            sharded FedMeta round (`client_axis="sharded"`, the packed
@@ -500,7 +525,7 @@ def device_ms(fn, torch, calls: int = 50, tries: int = 3,
                       f"whole in {tries} tries")
 
 
-def device_times(torch, kernel, library=None, blocks: int = 4,
+def device_times(torch, kernel, library=None, blocks: int = 2,
                  calls: int = 50) -> dict:
     """`device_ms` of the kernel and of its yardstick library call, each
     the median of `blocks` blocks of `calls` calls, timed in turns in
@@ -1111,6 +1136,10 @@ def check_k7(torch):
         # cross-attention: 4,096 text tokens over 1,024 frames
         (128, 16, 16, 1, 64, 64, "bfloat16", False, None, 0, 1024),  # the
         # decode step's cross-attention at decode_32k's batch: Lq = 1
+        (1, 96, 8, 4096, 192, 192, "bfloat16", True, None, 0),  # nemotron
+        # prefill layer: <192, 192>, G = 12
+        (2, 12, 1, 100, 192, 192, "bfloat16", True, 30, 5),  # <192, 192>
+        # with a window, a q_offset and a ragged tile
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1199,7 +1228,7 @@ def sdpa_backend(torch, fn):
 
 def check_k7_refuses(torch):
     """On CUDA tensors K7 launches or raises: a bf16 qk dim of 256 (past
-    `flash_attention_mma_kernel<192, 128>`) raises in the wrapper,
+    `flash_attention_mma_kernel<192, 192>`) raises in the wrapper,
     launches nothing and never falls back to the plain version."""
     from repro_torch.kernels.attention import flash_attention as k7
     from repro_torch.kernels.attention import ops as attn_ops
@@ -1336,6 +1365,14 @@ def check_k8(torch):
         # combine (16 splits)
         (128, 32768, 16, 1, 64, "bfloat16", "int"),    # seamless at
         # decode_32k: G = 1, hd 64 (mma.sync)
+        (128, 32768, 8, 12, 192, "bfloat16", "int"),   # nemotron at
+        # decode_32k, a full 25.8 GB cache: kG = 12, kHD = 192
+        (1, 64, 8, 12, 192, "bfloat16", "int"),        # nemotron's
+        # serving step
+        (4, 4096, 8, 12, 192, "bfloat16", "ragged"),   # G = 12 ragged,
+        # through the combine
+        (4, 100, 2, 12, 192, "float32", "zero_row"),   # f32 at G = 12,
+        # hd 192, a 0 row
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1386,7 +1423,9 @@ def check_k8(torch):
         library = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         lib_ms = library_time_ms(library, torch)
-        dev = device_times(torch, kernel, library if lib_ms else None)
+        # a call past 10 ms (nemotron's 25.8 GB cache): 2 blocks of 10
+        dev = device_times(torch, kernel, library if lib_ms else None,
+                           **({"blocks": 2, "calls": 10} if ms > 10 else {}))
         # slots read: the valid ones, every slot of a 0 row
         valid = int(torch.where(kvl_t > 0, kvl_t.clamp(max=C), C).sum())
         elem = q.element_size()
@@ -1398,7 +1437,7 @@ def check_k8(torch):
                "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} {dt} "
                        f"kv_length={lengths}",
                "plain_rows_a_call": min(rows_a_call, B),
-               "splits": k8.splits_for(kc, kvl),
+               "splits": k8.splits_for(kc, kvl, G),
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
                "device_events_a_call": per_call,
                "device_us_by_kernel": one_call,
@@ -1735,6 +1774,16 @@ def check_refusals(torch):
 # the 32,768-token handoff's K8 call, the long shapes' row of the kernels
 # line
 K8_LONG_CASE = "B=1 C=32768 Kv=5 G=3 hd=64 bfloat16 kv_length=int"
+# nemotron-4-340b's cases of `check_k7` (its prefill layer at 4,096
+# tokens) and `check_k8` (its decode_32k cache, full), each a row of the
+# kernels line beside the nemotron phase path that launches it
+K7_NEMOTRON_CASE = ("B=1 H=96 Kv=8 L=4096 hd=192 hd_v=192 bfloat16 "
+                    "causal=True window=None q_offset=0")
+K8_NEMOTRON_CASE = "B=128 C=32768 Kv=8 G=12 hd=192 bfloat16 kv_length=int"
+# K9 past 65,535 head-chunks: jamba's 128 heads at 65,536 tokens, 512
+# chunks of 128 (the y kernel's grid on x)
+K9_JAMBA_L, K9_JAMBA_HEADS = 65536, 128
+PARENT_BITS = os.path.join(HERE, "tools", "kernel_bits_parent.json")
 
 
 def phase_kernels(torch, cfg):
@@ -1760,11 +1809,61 @@ def phase_kernels(torch, cfg):
         rows += r
         summaries[name] = s
         torch.cuda.synchronize()
-    long_k8 = next(r for r in rows if r["name"] == "flash_decode"
-                   and r["case"] == K8_LONG_CASE)
+    pick = lambda name, case: next(  # noqa: E731
+        r for r in rows if r["name"] == name and r["case"] == case)
+    k9_jamba = check_k9_long(
+        torch, nh=K9_JAMBA_HEADS, L=K9_JAMBA_L, seed=29, head_group=32,
+        label="jamba's 128 SSM heads at 65,536 tokens: 65,536 head-chunks",
+        shape="65,536 tokens")
+    rows.append(k9_jamba)
     rows += check_vmap_fold(torch)
+    bits = check_parent_bits(torch)
+    rows.append(bits)
     emit({"phase": "kernels", "ok": True, "n_plane": n_plane, "checks": rows})
-    return summaries, dict(long_k8, shape="prefill_32k handoff")
+    extra = [
+        dict(pick("flash_decode", K8_LONG_CASE), shape="prefill_32k handoff",
+             launches_path="handoff_32k_smollm-360m"),
+        dict(pick("flash_attention", K7_NEMOTRON_CASE),
+             shape="nemotron-4-340b prefill layer, 4,096 tokens",
+             launches_path="prefill_32k_nemotron-4-340b"),
+        dict(pick("flash_decode", K8_NEMOTRON_CASE),
+             shape="nemotron-4-340b decode_32k, a full cache",
+             launches_path="decode_32k_nemotron-4-340b"),
+        # no path prefills 65,536 tokens: the row goes with K9's longest
+        # path, Mamba2-370M's prefill_32k
+        dict(k9_jamba, launches_path="prefill_32k_mamba2-370m")]
+    return summaries, extra
+
+
+def check_parent_bits(torch):
+    """Every case of `tools/kernel_bits.py` (K7 `<64, 64>`, `<128, 128>`,
+    `<192, 128>` and f32; K8 at every G <= 8 and head dim bucket it took;
+    K9 at `check_k9`'s shapes, hp 128 and Q < 64), run on this tree's
+    kernels, against the output digests of the parent commit's kernels
+    on the same inputs (`PARENT_BITS`, written by that tool on an H100
+    from the parent tree): adding K7 `<192, 192>`, K8 at kG = 12 / kHD =
+    192 and moving K9's grid must change no bit. Digests compare only
+    under the toolchain that wrote them (torch, CUDA, nvcc, card name):
+    under another the row says so and holds nothing."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import kernel_bits
+    with open(PARENT_BITS) as fh:
+        parent = json.load(fh)
+    mine = kernel_bits.toolchain(torch)
+    comparable = all(parent.get(k) == v for k, v in mine.items())
+    cases = kernel_bits.digests(torch)
+    names = sorted(set(cases) | set(parent["cases"]))
+    differ = [n for n in names if cases.get(n) != parent["cases"].get(n)]
+    row = {"name": "parent_bits", "cases": len(names),
+           "equal": len(names) - len(differ), "differ": differ[:20],
+           "toolchain": mine, "parent_toolchain": {
+               k: parent.get(k) for k in mine},
+           "comparable": comparable,
+           "held": comparable and not differ}
+    torch.cuda.empty_cache()
+    if comparable and differ:
+        raise PhaseFailed(f"kernel outputs moved from the parent's: {row}")
+    return row
 
 
 def check_vmap_fold(torch):
@@ -2841,7 +2940,7 @@ def launch_full_width(torch, cfg, errors):
     FOMAML step and 1 MAML step (K1 and K7 launched, finite loss, φ
     moved), FOMAML's step 1 against the plain route in bf16 (φ within
     2·lr plus one bf16 ulp, the meta-gradient within 1/8 of its largest
-    entry, the train phase's limits), one traced FOMAML step, one step
+    entry, the train phase's limits), one step
     in float32 on both routes at the small cut (the meta-gradient within
     1e-3), and the peak memory with remat at the small cut and without
     it."""
@@ -2886,8 +2985,6 @@ def launch_full_width(torch, cfg, errors):
         errors.append(f"FOMAML step 1 vs the plain route: |dφ| {d_phi} "
                       f"({phi_share} of 2·lr + 2^-7·|φ|), meta-gradient "
                       f"{d_g} (limit {g_tol})")
-
-    runs["fomaml_traced_step"] = launch_traced_step(torch, cfg, phi0)
 
     res, state, _ = _launch_run(torch, cfg, "maml", LAUNCH_CUT["maml"], 1,
                                 phi0)
@@ -3258,12 +3355,15 @@ def moe_determinism(torch, errors):
             "runs": out}
 
 
-def lm_logits_f32_by_layer(torch, cfg, params, tokens):
+def lm_logits_f32_by_layer(torch, cfg, params, tokens, from_pos=0,
+                           head_block=None):
     """`lm_apply`'s logits in float32 from bf16 weights, each layer's
     weights cast up only while it runs (a whole f32 copy of a cut MoE
     model would not fit beside its bf16 one, nor would jamba's whole
     period of 8 layers): the forward `lm_apply` computes for the f32
-    cast of the weights."""
+    cast of the weights. Only positions ``from_pos`` on get logits; with
+    ``head_block`` the head is cast up that many vocabulary columns at a
+    time (nemotron's 256,000 × 18,432 head is 18.9 GB in f32)."""
     import torch.nn.functional as F
     from repro_torch.models.blocks import block_forward
     from repro_torch.models.layers import rmsnorm
@@ -3281,10 +3381,14 @@ def lm_logits_f32_by_layer(torch, cfg, params, tokens):
         for rep in _reps(params["stack"], n_reps):
             for j, spec in enumerate(period):
                 x, _ = block_forward(up(rep[f"pos{j}"]), cfg, spec, x, pos)
-        x = rmsnorm(up(params["final_norm"]), x, cfg.norm_eps)
+        x = rmsnorm(up(params["final_norm"]), x, cfg.norm_eps)[:, from_pos:]
         head = (params["embed"].t() if cfg.tie_embeddings
                 else params["lm_head"])
-        return x @ head.float()
+        if head_block is None:
+            return x @ head.float()
+        return torch.cat([x @ head[:, c:c + head_block].float()
+                          for c in range(0, head.shape[1], head_block)],
+                         dim=-1)
 
 
 def moe_handoff(torch, cfg, params, L, errors):
@@ -3763,13 +3867,21 @@ def phase_serve_multimodal(torch):
 # and depth, bf16, random weights from seed 0. A prefill takes the
 # shape's batch of 32 (LONG_BATCHES' first), else the next whose measured peak
 # stays under LONG_PEAK_GB (a batch that runs out of memory, or peaks
-# past it, is listed as tried). deepseek-v2 decodes long_500k at its
+# past it, is listed as tried). Mamba2-370M starts at 16: its 32 ran out
+# of memory on the card, before and after the SSD's chunk states were
+# held once (an 8.00 GiB allocation at 73.40 GiB in use). nemotron at 2
+# layers starts at 4, the batch above the one that fits: 32, 16 and 8
+# ran out of memory at their first activation (72, 36 and 18 GiB
+# allocations). deepseek-v2 decodes long_500k at its
 # MOE_CUTS depth (its lead layer and 1 of 59 MoE layers), in process.
 LONG_L = 32768
-LONG_BATCHES = {"smollm-360m": (32, 16), "mamba2-370m": (32, 16, 8)}
+LONG_BATCHES = {"smollm-360m": (32, 16), "mamba2-370m": (16, 8),
+                "nemotron-4-340b": (4, 2, 1)}
 LONG_PEAK_GB = 76.0
+LONG_SHAPE_BATCH = 32                # prefill_32k's global batch
 LONG_EXTRA = 4                       # tokens decoded in the handoff
-LONG_KERNEL = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk"}
+LONG_KERNEL = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk",
+               "nemotron-4-340b": "flash_attention"}
 LONG_500K_CLI = ("smollm-360m", "qwen2.5-3b", "mamba2-370m")
 LONG_500K_CUT = ("deepseek-v2-236b",)
 LONG_PLAIN_BLOCK = 2048              # K7's plain version, queries a call
@@ -3812,17 +3924,19 @@ def long_prefill_once(torch, cfg, params, batch):
     return rec
 
 
-def long_prefill(torch, arch, errors):
-    """prefill_32k through `make_prefill_step` at full width and depth:
-    the first batch of LONG_BATCHES that runs and peaks under
-    LONG_PEAK_GB; its kernel launched once a layer, finite (batch,
-    vocab) logits. Mamba2 also times its inter-chunk recurrence alone at
-    the layer's shapes, once a layer (`ssd_ops.inter_chunk_states`, a
-    Python loop of 256 steps), against the prefill's wall."""
+def long_prefill(torch, arch, errors, cfg=None, params=None):
+    """prefill_32k through `make_prefill_step` at full width and depth
+    (or ``cfg``, a cut of it, on ``params``): the first batch of
+    LONG_BATCHES that runs and peaks under LONG_PEAK_GB; its kernel
+    launched once a layer, finite (batch, vocab) logits. Mamba2 also
+    times its inter-chunk recurrence alone at the layer's shapes, once a
+    layer (`ssd_ops.inter_chunk_states`, a Python loop of 256 steps),
+    against the prefill's wall."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
-    cfg = get_config(arch)
-    params = init_lm(0, cfg, device="cuda")
+    cfg = cfg or get_config(arch)
+    if params is None:
+        params = init_lm(0, cfg, device="cuda")
     tried, rec = [], None
     for batch in LONG_BATCHES[arch]:
         got = None
@@ -3845,7 +3959,7 @@ def long_prefill(torch, arch, errors):
         return {"arch": arch, "tried": tried}, {}
     kernel, layers = LONG_KERNEL[arch], cfg.num_layers
     rec.update(arch=arch, seq_len=LONG_L, tried=tried,
-               batch_cut=rec["batch"] < LONG_BATCHES[arch][0],
+               batch_cut=rec["batch"] < LONG_SHAPE_BATCH,
                num_layers=layers, kernel=kernel)
     if rec["launches"][kernel] != layers:
         errors.append(f"{arch} prefill: {kernel} launched "
@@ -3887,46 +4001,51 @@ def inter_chunk_wall(torch, cfg, batch):
             "host_ms": host * 1e3, "wall_ms": wall * 1e3}
 
 
-def long_handoff(torch, arch, errors):
-    """The prefill -> decode handoff at prefill_32k's 32,768 tokens, B =
-    1, full width and depth: prefill, then LONG_EXTRA decode steps, each
-    step's logits against `lm_apply` over the extended prompt
-    (`handoff_gaps`), held within twice the bf16 rounding spread of the
-    full forward (against the same forward in f32, layer by layer). The
-    attention model prefills into a cache of L + LONG_EXTRA slots, so K8
-    reads every slot the prefill filled (a cache of L slots would drop
-    prompt token 0 at the first decode: the reference's ring quirk);
-    Mamba2 runs `make_prefill_step` itself."""
+def long_handoff(torch, arch, errors, cfg=None, params=None, L=LONG_L,
+                 tag="32k", head_block=None):
+    """The prefill -> decode handoff at prefill_32k's 32,768 tokens (or
+    ``L``), B = 1, full width and depth (or ``cfg``, a cut of it, on
+    ``params``): prefill, then LONG_EXTRA decode steps, each step's
+    logits against `lm_apply` over the extended prompt (`handoff_gaps`),
+    held within twice the bf16 rounding spread of the full forward
+    (against the same forward in f32, layer by layer). The attention
+    model prefills into a cache of L + LONG_EXTRA slots, so K8 reads
+    every slot the prefill filled (a cache of L slots would drop prompt
+    token 0 at the first decode: the reference's ring quirk); Mamba2
+    runs `make_prefill_step` itself."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
-    cfg = get_config(arch)
-    params = init_lm(0, cfg, device="cuda")
-    toks = long_tokens(torch, cfg, 1, LONG_L + LONG_EXTRA, seed=5)[0].cpu()
+    cfg = cfg or get_config(arch)
+    if params is None:
+        params = init_lm(0, cfg, device="cuda")
+    toks = long_tokens(torch, cfg, 1, L + LONG_EXTRA, seed=5)[0].cpu()
     gqa = arch != "mamba2-370m"
     reset_launches()
     t0 = time.perf_counter()
     gaps, full_bf16 = handoff_gaps(
-        torch, cfg, params, toks[:LONG_L], toks[LONG_L:],
-        capacity=LONG_L + LONG_EXTRA if gqa else None)
+        torch, cfg, params, toks[:L], toks[L:],
+        capacity=L + LONG_EXTRA if gqa else None)
     launches = read_launches()
     handoff_s = time.perf_counter() - t0
-    full_f32 = lm_logits_f32_by_layer(torch, cfg, params,
-                                      toks[None].cuda())[0, LONG_L - 1:]
+    full_f32 = lm_logits_f32_by_layer(torch, cfg, params, toks[None].cuda(),
+                                      from_pos=L - 1,
+                                      head_block=head_block)[0]
     spread = float((full_bf16 - full_f32).abs().max())
     tol = 2.0 * spread
-    rec = {"arch": arch, "prompt_len": LONG_L, "decoded": LONG_EXTRA,
-           "cache_capacity": LONG_L + LONG_EXTRA if gqa else LONG_L,
+    rec = {"arch": arch, "num_layers": cfg.num_layers, "prompt_len": L,
+           "decoded": LONG_EXTRA,
+           "cache_capacity": L + LONG_EXTRA if gqa else L,
            "gaps_bf16": gaps, "bf16_rounding_spread": spread,
            "bf16_tol": tol, "max_abs_logit": float(full_f32.abs().max()),
            "handoff_s": handoff_s, "launches": launches}
     del full_bf16, full_f32, params
     if not max(gaps) <= tol:
-        errors.append(f"{arch} 32k handoff gaps {gaps} above {tol}")
+        errors.append(f"{arch} {tag} handoff gaps {gaps} above {tol}")
     want = ("flash_attention", "flash_decode") if gqa else ("ssd_chunk",)
     for name in want:
         if launches[name] <= 0:
-            errors.append(f"{arch} 32k handoff: {name} not launched")
-    return rec, {f"handoff_32k_{arch}": launches}
+            errors.append(f"{arch} {tag} handoff: {name} not launched")
+    return rec, {f"handoff_{tag}_{arch}": launches}
 
 
 def k7_f64_rows(torch, q, k, v, rows):
@@ -3976,57 +4095,84 @@ def k7_plain_blocked(torch, q, k, v):
         for a in range(0, L, LONG_PLAIN_BLOCK)], dim=1)
 
 
-def check_k7_long(torch):
-    """K7 at SmolLM-360M's prefill_32k layer, (1, 15, 5, 32,768, 64)
-    bf16 causal, against float64 over all keys for the first, a middle
-    and the last 64 query positions of every head (`k7_f64_rows`); its
-    plain version run block by block, held the same way on those rows.
-    Timed against SDPA (causal, no mask); the bound is causal attention's
-    operations, 2·H·pairs·(hd + hd_v), over the bf16 peak."""
+def k7_plain_rows(torch, q, k, v, starts, n=64):
+    """K7's plain version on the query blocks [a, a + n) of ``starts``
+    (causal, each over the keys up to its block's end), concatenated: the
+    rows `k7_f64_rows` checks, where the whole plain version would not
+    fit (96 heads at 32,768 tokens: 25.8 GB of scores a block of 2,048
+    queries)."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    return torch.cat([attn_ops.flash_attention(
+        q[:, a:a + n], k[:, :a + n], v[:, :a + n], causal=True, q_offset=a,
+        impl="torch") for a in starts], dim=1)
+
+
+def check_k7_long(torch, H=15, Kv=5, hd=64, seed=17, plain="blocked",
+                  label="SmolLM-360M's prefill_32k layer"):
+    """K7 at a prefill_32k layer, (1, H, Kv, 32,768, hd) bf16 causal
+    (by default SmolLM-360M's, (1, 15, 5, 32,768, 64)), against float64
+    over all keys for the first, a middle and the last 64 query positions
+    of every head (`k7_f64_rows`); its plain version, run block by block
+    (``plain="blocked"``, timed) or on those rows alone (``"rows"``),
+    held the same way on those rows. Timed against SDPA (causal, no
+    mask); the bound is causal attention's operations, 2·H·pairs·(hd +
+    hd_v), over the bf16 peak."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops as attn_ops
-    B, H, Kv, L, hd = 1, 15, 5, LONG_L, 64
-    gen = torch.Generator(device="cuda").manual_seed(17)
+    B, L = 1, LONG_L
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, L, H, hd), device="cuda", generator=gen).bfloat16()
     k = torch.randn((B, L, Kv, hd), device="cuda", generator=gen).bfloat16()
     v = torch.randn((B, L, Kv, hd), device="cuda", generator=gen).bfloat16()
     kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda")  # noqa
     out = kernel()
-    plain = k7_plain_blocked(torch, q, k, v)
-    rows = (list(range(64)) + list(range(L // 2 - 32, L // 2 + 32))
-            + list(range(L - 64, L)))
-    o64, limit = k7_f64_rows(torch, q, k, v, rows)
+    starts = (0, L // 2 - 32, L - 64)
+    rows = [a + i for a in starts for i in range(64)]
     idx = torch.as_tensor(rows, device="cuda")
+    if plain == "blocked":
+        plain_at_rows = k7_plain_blocked(torch, q, k, v)[:, idx]
+    else:
+        plain_at_rows = k7_plain_rows(torch, q, k, v, starts)
+    o64, limit = k7_f64_rows(torch, q, k, v, rows)
 
     def held(x):
-        d = (x[:, idx].double() - o64).abs()
+        d = (x.double() - o64).abs()
         return float(d.max()), float((d / limit).max())
-    err, worst = held(out)
-    err_p, worst_p = held(plain)
-    kernel_vs_plain = float((out.float() - plain.float()).abs().max())
-    del o64, limit, plain
+    err, worst = held(out[:, idx])
+    err_p, worst_p = held(plain_at_rows)
+    kernel_vs_plain = float((out[:, idx].float()
+                             - plain_at_rows.float()).abs().max())
+    del o64, limit, plain_at_rows
     torch.cuda.synchronize()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
+    heavy = H * hd > 15 * 64
     row = {"name": "flash_attention", "shape": "prefill_32k",
+           "layer": label,
            "case": f"B={B} H={H} Kv={Kv} L={L} hd={hd} hd_v={hd} bfloat16 "
                    f"causal=True window=None q_offset=0",
-           "rows_checked": "queries 0-63, 16352-16415, 32704-32767, every "
-                           "head, over all keys",
+           "rows_checked": f"queries {starts[0]}-{starts[0] + 63}, "
+                           f"{starts[1]}-{starts[1] + 63}, "
+                           f"{starts[2]}-{starts[2] + 63}, every head, "
+                           f"over all keys",
            "max_abs_err": err, "worst_of_limit": worst,
            "plain_max_abs_err": err_p, "plain_worst_of_limit": worst_p,
            "kernel_minus_plain_max": kernel_vs_plain,
            "tol": "per element vs float64: (2·maxΔs + 2γ_Lk + 16u + 2^-16)"
                   "·Σp|v|·(1 + 2^-8) + 2^-8·|o|",
            "call_ms": time_ms(kernel, torch, iters=5, warmup=1),
-           "plain_ms": time_ms(lambda: k7_plain_blocked(torch, q, k, v),
-                               torch, iters=3, warmup=1),
-           "plain_route": f"blocks of {LONG_PLAIN_BLOCK} queries",
+           "plain_ms": (time_ms(lambda: k7_plain_blocked(torch, q, k, v),
+                                torch, iters=3, warmup=1)
+                        if plain == "blocked" else None),
+           "plain_route": (f"blocks of {LONG_PLAIN_BLOCK} queries"
+                           if plain == "blocked" else
+                           "the three checked blocks of 64 queries, not "
+                           "timed"),
            "library": "F.scaled_dot_product_attention",
            "library_ms": library_time_ms(sdpa, torch)}
     row.update(device_times(torch, kernel, sdpa if row["library_ms"]
-                            else None, blocks=2, calls=10))
+                            else None, blocks=2, calls=4 if heavy else 10))
     pairs = attention_pairs(L, L, True, None, 0)
     row["bound_ms"], row["bound_by"] = bound_ms(
         nbytes(q, k, v, out), 2.0 * B * H * pairs * (hd + hd), "bfloat16")
@@ -4098,21 +4244,26 @@ def ssd_scan_f64(torch, x, dt, A, Bm, Cm, chunk):
     return y, state, y_lim, s_lim
 
 
-def check_k9_long(torch):
-    """K9 at Mamba2-370M's prefill_32k layer for one prompt, (1, 32,
-    32,768, 64) with N 128 and chunks of 128 (256 chunks): the first,
-    the middle and the last chunk against `ssd_f64_oracle` at its
-    derived bound; then the whole scan as the layer runs it
-    (`ssd_ops.ssd_chunked`: K9 and the inter-chunk recurrence), output
-    and final state, against the chunked scan in float64 at the bound
-    `ssd_scan_f64` derives, which holds the float32 chunked oracle
-    (`ref.ssd_chunked_ref`) too. Timed against the matmul chain; bound
-    as `check_k9`'s."""
+def check_k9_long(torch, nh=32, L=LONG_L, seed=19, head_group=None,
+                  label="Mamba2-370M's prefill_32k layer",
+                  shape="prefill_32k"):
+    """K9 at a long prefill's layer for one prompt, (1, nh, L, 64) with N
+    128 and chunks of 128 (by default Mamba2-370M's prefill_32k layer,
+    (1, 32, 32,768, 64), 256 chunks): the first, the middle and the last
+    chunk against `ssd_f64_oracle` at its derived bound; then the whole
+    scan as the layer runs it (`ssd_ops.ssd_chunked`: K9 and the
+    inter-chunk recurrence), output and final state, against the chunked
+    scan in float64 at the bound `ssd_scan_f64` derives, which holds the
+    float32 chunked oracle (`ref.ssd_chunked_ref`) too; with
+    ``head_group`` the float64 scan and the oracle run that many heads
+    at a time (the heads' scans are independent), so jamba's 128 heads at
+    65,536 tokens fit beside the kernel route's. Timed against the matmul
+    chain; bound as `check_k9`'s."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref, ssd_scan
-    B, nh, L, hp, N, Q = 1, 32, LONG_L, 64, 128, 128
+    B, hp, N, Q = 1, 64, 128, 128
     nc = L // Q
-    gen = torch.Generator(device="cuda").manual_seed(19)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     x, dt, A, Bm, Cm = ssd_inputs(torch, gen, B, nh, L, hp, N)
     xdt = (x * dt[..., None]).transpose(1, 2)
     a = (dt * A[None, None, :]).transpose(1, 2)
@@ -4133,19 +4284,32 @@ def check_k9_long(torch):
     with torch.no_grad():
         yk, st_k = ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=Q,
                                        impl="cuda", return_final_state=True)
-        y64, st64, y_lim, st_lim = ssd_scan_f64(torch, x, dt, A, Bm, Cm, Q)
-        y32, st32 = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q,
-                                        return_final_state=True)
-    whole = {"y_max_abs": float(y64.abs().max()),
-             "state_max_abs": float(st64.abs().max())}
-    for route, (yy, ss) in (("kernel_route", (yk, st_k)),
-                            ("f32_oracle", (y32, st32))):
-        dy, ds = (yy.double() - y64).abs(), (ss.double() - st64).abs()
-        whole[route] = {"y_max_abs_err": float(dy.max()),
-                        "y_worst_of_limit": float((dy / y_lim).max()),
-                        "state_max_abs_err": float(ds.max()),
-                        "state_worst_of_limit": float((ds / st_lim).max())}
-        del dy, ds
+    whole = {"y_max_abs": 0.0, "state_max_abs": 0.0,
+             "head_group": head_group or nh}
+    for h0 in range(0, nh, head_group or nh):
+        hs = slice(h0, h0 + (head_group or nh))
+        with torch.no_grad():
+            y64, st64, y_lim, st_lim = ssd_scan_f64(
+                torch, x[:, :, hs], dt[:, :, hs], A[hs], Bm, Cm, Q)
+            y32, st32 = ref.ssd_chunked_ref(x[:, :, hs], dt[:, :, hs], A[hs],
+                                            Bm, Cm, Q,
+                                            return_final_state=True)
+        whole["y_max_abs"] = max(whole["y_max_abs"],
+                                 float(y64.abs().max()))
+        whole["state_max_abs"] = max(whole["state_max_abs"],
+                                     float(st64.abs().max()))
+        for route, (yy, ss) in (("kernel_route", (yk[:, :, hs], st_k[:, hs])),
+                                ("f32_oracle", (y32, st32))):
+            dy, ds = (yy.double() - y64).abs(), (ss.double() - st64).abs()
+            got = {"y_max_abs_err": float(dy.max()),
+                   "y_worst_of_limit": float((dy / y_lim).max()),
+                   "state_max_abs_err": float(ds.max()),
+                   "state_worst_of_limit": float((ds / st_lim).max())}
+            prev = whole.setdefault(route, got)
+            whole[route] = {k: max(prev[k], got[k]) for k in got}
+            del dy, ds
+        del y64, st64, y_lim, st_lim, y32, st32
+        torch.cuda.empty_cache()
     whole["held"] = all(whole[r][k] <= 1.0 for r in ("kernel_route",
                                                      "f32_oracle")
                         for k in ("y_worst_of_limit",
@@ -4153,10 +4317,10 @@ def check_k9_long(torch):
     whole["tol"] = ("per element vs float64: (1 + γ_K)·Y⁺ − Y, K = Q + N "
                     "+ 2·nc + 8 (state: Q + 2·nc + 8), Y = Σ_j |T_ij|, Y⁺ "
                     "with each chunk's decays × (1 + eps_c)")
-    del yk, st_k, y64, st64, y32, st32, y_lim, st_lim
+    del yk, st_k
     library = ssd_library_chain(torch, Bm, Cm, xdt.contiguous(), Q)
     with torch.no_grad():
-        row = {"name": "ssd_chunk", "shape": "prefill_32k",
+        row = {"name": "ssd_chunk", "shape": shape, "layer": label,
                "case": f"B={B} nh={nh} L={L} hp={hp} N={N} Q={Q} "
                        f"({nc} chunks)",
                "chunks_vs_float64": chunks,
@@ -4179,7 +4343,7 @@ def check_k9_long(torch):
     del x, dt, A, Bm, Cm, xdt, a, y, S, library
     torch.cuda.empty_cache()
     if not (row["worst_of_limit"] <= 1.0 and whole["held"]):
-        raise PhaseFailed(f"K9 at 256 chunks off its bound: {row}")
+        raise PhaseFailed(f"K9 at {nc} chunks off its bound: {row}")
     return row
 
 
@@ -4209,59 +4373,64 @@ def long_cache_reckoning(cfg, slots: int) -> int:
     return cfg.num_layers * 2 * window * cfg.num_kv_heads * cfg.head_dim * 2
 
 
-def long_500k(torch, errors):
-    """long_500k through the serve CLI, `main(["--arch", a, "--shape",
-    "long_500k", "--steps", "4"])` (the 1x1 NCCL host mesh, as
-    decode_launcher runs decode_32k), for LONG_500K_CLI at full depth,
-    then deepseek-v2 at its cut through `decode_steps` with no mesh:
-    the resolved window, the cache's bytes against
-    `long_cache_reckoning`, ms a step, finite (1, vocab) logits, K8 once
-    a layer a step on the GQA rings and not on Mamba2's state or MLA's
-    absorbed decode."""
+def long_500k_one(torch, arch, errors, layers=None):
+    """long_500k for one arch: at full depth through the serve CLI,
+    `main(["--arch", a, "--shape", "long_500k", "--steps", "4"])` (the
+    1x1 NCCL host mesh, as decode_launcher runs decode_32k), or cut to
+    ``layers`` through `decode_steps` with no mesh: the resolved window,
+    the cache's bytes against `long_cache_reckoning`, ms a step, finite
+    (1, vocab) logits, K8 once a layer a step on the GQA rings and not on
+    Mamba2's state or MLA's absorbed decode."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch import serve
     from repro_torch.launch.steps import resolve_serving_config
     shape = INPUT_SHAPES["long_500k"]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    scfg = resolve_serving_config(cfg, shape)
+    _reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    if layers is None:
+        rec = serve.main(["--arch", arch, "--shape", "long_500k",
+                          "--steps", "4"])
+    else:
+        rec = serve.decode_steps(scfg, shape.global_batch, shape.seq_len, 4)
+    launches = read_launches()
+    want_bytes = long_cache_reckoning(scfg, shape.seq_len)
+    rec = {**rec, "route": "serve.main on the 1x1 mesh" if layers is None
+           else f"decode_steps at {cfg.num_layers} layers, no mesh",
+           "s": time.perf_counter() - t0,
+           "ms_per_step": [t * 1e3 for t in rec["step_s"]],
+           "cache_bytes_reckoned": want_bytes,
+           "peak_gb": _peak_gb(torch), "launches": launches}
+    if rec["cache_bytes"] != want_bytes:
+        errors.append(f"{arch} long_500k cache {rec['cache_bytes']} B, "
+                      f"reckoned {want_bytes}")
+    if rec["sliding_window"] != scfg.sliding_window:
+        errors.append(f"{arch}: window {rec['sliding_window']}")
+    if not rec["logits_finite"] or tuple(rec["logits_shape"]) != (
+            1, cfg.vocab_size):
+        errors.append(f"{arch} long_500k logits {rec['logits_shape']},"
+                      f" finite {rec['logits_finite']}")
+    gqa = cfg.attention == "gqa" and "attn" in cfg.layer_pattern
+    k8 = launches["flash_decode"]
+    if gqa and k8 != 4 * cfg.num_layers or not gqa and k8:
+        errors.append(f"{arch} long_500k: K8 launched {k8} times")
+    return rec, {f"long_500k_{arch}": launches}
+
+
+def long_500k(torch, errors):
+    """long_500k (`long_500k_one`) for LONG_500K_CLI at full depth
+    through the serve CLI, then deepseek-v2 at its cut through
+    `decode_steps`."""
     out, paths = {}, {}
-    runs = [(a, "cli") for a in LONG_500K_CLI] + [(a, "cut")
-                                                  for a in LONG_500K_CUT]
-    for arch, how in runs:
-        cfg = get_config(arch)
-        if how == "cut":
-            cfg = dataclasses.replace(cfg, num_layers=MOE_CUTS[arch])
-        scfg = resolve_serving_config(cfg, shape)
-        _reset_peak(torch)
-        reset_launches()
-        t0 = time.perf_counter()
-        if how == "cli":
-            rec = serve.main(["--arch", arch, "--shape", "long_500k",
-                              "--steps", "4"])
-        else:
-            rec = serve.decode_steps(scfg, shape.global_batch, shape.seq_len,
-                                     4)
-        launches = read_launches()
-        want_bytes = long_cache_reckoning(scfg, shape.seq_len)
-        rec = {**rec, "route": "serve.main on the 1x1 mesh" if how == "cli"
-               else f"decode_steps at {cfg.num_layers} layers, no mesh",
-               "s": time.perf_counter() - t0,
-               "ms_per_step": [t * 1e3 for t in rec["step_s"]],
-               "cache_bytes_reckoned": want_bytes,
-               "peak_gb": _peak_gb(torch), "launches": launches}
-        out[arch] = rec
-        paths[f"long_500k_{arch}"] = launches
-        if rec["cache_bytes"] != want_bytes:
-            errors.append(f"{arch} long_500k cache {rec['cache_bytes']} B, "
-                          f"reckoned {want_bytes}")
-        if rec["sliding_window"] != scfg.sliding_window:
-            errors.append(f"{arch}: window {rec['sliding_window']}")
-        if not rec["logits_finite"] or tuple(rec["logits_shape"]) != (
-                1, cfg.vocab_size):
-            errors.append(f"{arch} long_500k logits {rec['logits_shape']},"
-                          f" finite {rec['logits_finite']}")
-        gqa = cfg.attention == "gqa" and "attn" in cfg.layer_pattern
-        k8 = launches["flash_decode"]
-        if gqa and k8 != 4 * cfg.num_layers or not gqa and k8:
-            errors.append(f"{arch} long_500k: K8 launched {k8} times")
+    runs = [(a, None) for a in LONG_500K_CLI] + [(a, MOE_CUTS[a])
+                                                 for a in LONG_500K_CUT]
+    for arch, layers in runs:
+        out[arch], launched = long_500k_one(torch, arch, errors, layers)
+        paths.update(launched)
         gc.collect()
         torch.cuda.empty_cache()
     return out, paths
@@ -4301,6 +4470,184 @@ def phase_long_shapes(torch):
     if failed:
         raise PhaseFailed("; ".join(failed))
     return paths, rows
+
+
+# ---------------------------------------------------------------- nemotron
+
+# nemotron-4-340b (arXiv:2402.16819) at full width, bf16, random weights
+# from seed 0: d_model 18,432, 96 query heads over 8 kv heads (G = 12) of
+# head_dim 192 (K7 `<192, 192>`, K8 at kG = 12, kHD = 192), a relu2 MLP of
+# 73,728, a vocabulary of 256,000. Reckoned from the config
+# (`nemotron_reckoning`, checked against the parameters `init_lm` lays
+# out): the embedding and the head 2 · 256,000 · 18,432 · 2 B =
+# 18,874,368,000 B; a layer 2·d·H·hd + 2·d·Kv·hd + 2·d·d_ff + 2·d =
+# 3,454,046,208 parameters, 6,908,092,416 B (its matrices 3,454,009,344,
+# its two RMSNorm scales 36,864); decode_32k's K + V cache 2 · 128 ·
+# 32,768 · 8 · 192 · 2 B = 25,769,803,776 B a layer; long_500k's ring
+# (the 8,192-slot window `resolve_serving_config` gives) 2 · 8,192 · 8 ·
+# 192 · 2 B = 50,331,648 B a layer. So depth is cut (NEMOTRON_LAYERS):
+# prefill_32k and the 4,096-token handoff at 2 of 96 layers (32.7 GB of
+# weights), decode_32k at 1 (25.8 GB of weights beside its 25.8 GB cache;
+# 2 layers need ~84 GB), long_500k at 5 (53.4 GB; at 6 the embedding
+# and layers' 50.9 GB beside `init_lm`'s 28.3 GB draw of the head peaked
+# at 79.5 GB, and ran out of memory in the whole script). nemotron is not
+# adapted nor meta-trained on one card: at 1 layer the model holds
+# 12,891,248,640 parameters (9,437,202,432 in the embedding, the head and
+# the final norm, and one layer), so the serve engine's adapt, which holds θ,
+# its gradient and θ_u in bf16, needs 77.4 GB before any activation, and
+# the train state with f32 Adam moments (bf16 φ, f32 m and v) 128.9 GB.
+NEMOTRON = "nemotron-4-340b"
+NEMOTRON_LAYERS = {"prefill_32k": 2, "handoff": 2, "decode_32k": 1,
+                   "long_500k": 5}
+NEMOTRON_HANDOFF_L = 4096
+NEMOTRON_HEAD_BLOCK = 32000           # vocabulary columns cast up at once
+
+
+def nemotron_reckoning(cfg) -> dict:
+    """The sizes above from the config alone, in bytes (bf16) and
+    parameters."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+             + 2 * d * cfg.d_ff + 2 * d)
+    ring = 2 * cfg.num_kv_heads * hd * 2
+    return {"embed_and_head_bytes": 2 * cfg.vocab_size * d * 2,
+            "layer_params": layer, "layer_bytes": 2 * layer,
+            "decode_32k_cache_bytes_a_layer": 128 * 32768 * ring,
+            "long_500k_ring_bytes_a_layer": 8192 * ring,
+            "one_layer_model_params": 2 * cfg.vocab_size * d + d + layer}
+
+
+def nemotron_layout(torch, cfg, errors) -> dict:
+    """`init_lm`'s parameters for nemotron at 2 layers on the meta
+    device (no memory), counted against `nemotron_reckoning`."""
+    from repro_torch.models import init_lm
+    from repro_torch.utils.pytree import tree_leaves
+    want = nemotron_reckoning(cfg)
+    p = init_lm(0, dataclasses.replace(cfg, num_layers=2), device="meta")
+    count = lambda t: sum(x.numel() for x in tree_leaves(t))  # noqa: E731
+    got = {"embed_and_head_bytes": 2 * (count(p["embed"])
+                                        + count(p["lm_head"])),
+           "layer_params": count(p["stack"]) // 2}
+    for k, v in got.items():
+        if v != want[k]:
+            errors.append(f"nemotron {k}: init_lm {v}, reckoned {want[k]}")
+    return {"reckoned": want, "init_lm": got}
+
+
+def nemotron_decode_32k(torch, errors):
+    """decode_32k through `launch/serve.decode_steps` (the serve CLI's
+    body) at the shape's batch of 128 and 1 of 96 layers: the cache's
+    bytes against the reckoning, 4 steps' ms, finite (128, vocab)
+    logits, K8 once a layer a step (the cache is marked as holding 64
+    tokens, as the reference's CLI marks it, so K8 reads 65-68 slots)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import serve
+    shape = INPUT_SHAPES["decode_32k"]
+    cfg = dataclasses.replace(get_config(NEMOTRON),
+                              num_layers=NEMOTRON_LAYERS["decode_32k"])
+    _reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = serve.decode_steps(cfg, shape.global_batch, shape.seq_len, 4)
+    launches = read_launches()
+    want = (cfg.num_layers
+            * nemotron_reckoning(cfg)["decode_32k_cache_bytes_a_layer"])
+    rec = {**rec, "s": time.perf_counter() - t0,
+           "ms_per_step": [t * 1e3 for t in rec["step_s"]],
+           "cache_bytes_reckoned": want, "peak_gb": _peak_gb(torch),
+           "launches": launches}
+    if rec["cache_bytes"] != want:
+        errors.append(f"nemotron decode_32k cache {rec['cache_bytes']} B, "
+                      f"reckoned {want}")
+    if not rec["logits_finite"] or tuple(rec["logits_shape"]) != (
+            shape.global_batch, cfg.vocab_size):
+        errors.append(f"nemotron decode_32k logits {rec['logits_shape']}, "
+                      f"finite {rec['logits_finite']}")
+    if launches["flash_decode"] != 4 * cfg.num_layers:
+        errors.append(f"nemotron decode_32k: K8 launched "
+                      f"{launches['flash_decode']} times")
+    return rec, {f"decode_32k_{NEMOTRON}": launches}
+
+
+def phase_nemotron(torch):
+    """nemotron-4-340b at full width, depth cut (NEMOTRON_LAYERS), one
+    JSON line a part with its seconds and peak GB: its sizes reckoned
+    from the config and held against `init_lm`'s layout; prefill_32k
+    through `make_prefill_step` at 2 layers, the first batch of
+    LONG_BATCHES whose peak stays under LONG_PEAK_GB (K7 once a layer,
+    traced); the 4,096-token handoff at B = 1 on the same weights, 4
+    decode steps within twice the bf16 spread (K7, K8); K7 at the
+    prefill_32k layer, (1, 96, 8, 32,768, 192), against float64 on 192
+    query rows of every head (`check_k7_long`); decode_32k at 1 layer
+    (`nemotron_decode_32k`); long_500k at 5 layers (`long_500k_one`).
+    Each path's launches, counted from 0; K7 and K8 must launch on the
+    paths that run them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    full = get_config(NEMOTRON)
+    cut = dataclasses.replace(full, num_layers=NEMOTRON_LAYERS["prefill_32k"])
+    held = {}
+    paths, failed = {}, []
+
+    def prefill(e):
+        held["params"] = init_lm(0, cut, device="cuda")
+        return long_prefill(torch, NEMOTRON, e, cfg=cut,
+                            params=held["params"])
+
+    def handoff(e):
+        out = long_handoff(torch, NEMOTRON, e, cfg=cut,
+                           params=held.pop("params"), L=NEMOTRON_HANDOFF_L,
+                           tag="4k", head_block=NEMOTRON_HEAD_BLOCK)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    # weights of up to 51 GB beside an 18.9 GB f32 draw of the head: the
+    # caching allocator's split segments left 18.6 GB reserved but unusable
+    # at the 2-layer init, so this phase maps its blocks into expandable
+    # segments (the allocator's own setting, back off after the phase)
+    allocator = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                 or torch.cuda.memory._set_allocator_settings)
+    allocator("expandable_segments:True")
+    parts = (("layout", lambda e: (nemotron_layout(torch, full, e), {})),
+             ("prefill_32k", prefill),
+             ("handoff_4k", handoff),
+             ("k7_32k", lambda e: (check_k7_long(
+                 torch, H=full.num_heads, Kv=full.num_kv_heads,
+                 hd=full.head_dim, seed=31, plain="rows",
+                 label="nemotron-4-340b's prefill_32k layer"), {})),
+             ("decode_32k", lambda e: nemotron_decode_32k(torch, e)),
+             ("long_500k", lambda e: long_500k_one(
+                 torch, NEMOTRON, e, NEMOTRON_LAYERS["long_500k"])))
+    for part, fn in parts:
+        errors = []
+        gc.collect()
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        res, launched = fn(errors)
+        paths.update(launched)
+        for path, counts in launched.items():
+            want = {"prefill": ("flash_attention",),
+                    "handoff": ("flash_attention", "flash_decode")}.get(
+                        path.split("_")[0], ("flash_decode",))
+            for name in want:
+                if counts[name] <= 0:
+                    errors.append(f"{path}: {name} not launched")
+        emit({"phase": "nemotron", "part": part, "ok": not errors,
+              "part_wall_s": time.perf_counter() - t0,
+              "peak_mem_gb": _peak_gb(torch), "result": res,
+              "launches_by_path": {p: {k: c for k, c in v.items()
+                                       if k in ("flash_attention",
+                                                "flash_decode")}
+                                   for p, v in launched.items()},
+              "errors": errors})
+        failed += [f"{part}: {e}" for e in errors]
+        gc.collect()
+        torch.cuda.empty_cache()
+    allocator("expandable_segments:False")
+    if failed:
+        raise PhaseFailed("; ".join(failed))
+    return paths
 
 
 # ------------------------------------------------------------ train_comm
@@ -5307,7 +5654,7 @@ def phase_train_scenarios(torch):
 
 # ------------------------------------------------------------ train_async
 
-ASYNC_ROUNDS = 4
+ASYNC_ROUNDS = 3        # 4 until the nemotron phase joined the script
 ASYNC_KNOBS = {"sync": dict(prefetch_depth=0, flush_every=1, fuse_rounds=1),
                "pipelined": dict(prefetch_depth=2, flush_every=4,
                                  fuse_rounds=2)}
@@ -6782,7 +7129,7 @@ def main(argv=None) -> int:
         cfg = get_config("smollm-360m")
         phase_build(torch)
         phase = mark("kernels")
-        summaries, long_k8 = phase_kernels(torch, cfg)
+        summaries, kernel_rows = phase_kernels(torch, cfg)
         phase = mark("refusals")
         check_refusals(torch)
         phase = mark("serve")
@@ -6848,8 +7195,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase = mark("long_shapes")
         launched, long_rows = phase_long_shapes(torch)
-        long_rows.append(long_k8)
+        long_rows += kernel_rows
         paths.update(launched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = mark("nemotron")
+        paths.update(phase_nemotron(torch))
         gc.collect()
         torch.cuda.empty_cache()
         phase = mark("multi_device")
@@ -6892,7 +7243,8 @@ def main(argv=None) -> int:
                  "ssd_chunk": "prefill_32k_mamba2-370m",
                  "flash_decode": "handoff_32k_smollm-360m"}
     for r in long_rows:
-        name, path = r["name"], long_path[r["name"]]
+        name = r["name"]
+        path = r.get("launches_path") or long_path[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": paths[path][name],

@@ -74,7 +74,7 @@ def inner_update(theta, out, alpha, g):
 
 
 # head dims K7 takes: (largest qk dim, largest value dim)
-HEAD_DIMS = {torch.bfloat16: (192, 128), torch.float32: (192, 192)}
+HEAD_DIMS = {torch.bfloat16: (192, 192), torch.float32: (192, 192)}
 
 
 def flash_attention(q, k, v, o, window):
@@ -100,18 +100,23 @@ def flash_attention(q, k, v, o, window):
              "o must be (B, H, Lq, hd_v)")
     most = HEAD_DIMS[q.dtype]
     _require(hd <= most[0] and hd_v <= most[1], b,
-             f"K7 takes bfloat16 with hd <= 192 and hd_v <= 128, or "
-             f"float32 with both <= 192; got {q.dtype}, hd {hd}, hd_v "
-             f"{hd_v}")
+             f"K7 takes hd and hd_v <= {most[0]}, bfloat16 or float32; "
+             f"got {q.dtype}, hd {hd}, hd_v {hd_v}")
     _require(B <= 65535 and H <= 65535, b, "B and H up to 65535")
     _require(window is None or window > 0, b,
              f"window must be positive, got {window}")
 
 
+# K8's widest kernels: 12 query heads a kv head (Nemotron-4's 96 over 8),
+# head dim 192
+DECODE_MAX_G, DECODE_MAX_HD = 12, 192
+
+
 def flash_decode(q, k_cache, v_cache, kvl, kvl_s, o, scratch, splits):
     """K8: q, o contiguous (B, H, hd); caches (B, C, Kv, hd) with a
-    contiguous head dim and 16-byte rows; G = H / Kv <= 8, hd <= 128;
-    kvl None or (B,) int32; splits in [1, 512], scratch for splits > 1."""
+    contiguous head dim and 16-byte rows; G = H / Kv <= `DECODE_MAX_G`,
+    hd <= `DECODE_MAX_HD` (a multiple of 24 above 128); kvl None or (B,)
+    int32; splits in [1, 512], scratch for splits > 1."""
     b = "flash_decode"
     _same_device(b, ("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                  ("o", o))
@@ -133,9 +138,11 @@ def flash_decode(q, k_cache, v_cache, kvl, kvl_s, o, scratch, splits):
     _require(Kv > 0 and H % Kv == 0, b,
              "num heads must be a multiple of kv heads")
     G = H // Kv
-    _require(G <= 8 and hd <= 128, b,
-             f"at most 8 query heads per kv head, hd <= 128; got G {G}, "
-             f"hd {hd}")
+    _require(G <= DECODE_MAX_G and hd <= DECODE_MAX_HD, b,
+             f"at most {DECODE_MAX_G} query heads per kv head, hd <= "
+             f"{DECODE_MAX_HD}; got G {G}, hd {hd}")
+    _require(hd <= 128 or hd % 24 == 0, b,
+             f"hd above 128 must be a multiple of 24, got {hd}")
     vec = 16 // q.element_size()
     _require(hd % vec == 0, b, f"hd must be a multiple of {vec}")
     if kvl is not None:
@@ -257,7 +264,8 @@ def trimmed_mean(G, live, out, trim):
 def ssd_chunk(xdt, a, Bm, Cm, y, S, cbuf, chunk):
     """K9: xdt, y (B, nh, L, hp); a (B, nh, L); Bm, Cm (B, L, N); all
     float32, any strides; S contiguous (B, nh, L / chunk, N, hp); cbuf
-    the contiguous C Bᵀ scratch."""
+    the contiguous C Bᵀ scratch; B <= 65535, and each kernel's blocks a
+    batch row (grid x) up to 2^31 - 1."""
     b = "ssd_chunk"
     named = (("xdt", xdt), ("a", a), ("Bm", Bm), ("Cm", Cm), ("y", y),
              ("S", S), ("cbuf", cbuf))
@@ -284,8 +292,11 @@ def ssd_chunk(xdt, a, Bm, Cm, y, S, cbuf, chunk):
     _require(S.is_contiguous() and tuple(S.shape) == (B, nh, L // chunk, N,
                                                       hp), b,
              "S must be contiguous (B, nh, L / chunk, N, hp)")
-    _require(B <= 65535 and nh * (L // chunk) <= 65535, b,
-             "B and nh * (L / chunk) up to 65535")
+    T, nc = (chunk + 63) // 64, L // chunk
+    _require(B <= 65535 and T * nc * nh <= INT32_MAX
+             and nc * (T * (T + 1) // 2 + (N + 63) // 64 * nh) <= INT32_MAX,
+             b, "B up to 65535, and each kernel's blocks a batch row up to "
+             "2^31 - 1")
     _require(cbuf.is_contiguous() and tuple(cbuf.shape) == (
         B, L // chunk, chunk, (chunk + 3) // 4 * 4), b,
         "cbuf must be contiguous (B, L / chunk, chunk, chunk rounded up "

@@ -96,8 +96,7 @@ def flash_attention_bhld(q, k, v, *, causal: bool = True, window=None,
                          q_offset: int = 0):
     """q: (B, H, Lq, hd); k: (B, Kv, Lk, hd); v: (B, Kv, Lk, hd_v), any
     strides. Returns (B, H, Lq, hd_v) — hd_v may differ from hd (on the
-    card `_checks.HEAD_DIMS`: bf16 hd <= 192 with hd_v <= 128, f32 both <=
-    192)."""
+    card `_checks.HEAD_DIMS`: both <= 192, bf16 or f32)."""
     if not q.is_cuda:
         return _plain_bhld(q, k, v, causal, window, q_offset)
     return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -140,9 +140,8 @@ void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   TORCH_CHECK(o.size(0) == B && o.size(1) == H && o.size(2) == Lq &&
                   o.size(3) == hdv,
               "o must be (B, H, Lq, hd_v)");
-  TORCH_CHECK(dt == 1 ? hd <= 192 && hdv <= 128 : hd <= 192 && hdv <= 192,
-              "head dims: bfloat16 hd <= 192 with hd_v <= 128, float32 both "
-              "<= 192; got hd ", hd, ", hd_v ", hdv);
+  TORCH_CHECK(hd <= 192 && hdv <= 192,
+              "head dims: hd and hd_v <= 192; got hd ", hd, ", hd_v ", hdv);
   TORCH_CHECK(B <= 65535 && H <= 65535, "B and H up to 65535");
   std::vector<long long> st;
   for (const auto* t : {&q, &k, &v, &o})
@@ -187,7 +186,10 @@ void flash_decode(torch::Tensor q, torch::Tensor k_cache,
               "cache shape does not match q");
   TORCH_CHECK(Kv > 0 && H % Kv == 0, "num heads must be a multiple of kv heads");
   const int G = H / Kv;
-  TORCH_CHECK(G <= 8 && hd <= 128, "at most 8 query heads per kv head, hd <= 128");
+  TORCH_CHECK(G <= 12 && hd <= 192,
+              "at most 12 query heads per kv head, hd <= 192");
+  TORCH_CHECK(hd <= 128 || hd % 24 == 0, "hd above 128 must be a multiple "
+              "of 24");
   const int vec = 16 / static_cast<int>(q.element_size());
   TORCH_CHECK(hd % vec == 0, "hd must be a multiple of ", vec);
   const int* kvl = nullptr;
@@ -392,8 +394,12 @@ void ssd_chunk(torch::Tensor xdt, torch::Tensor a, torch::Tensor Bm,
   TORCH_CHECK(S.is_contiguous() && S.size(0) == B && S.size(1) == nh &&
                   S.size(2) == L / chunk && S.size(3) == N && S.size(4) == hp,
               "S must be contiguous (B, nh, L / chunk, N, hp)");
-  TORCH_CHECK(B <= 65535 && nh * (L / chunk) <= 65535,
-              "B and nh * (L / chunk) up to 65535");
+  const long long T = (chunk + 63) / 64, nc = L / chunk;
+  TORCH_CHECK(B <= 65535 &&
+                  T * nc * nh <= INT32_MAX &&
+                  nc * (T * (T + 1) / 2 + (N + 63) / 64 * nh) <= INT32_MAX,
+              "B up to 65535, and each kernel's blocks a batch row up to "
+              "2^31 - 1");
   TORCH_CHECK(cbuf.is_contiguous() && cbuf.dim() == 4 && cbuf.size(0) == B &&
                   cbuf.size(1) == L / chunk && cbuf.size(2) == chunk &&
                   cbuf.size(3) == (chunk + 3) / 4 * 4,

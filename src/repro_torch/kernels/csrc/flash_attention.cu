@@ -6,7 +6,8 @@
 // (b, h, l, d) strides, so the models' (B, L, H, hd) activations are
 // read and written in place, with no transpose copies. bf16: hd, hd_v
 // <= 128, or hd <= 192 with hd_v <= 128 (DeepSeek-V2's MLA: qk 192,
-// value 128); f32: hd, hd_v <= 192. Any Lq and Lk, G = H / Kv.
+// value 128), or both <= 192 (Nemotron-4's heads: qk and value 192, G =
+// 12); f32: hd, hd_v <= 192. Any Lq and Lk, G = H / Kv.
 //
 // Replaces: src/repro/kernels/attention/flash_attention.py,
 //   `flash_attention_bhld` (`_flash_kernel`).
@@ -22,8 +23,11 @@
 //
 // bf16 (serving, the LM round, the prefills): tensor cores,
 //   FlashAttention-2 style, instantiated on the padded Q·K width DK and
-//   V width DV: <64, 64>, <128, 128> and <192, 128> (MLA; 112 KB of
-//   shared memory a block, so one block an SM).
+//   V width DV: <64, 64>, <128, 128>, <192, 128> (MLA; 112 KB of
+//   shared memory a block, so one block an SM) and <192, 192> (Nemotron;
+//   125 KB, one block an SM; its 24 output n tiles take V's fragments
+//   four n-tile pairs at a time, so the accumulators, Q's fragments and
+//   S leave room in the 255 registers a thread).
 //   One block of 8 warps per (tile of 64 packed rows, kv head, batch
 //   row). The G query heads of the kv head are packed into the rows
 //   (packed row r = query r / G of head kvh·G + r % G), so K and V are
@@ -278,9 +282,9 @@ __device__ __forceinline__ void stage_rows(bf16* dst, RowPtr row_ptr,
   }
 }
 
-// DK: hd rounded up to 64, 128 or 192; DV: hd_v rounded up to 64 or 128
-// (DV <= DK: the merged output rows are staged in Q's buffer). A tile is
-// kSlices x 32 keys; a block 4 x kSlices warps.
+// DK: hd rounded up to 64, 128 or 192; DV: hd_v rounded up to 64, 128
+// or 192 (DV <= DK: the merged output rows are staged in Q's buffer). A
+// tile is kSlices x 32 keys; a block 4 x kSlices warps.
 template <int DK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
@@ -298,6 +302,11 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   constexpr int NT = kSlice / 8;        // 8-key n tiles of S a warp
   constexpr int DT = DV / 8;            // 8-wide n tiles of O
   constexpr int XW = DT * 4 + 4;        // floats a lane hands the merge
+  // n-tile pairs of O whose V fragments are held at once: all of them up
+  // to DV = 128, four at DV = 192 (each accumulator still takes its lo
+  // then its hi product, so the sums are the same)
+  constexpr int VG = DV <= 128 ? DT / 2 : 4;
+  static_assert((DT / 2) % VG == 0, "V's n-tile pairs split evenly");
   extern __shared__ __align__(16) unsigned char bsmem[];
   bf16* Qs = reinterpret_cast<bf16*>(bsmem);   // kMR x LD
   bf16* Ks = Qs + kMR * LD;                    // 2 x NK x LD
@@ -463,22 +472,26 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
           ph[i] = *reinterpret_cast<const unsigned*>(&hi);
           pl[i] = *reinterpret_cast<const unsigned*>(&lo);
         }
-        unsigned vf[DT / 2][4];
 #pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp)
-          ldsm_x4_trans(
-              vf[dp], Vt + (kc * 16 + (lane % 8) + 8 * ((lane / 8) & 1)) * LDV +
-                          dp * 16 + 8 * (lane / 16));
-        // the lo pass over every output tile, then the hi pass
+        for (int d0 = 0; d0 < DT / 2; d0 += VG) {
+          unsigned vf[VG][4];
 #pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          mma_bf16(oacc[2 * dp], pl, vf[dp][0], vf[dp][1]);
-          mma_bf16(oacc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
-        }
+          for (int dp = 0; dp < VG; ++dp)
+            ldsm_x4_trans(vf[dp],
+                          Vt + (kc * 16 + (lane % 8) + 8 * ((lane / 8) & 1)) *
+                                   LDV +
+                              (d0 + dp) * 16 + 8 * (lane / 16));
+          // the lo pass over these output tiles, then the hi pass
 #pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          mma_bf16(oacc[2 * dp], ph, vf[dp][0], vf[dp][1]);
-          mma_bf16(oacc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
+          for (int dp = 0; dp < VG; ++dp) {
+            mma_bf16(oacc[2 * (d0 + dp)], pl, vf[dp][0], vf[dp][1]);
+            mma_bf16(oacc[2 * (d0 + dp) + 1], pl, vf[dp][2], vf[dp][3]);
+          }
+#pragma unroll
+          for (int dp = 0; dp < VG; ++dp) {
+            mma_bf16(oacc[2 * (d0 + dp)], ph, vf[dp][0], vf[dp][1]);
+            mma_bf16(oacc[2 * (d0 + dp) + 1], ph, vf[dp][2], vf[dp][3]);
+          }
         }
       }
     }
@@ -630,8 +643,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
 // kernel); q, k, v and o share it.
 // strides: 16 element strides, (b, h, l, d) for q, k, v, o in turn.
-// window <= 0 means no sliding window. bf16: hd, hd_v <= 128, or hd <= 192
-// with hd_v <= 128; f32: hd, hd_v <= 192 (the binding checks).
+// window <= 0 means no sliding window. bf16 and f32: hd, hd_v <= 192 (the
+// binding checks).
 cudaError_t launch_flash_attention(int dtype, const void* q, const void* k,
                                    const void* v, void* o,
                                    const long long* st, int B, int H,
@@ -658,6 +671,10 @@ cudaError_t launch_flash_attention(int dtype, const void* q, const void* k,
                                   q_offset, stream);
     if (hd <= 192 && hdv <= 128)
       return launch_mma<192, 128>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv,
+                                  Lq, Lk, hd, hdv, scale, causal, window,
+                                  q_offset, stream);
+    if (hd <= 192 && hdv <= 192)
+      return launch_mma<192, 192>(qb, kb, vb, ob, sq, sk, sv, so, B, H, Kv,
                                   Lq, Lk, hd, hdv, scale, causal, window,
                                   q_offset, stream);
     return cudaErrorInvalidValue;

@@ -44,11 +44,22 @@
 //   writes its own 16 head dims with no merge (~1,300 cycles after
 //   staging). Not for the flops: 2·G a cache element is far below what
 //   the tensor cores would bind at.
-// - f32, and bf16 with a wider head, run flash_decode_kernel on the CUDA
-//   cores: kernels built for the exact G, kLPR lanes a K row (two
-//   16-byte chunks a lane where the query rows fit in registers), each
-//   warp its own online softmax over its rows, P through shared memory
-//   to P·V with the lanes over the head dims, one merge of the 8 warps.
+// - f32, and bf16 with a wider head or G > 8, run flash_decode_kernel on
+//   the CUDA cores: kernels built for the exact G, kLPR lanes a K row
+//   (two 16-byte chunks a lane where the query rows fit in registers),
+//   each warp its own online softmax over its rows, P through shared
+//   memory to P·V with the lanes over the head dims, one merge of the 8
+//   warps.
+// - Nemotron-4's heads (G = 12 query heads a kv head, hd = 192): a row
+//   of 192 is 24 (bf16) or 48 (f32) chunks, not a power of two, so a
+//   lane reads three chunks of it (kLPR = 8 or 16 lanes a row). The G ·
+//   hd query values a lane group would keep in registers (12 · 24 a
+//   lane) do not fit beside the 12 · 6 P·V accumulators, so where a
+//   lane's share passes 64 values the query rows stay in shared memory
+//   as f32, chunk-major, and each score reads them there: the lanes of
+//   one chunk index share the address across the rows (a broadcast),
+//   consecutive chunk indices hit consecutive banks. Those kernels keep
+//   one block of 255 registers a thread on an SM (kMinBlocks).
 // - Softmax in log2 units: scores are scaled by scale·log2(e) and
 //   exponentiated with exp2f.
 // - A scalar kv_length (the decode path's Python int) is a kernel
@@ -75,7 +86,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;           // tiles of the ring
 constexpr int kBlocksPerSM = 2;      // resident blocks an SM (num_splits)
-constexpr int kMaxD = 128;           // largest head dim
+constexpr int kMaxD = 192;           // largest head dim
+constexpr int kMaxG = 12;            // most query heads a kv head
 constexpr int kMaxSplits = 512;
 constexpr int kCombineThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -124,21 +136,30 @@ __device__ __forceinline__ void cp_async_wait() {
 // The lane layout of one (dtype, head-dim bucket, query-head bucket):
 // a K row of kHD elements is kChunks 16-byte chunks, read by kLPR lanes
 // kCPL chunks each (two where the query rows fit in registers, so a
-// score needs one shuffle level less); a tile is 8 KB of K, kSteps row
-// steps of every warp; in P·V each lane owns kDPL consecutive dims.
+// score needs one shuffle level less; three at kHD = 192, whose chunk
+// count is 3 · 2^k); a tile is 8 KB of K (12 KB at kHD = 192), kSteps
+// row steps of every warp; in P·V each lane owns kDPL consecutive dims.
+// kQShared: the query rows are read from shared memory, not registers.
 template <typename T, int kHD, int kG>
 struct Shape {
   static constexpr int kVec = 16 / sizeof(T);   // elements a chunk
   static constexpr int kChunks = kHD / kVec;
-  static constexpr int kCPL = (kG <= 4 && kChunks >= 2) ? 2 : 1;
+  static constexpr bool kThirds = kChunks % 3 == 0;
+  static constexpr int kCPL = kThirds ? 3 : (kG <= 4 && kChunks >= 2) ? 2 : 1;
   static constexpr int kLPR = kChunks / kCPL;   // a power of two
   static constexpr int kRowsPerStep = 32 / kLPR;
-  static constexpr int kSteps = 2 / kCPL;
+  static constexpr int kSteps = kThirds ? 1 : 2 / kCPL;
   static constexpr int kRowsW = kSteps * kRowsPerStep;   // a warp's rows
   static constexpr int kTk = kWarps * kRowsW;             // keys a tile
-  static constexpr int kGp = kG <= 4 ? 4 : 8;             // P row stride
+  static constexpr int kGp = (kG + 3) / 4 * 4;            // P row stride
   static constexpr int kDPL = kHD / 32;
+  static constexpr bool kQShared = kG * kCPL * kVec > 64;
+  static constexpr int kMinBlocks = (kG > 8 || kHD > 128) ? 1 : kBlocksPerSM;
+  static constexpr int kPlanes = kVec / 4;   // float4 planes of a q chunk
 };
+static_assert(Shape<float, 192, 12>::kLPR == 16 &&
+                  Shape<__nv_bfloat16, 192, 12>::kLPR == 8,
+              "a 192-wide row is read 3 chunks a lane");
 
 template <int kBytes>
 struct Bits;
@@ -162,6 +183,24 @@ __device__ __forceinline__ void load_vec(const T* src, float (&dst)[kN]) {
   for (int i = 0; i < kN; ++i) dst[i] = to_f(e[i]);
 }
 
+// kN = 2^k elements in one load (load_vec), kN = 3 · 2^k in three
+// (aligned to a third of their total size)
+template <typename T, int kN>
+__device__ __forceinline__ void load_dims(const T* src, float (&dst)[kN]) {
+  if constexpr ((kN & (kN - 1)) == 0) {
+    load_vec<T, kN>(src, dst);
+  } else {
+    constexpr int kP = kN / 3;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      float part[kP];
+      load_vec<T, kP>(src + p * kP, part);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) dst[p * kP + i] = part[i];
+    }
+  }
+}
+
 // f32, and bf16 with hd > 64: one block per (split, kv head, batch row),
 // 8 warps, on the CUDA cores. Each warp scores
 // its rows of every staged tile (kLPR lanes a row, reduced by shuffles),
@@ -170,11 +209,12 @@ __device__ __forceinline__ void load_vec(const T* src, float (&dst)[kN]) {
 // merge once, at the end. kHD >= hd and kG >= G (the query heads of a
 // kv head) are the buckets the kernel was built for.
 template <typename T, int kHD, int kG>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+__global__ void __launch_bounds__(kThreads, Shape<T, kHD, kG>::kMinBlocks)
 flash_decode_kernel(const Args p) {
   using S = Shape<T, kHD, kG>;
   constexpr int kVec = S::kVec, kLPR = S::kLPR, kCPL = S::kCPL;
   constexpr int kTk = S::kTk, kDPL = S::kDPL;
+  constexpr int kQR = S::kQShared ? 1 : kG;   // query rows in registers
   extern __shared__ __align__(16) unsigned char stage[];
   __shared__ __align__(16) float pw[kWarps][S::kRowsW][S::kGp];
   __shared__ float m_w[kWarps][kG], l_w[kWarps][kG];
@@ -217,22 +257,36 @@ flash_decode_kernel(const Args p) {
   for (int t = 0; t < kStages - 1; ++t) fetch(t);
 
   // this lane's chunks (c, c + kLPR, ...) of the G query rows, in
-  // registers, while the copies fly
+  // registers, while the copies fly; or all kG rows (zeros past G) in
+  // shared memory past the ring and the merge, as f32 (kG, kPlanes,
+  // kChunks, 4): element i of chunk ch at plane i / 4
   const int H = p.Kv * G;
   const T* qb = static_cast<const T*>(p.q) + ((long long)b * H + kvh * G) * hd;
-  float qf[kG][kCPL * kVec];
-#pragma unroll
-  for (int g = 0; g < kG; ++g)
-#pragma unroll
-    for (int j = 0; j < kCPL; ++j) {
-      const int ch = c + j * kLPR;
-      float e[kVec];
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) e[i] = 0.f;
-      if (g < G && ch < chunks) load_vec(qb + g * hd + ch * kVec, e);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) qf[g][j * kVec + i] = e[i];
+  float qf[kQR][kCPL * kVec];
+  float* qw = reinterpret_cast<float*>(
+      stage + max(kStages * 2 * kTk * rowb, kWarps * G * hd * 4));
+  const float4* qs = reinterpret_cast<const float4*>(qw);
+  if constexpr (S::kQShared) {
+    for (int idx = threadIdx.x; idx < kG * kHD; idx += kThreads) {
+      const int g = idx / kHD, d = idx % kHD;
+      const int ch = d / kVec, i = d % kVec;
+      qw[((g * S::kPlanes + i / 4) * S::kChunks + ch) * 4 + i % 4] =
+          g < G && d < hd ? to_f(qb[g * hd + d]) : 0.f;
     }
+  } else {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int j = 0; j < kCPL; ++j) {
+        const int ch = c + j * kLPR;
+        float e[kVec];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) e[i] = 0.f;
+        if (g < G && ch < chunks) load_vec(qb + g * hd + ch * kVec, e);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) qf[g][j * kVec + i] = e[i];
+      }
+  }
   // this warp's online softmax (every lane holds m and l) and this
   // lane's dims of its P·V
   float m[kG], l[kG], acc[kG][kDPL];
@@ -267,11 +321,25 @@ flash_decode_kernel(const Args p) {
         if (rr < rows && ch < chunks) {
           float kf[kVec];
           load_vec(reinterpret_cast<const T*>(ks + rr * rowb + ch * 16), kf);
-#pragma unroll
-          for (int i = 0; i < kVec; ++i)
+          if constexpr (S::kQShared) {
 #pragma unroll
             for (int g = 0; g < kG; ++g)
-              s[st][g] += qf[g][j * kVec + i] * kf[i];
+#pragma unroll
+              for (int pl = 0; pl < S::kPlanes; ++pl) {
+                const float4 x =
+                    qs[(g * S::kPlanes + pl) * S::kChunks + ch];
+                s[st][g] += x.x * kf[4 * pl];
+                s[st][g] += x.y * kf[4 * pl + 1];
+                s[st][g] += x.z * kf[4 * pl + 2];
+                s[st][g] += x.w * kf[4 * pl + 3];
+              }
+          } else {
+#pragma unroll
+            for (int i = 0; i < kVec; ++i)
+#pragma unroll
+              for (int g = 0; g < kG; ++g)
+                s[st][g] += qf[g][j * kVec + i] * kf[i];
+          }
         }
       }
 #pragma unroll
@@ -326,8 +394,8 @@ flash_decode_kernel(const Args p) {
           const int rr = (st * kWarps + warp) * S::kRowsPerStep + rl;
           if (rr < rows) {
             float vf[kDPL], pr[S::kGp];
-            load_vec(reinterpret_cast<const T*>(vs + rr * rowb) + lane * kDPL,
-                     vf);
+            load_dims(reinterpret_cast<const T*>(vs + rr * rowb) + lane * kDPL,
+                      vf);
             const float4* p4 = reinterpret_cast<const float4*>(
                 pw[warp][st * S::kRowsPerStep + rl]);
 #pragma unroll
@@ -678,7 +746,7 @@ flash_decode_combine_kernel(const Args p) {
   for (int k = 0; k < kWarpsC; ++k) L += part[k];
 
   const int items = hd / 4;                      // float4 columns
-  const int groups = kCombineThreads / items;    // >= 8: hd <= 128
+  const int groups = kCombineThreads / items;    // >= 5: hd <= 192
   const int item = threadIdx.x % items, grp = threadIdx.x / items;
   const float4* acc4 = reinterpret_cast<const float4*>(p.part_acc);
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -715,17 +783,22 @@ flash_decode_combine_kernel(const Args p) {
 
 template <typename T, int kHD, int kG>
 cudaError_t launch_split(const Args& a, int B, cudaStream_t stream) {
-  constexpr int kTk = Shape<T, kHD, kG>::kTk;
+  using S = Shape<T, kHD, kG>;
+  constexpr int kTk = S::kTk;
+  constexpr int kQBytes = S::kQShared ? kG * kHD * 4 : 0;
   const int rowb = a.hd * static_cast<int>(sizeof(T));
-  // the ring, or the merge of the warps' partials if that is larger
+  // the ring, or the merge of the warps' partials if that is larger;
+  // then the query rows where they stay in shared memory
   const int smem =
       std::max(kStages * 2 * kTk * rowb,
-               kWarps * a.G * a.hd * static_cast<int>(sizeof(float)));
+               kWarps * a.G * a.hd * static_cast<int>(sizeof(float))) +
+      kQBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_decode_kernel<T, kHD, kG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       std::max(kStages * 2 * kTk * kHD * static_cast<int>(sizeof(T)),
-               kWarps * kG * kHD * static_cast<int>(sizeof(float))));
+               kWarps * kG * kHD * static_cast<int>(sizeof(float))) +
+          kQBytes);
   if (attr != cudaSuccess) return attr;
   flash_decode_kernel<T, kHD, kG>
       <<<dim3(a.splits, a.Kv, B), kThreads, smem, stream>>>(a);
@@ -737,7 +810,8 @@ cudaError_t launch_g(const Args& a, int B, cudaStream_t stream) {
   if (a.G <= 2) return launch_split<T, kHD, 2>(a, B, stream);
   if (a.G == 3) return launch_split<T, kHD, 3>(a, B, stream);
   if (a.G == 4) return launch_split<T, kHD, 4>(a, B, stream);
-  return launch_split<T, kHD, 8>(a, B, stream);
+  if (a.G <= 8) return launch_split<T, kHD, 8>(a, B, stream);
+  return launch_split<T, kHD, 12>(a, B, stream);
 }
 
 cudaError_t launch_mma(const Args& a, int B, cudaStream_t stream) {
@@ -759,19 +833,23 @@ cudaError_t launch_combine(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 with hd <= 64 (the serving path) on the tensor cores; f32 and
-// bf16 with a wider head on the CUDA cores; then the combine
+// bf16 with hd <= 64 and G <= 8 (the serving path) on the tensor cores
+// (its 16-row fragment holds 8 live rows); f32 and bf16 with a wider
+// head or more query heads on the CUDA cores; then the combine
 cudaError_t launch_all(int dtype, const Args& a, int B, cudaStream_t stream) {
   cudaError_t err;
   if (dtype == 1) {
-    err = a.hd <= kMmaD ? launch_mma(a, B, stream)
-                        : launch_g<bf16, 128>(a, B, stream);
+    err = a.hd <= kMmaD && a.G <= 8 ? launch_mma(a, B, stream)
+          : a.hd <= 128             ? launch_g<bf16, 128>(a, B, stream)
+                                    : launch_g<bf16, 192>(a, B, stream);
   } else if (a.hd <= 32) {
     err = launch_g<float, 32>(a, B, stream);
   } else if (a.hd <= 64) {
     err = launch_g<float, 64>(a, B, stream);
-  } else {
+  } else if (a.hd <= 128) {
     err = launch_g<float, 128>(a, B, stream);
+  } else {
+    err = launch_g<float, 192>(a, B, stream);
   }
   if (err != cudaSuccess || a.splits == 1) return err;
   return dtype == 1 ? launch_combine<bf16>(a, B, stream)
@@ -785,7 +863,8 @@ cudaError_t launch_all(int dtype, const Args& a, int B, cudaStream_t stream) {
 // the head dim of both caches is contiguous, rows 16-byte aligned.
 // kvl: (B,) int32 valid slot counts, or null to use kvl_s for every row.
 // splits in [1, 512]; with splits > 1, scratch holds B*Kv*splits*G*(hd+2)
-// floats, 16-byte aligned. G <= 8, hd <= 128, hd % (16 / elem) == 0.
+// floats, 16-byte aligned. G <= 12, hd <= 192, hd % (16 / elem) == 0, and
+// a multiple of 24 above 128 (whole lanes of P·V: 6 dims a lane).
 cudaError_t launch_flash_decode(int dtype, const void* q, const void* k,
                                 const void* v, const int* kvl, int kvl_s,
                                 void* o, float* scratch,
@@ -793,7 +872,8 @@ cudaError_t launch_flash_decode(int dtype, const void* q, const void* k,
                                 int Kv, int G, int hd, int splits, float scale,
                                 cudaStream_t stream) {
   if (B == 0 || Kv == 0) return cudaSuccess;
-  if (splits < 1 || splits > kMaxSplits || G > 8 || hd > kMaxD)
+  if (splits < 1 || splits > kMaxSplits || G > kMaxG || hd > kMaxD ||
+      (hd > 128 && hd % 24 != 0))
     return cudaErrorInvalidValue;
   // the slots the splits divide: every row's valid slots, the whole
   // cache for a kv_length of 0 (the mean of V)

@@ -30,7 +30,9 @@
 //    at the paths' shapes (PERF.md).
 // 2. ssd_y_kernel runs ceil(Q/64) blocks a (b, h, c), 64 query rows each
 //    (the later rows first since they see more keys), reading their
-//    C B^T rows from the scratch.
+//    C B^T rows from the scratch. Tiles, chunks and heads share the
+//    grid's x axis (up to 2^31 - 1 blocks; on y they stopped at 65,535
+//    head-chunks, 65,536 tokens of jamba's 128 heads), batch rows its z.
 //    y and S blocks have 8 warps: warp w takes 16 rows (w % 4) and half
 //    of their keys (w / 4), so the longest chain is half a row's keys;
 //    the two halves add their partial sums through shared memory at the
@@ -356,7 +358,8 @@ __device__ __forceinline__ void store_tile(const float* tile, int ld,
   }
 }
 
-// y, grid (ytiles, nc·nh, B). HPT: hp rounded up to 64 or 128.
+// y, grid (ytiles·nc·nh, 1, B): x = (h·nc + c)·ytiles + tile. HPT: hp
+// rounded up to 64 or 128.
 template <int HPT>
 __global__ void __launch_bounds__(kThreads, HPT == 64 ? 3 : 1)
 ssd_y_kernel(const float* __restrict__ xdt, const float* __restrict__ a,
@@ -370,7 +373,9 @@ ssd_y_kernel(const float* __restrict__ xdt, const float* __restrict__ a,
   float* X = cbs + kTile * kLdC;    // xdt of the head, [j][p]
   float* cum = X + kMax * LDX;
 
-  const int b = blockIdx.z, c = blockIdx.y % nc, h = blockIdx.y / nc;
+  const int ytiles = (Q + kTile - 1) / kTile;
+  const int bh = blockIdx.x / ytiles, tile = blockIdx.x - bh * ytiles;
+  const int b = blockIdx.z, c = bh % nc, h = bh / nc;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int rg = warp % 4, kh = warp / 4;
@@ -380,7 +385,7 @@ ssd_y_kernel(const float* __restrict__ xdt, const float* __restrict__ a,
   const float* xp = xdt + b * st.xb + h * st.xh + l0 * st.xl;
 
   // query rows [i0, i0 + 64), keys j < min(Q, i0 + 64)
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int i0 = (ytiles - 1 - tile) * kTile;
   const int ilast = min(Q, i0 + kTile);
   const int jrows = (ilast + 7) / 8 * 8;
   load_tile(X, LDX, jrows, HPT, ilast, hp, xp, st.xl, st.xp);
@@ -562,7 +567,7 @@ cudaError_t launch_hpt(const float* xdt, const float* a, const float* Bm,
           xdt, a, Bm, Cm, cbuf, S, st, nh, nc, Q, N, hp, Q4, ntri);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_y_kernel<HPT><<<dim3(T, nc * nh, B), kThreads, y_smem, stream>>>(
+  ssd_y_kernel<HPT><<<dim3(T * nc * nh, 1, B), kThreads, y_smem, stream>>>(
       xdt, a, cbuf, y, st, nc, Q, hp, Q4);
   return cudaGetLastError();
 }
@@ -572,7 +577,8 @@ cudaError_t launch_hpt(const float* xdt, const float* a, const float* Bm,
 // strides: xdt (4), a (3), Bm (3), Cm (3), y (4), in that order; S is
 // contiguous (B, nh, nc, N, hp); cbuf is scratch of (B, nc, Q, Q4) floats,
 // Q4 = Q rounded up to a multiple of 4, 16-byte aligned. 1 <= Q, N, hp <=
-// 128 and nc * nh <= 65535 (checked by the binding).
+// 128, B <= 65535 and each kernel's grid x up to 2^31 - 1 (checked by the
+// binding).
 cudaError_t launch_ssd_chunk(const float* xdt, const float* a, const float* Bm,
                              const float* Cm, float* y, float* S, float* cbuf,
                              const long long* strides, int B, int nh, int L,

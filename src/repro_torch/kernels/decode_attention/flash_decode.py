@@ -40,12 +40,21 @@ MIN_KEYS_PER_SPLIT = 256    # below this a split's set-up outweighs its keys
 MAX_SPLITS = 512            # the combine kernel's limit
 
 
-def num_splits(batch: int, kv_heads: int, span: int, sms: int = 132) -> int:
+def blocks_per_sm(group: int, hd: int) -> int:
+    """K8 blocks resident on an SM for G = `group` query heads a kv head
+    at head dim `hd`: BLOCKS_PER_SM, but one for the kernels built for G
+    above 8 or hd above 128, which take up to 255 registers a thread
+    (`Shape::kMinBlocks` in csrc/flash_decode.cu)."""
+    return 1 if group > 8 or hd > 128 else BLOCKS_PER_SM
+
+
+def num_splits(batch: int, kv_heads: int, span: int, sms: int = 132,
+               per_sm: int = BLOCKS_PER_SM) -> int:
     """Splits of the cache axis for K8: as many (split, kv head, batch
-    row) blocks as `sms` SMs hold at once, BLOCKS_PER_SM each (one wave:
-    a block more would run alone in a second), but at least
+    row) blocks as `sms` SMs hold at once, `per_sm` each (one wave: a
+    block more would run alone in a second), but at least
     MIN_KEYS_PER_SPLIT slots of `span` (`ref.cache_span`) a split."""
-    want = sms * BLOCKS_PER_SM // max(batch * kv_heads, 1)
+    want = sms * per_sm // max(batch * kv_heads, 1)
     return max(1, min(want, span // MIN_KEYS_PER_SPLIT, MAX_SPLITS))
 
 
@@ -54,12 +63,13 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def splits_for(k_cache, kv_length) -> int:
-    """The split count K8 takes for a cache on the card and a kv_length
-    (a Python int or a (B,) tensor)."""
-    B, C, Kv = k_cache.shape[:3]
+def splits_for(k_cache, kv_length, group: int = 1) -> int:
+    """The split count K8 takes for a cache on the card, a kv_length (a
+    Python int or a (B,) tensor) and G = `group` query heads a kv
+    head."""
+    B, C, Kv, hd = k_cache.shape
     return num_splits(B, Kv, ref.cache_span(kv_length, C),
-                      _sm_count(k_cache.device))
+                      _sm_count(k_cache.device), blocks_per_sm(group, hd))
 
 
 class _FlashDecode(torch.autograd.Function):
@@ -102,8 +112,8 @@ def _launch(q, k_cache, v_cache, kv_length):
     else:
         kvl = kv_length.to(device=q.device, dtype=torch.int32).contiguous()
         kvl_s = 0
-    splits = splits_for(k_cache, kv_length)
     G = H // max(Kv, 1)
+    splits = splits_for(k_cache, kv_length, G)
     scratch = torch.empty(B * Kv * splits * G * (hd + 2) if splits > 1 else 0,
                           dtype=torch.float32, device=q.device)
     _checks.flash_decode(q, k_cache, v_cache, kvl, kvl_s, out, scratch,

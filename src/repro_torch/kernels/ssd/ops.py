@@ -82,15 +82,19 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, impl: str | None = None,
 def inter_chunk_states(S, chunk_decay):
     """The inter-chunk recurrence, a Python loop of one step a chunk:
     S (B, nh, nc, N, hp) chunk states and chunk_decay (B, nh, nc) ->
-    (the state entering each chunk, stacked (B, nh, nc, N, hp); the
-    state after the last chunk (B, nh, N, hp))."""
+    (the state entering each chunk (B, nh, nc, N, hp); the state after
+    the last chunk (B, nh, N, hp)). Each entering state is written into
+    one buffer as the loop makes it (`empty_like(S)`, so a vmap's batch
+    dim comes with it), so the states are held once: a list stacked at
+    the end held them twice, 8.6 GB more at Mamba2-370M's prefill_32k
+    batch of 32. The reference builds them in one `lax.scan`."""
     B, nh, nc, N, hp = S.shape
     S_prev = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=S.device)
-    S_in = []
+    S_in = torch.empty_like(S, dtype=torch.float32)
     for c in range(nc):
-        S_in.append(S_prev)                                   # entering c
+        S_in[:, :, c] = S_prev                                # entering c
         S_prev = S[:, :, c] + S_prev * chunk_decay[:, :, c, None, None]
-    return torch.stack(S_in, 2), S_prev
+    return S_in, S_prev
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm):

@@ -44,17 +44,18 @@ class Rng:
 
 def dense_init(rng: Rng, d_in: int, d_out: int, dtype, scale: float | None = None):
     """Truncated-normal (±2σ) fan-in init scaled by 1/√d_in, stored in
-    `dtype`."""
+    `dtype`. The f32 draw is scaled in place (the same product, one f32
+    buffer fewer: nemotron's 256,000-wide head draws 18.9 GB)."""
     if scale is None:
         scale = 1.0 / np.sqrt(d_in)
     w = torch.empty((d_in, d_out), dtype=torch.float32, device=rng.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=rng.next())
-    return (w * scale).to(as_dtype(dtype))
+    return w.mul_(scale).to(as_dtype(dtype))
 
 
 def embed_init(rng: Rng, vocab: int, d: int, dtype):
     w = torch.randn((vocab, d), dtype=torch.float32, device=rng.device,
-                    generator=rng.next()) * 0.02
+                    generator=rng.next()).mul_(0.02)
     return w.to(as_dtype(dtype))
 
 

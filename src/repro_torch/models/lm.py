@@ -129,16 +129,23 @@ def init_lm(key, cfg, *, device="cuda", mesh=None):
         shapes = init_lm(Rng(0, "meta"), cfg)
         return materialize_units(init_units(rng, cfg),
                                  param_pspecs(shapes, mesh), mesh)
-    params, reps = {}, {}
+    # each repetition is copied into its slot of the stacked leaves as it
+    # is drawn (bitwise a stack of the draws), so the stack is held once:
+    # stacking a list of the draws held it twice (82.8 GB at nemotron's
+    # 6 layers)
+    params, stacks = {}, {}
     for path, tree, rep in init_units(rng, cfg):
         if rep is None:
             set_path(params, path, tree)
             continue
-        reps.setdefault(path, []).append(tree)
+        r, n = rep
+        if r == 0:
+            stacks[path] = tree_map(
+                lambda x: x.new_empty((n,) + tuple(x.shape)), tree)
+        tree_map(lambda buf, x: buf[r].copy_(x), stacks[path], tree)
         del tree
-        if rep[0] == rep[1] - 1:
-            set_path(params, path, tree_map(lambda *xs: torch.stack(xs),
-                                        *reps.pop(path)))
+        if r == n - 1:
+            set_path(params, path, stacks.pop(path))
     return params
 
 

@@ -166,6 +166,10 @@ GOOD = {  # case: (binding, call)
         *ssd_grid(nh=5, L=13107 * 128, hp=1, N=1), chunk=128)),
     "K9 grid at prefill_32k, jamba's 128 heads": ("ssd_chunk", lambda: k9_call(
         *ssd_grid(nh=128, L=32768, hp=1, N=1), chunk=128)),
+    # the y kernel's heads x chunks sit on gridDim.x (up to 2^31 - 1):
+    # jamba's 128 heads at 65,536 tokens (512 chunks of 128) make 65,536
+    "K9 grid past 65,535 head-chunks": ("ssd_chunk", lambda: k9_call(
+        *ssd_grid(nh=128, L=65536, hp=1, N=1), chunk=128)),
 }
 
 REFUSED = {
@@ -232,15 +236,15 @@ REFUSED = {
                                      for _ in range(3))),
     "K7 value dim": lambda: k7_call(z(1, 2, 8, 128, dtype=BF),
                                     z(1, 2, 8, 128, dtype=BF),
-                                    z(1, 2, 8, 192, dtype=BF)),
+                                    z(1, 2, 8, 256, dtype=BF)),
     "K7 window": lambda: k7_call(*(z(1, 2, 8, 64) for _ in range(3)),
                                  window=0),
     "K7 device": lambda: k7_call(z(1, 2, 8, 64), meta(1, 2, 8, 64),
                                  z(1, 2, 8, 64)),
     # K8 (flash_decode)
-    "K8 G <= 8": lambda: k8_call(z(1, 16, 64, dtype=BF),
-                                 z(1, 16, 1, 64, dtype=BF)),
-    "K8 hd <= 128": lambda: k8_call(z(1, 2, 256), z(1, 16, 2, 256)),
+    "K8 G <= 12": lambda: k8_call(z(1, 16, 64, dtype=BF),
+                                  z(1, 16, 1, 64, dtype=BF)),
+    "K8 hd <= 192": lambda: k8_call(z(1, 2, 256), z(1, 16, 2, 256)),
     "K8 dtype": lambda: k8_call(z(1, 2, 64, dtype=torch.float64),
                                 z(1, 16, 2, 64, dtype=torch.float64)),
     "K8 mixed dtypes": lambda: k8_call(z(1, 2, 64, dtype=BF),
@@ -251,6 +255,7 @@ REFUSED = {
     "K8 cache batch": lambda: k8_call(z(1, 2, 64), z(2, 16, 2, 64)),
     "K8 heads": lambda: k8_call(z(1, 3, 64), z(1, 16, 2, 64)),
     "K8 hd % vec": lambda: k8_call(z(1, 2, 6), z(1, 16, 2, 6)),
+    "K8 hd above 128 % 24": lambda: k8_call(z(1, 2, 136), z(1, 16, 2, 136)),
     "K8 q alignment": lambda: k8_call(misaligned(1, 2, 64),
                                       z(1, 16, 2, 64)),
     "K8 head dim contiguity": lambda: k8_call(
@@ -279,10 +284,6 @@ REFUSED = {
                                   z(1, 8, 8)),
     "K9 device": lambda: k9_call(z(1, 2, 8, 4), z(1, 2, 8), meta(1, 8, 4),
                                  meta(1, 8, 4)),
-    # the y kernel's gridDim.y is heads x chunks, at most 65,535: jamba's
-    # 128 heads at 65,536 tokens (512 chunks of 128) make 65,536
-    "K9 grid past 65,535 head-chunks": lambda: k9_call(
-        *ssd_grid(nh=128, L=65536, hp=1, N=1), chunk=128),
 }
 
 

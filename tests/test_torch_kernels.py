@@ -286,14 +286,15 @@ def test_flash_attention_kv_length_never_reaches_the_kernel(monkeypatch):
 
 @pytest.mark.parametrize("dtype,hd,hd_v,takes", [
     (torch.bfloat16, 192, 128, True), (torch.bfloat16, 256, 128, False),
-    (torch.bfloat16, 192, 192, False), (torch.float32, 192, 192, True),
-    (torch.float16, 64, 64, False)])
+    (torch.bfloat16, 192, 192, True), (torch.bfloat16, 192, 256, False),
+    (torch.float32, 192, 192, True), (torch.float16, 64, 64, False)])
 def test_flash_attention_launch_checks_head_dims_first(monkeypatch, dtype,
                                                        hd, hd_v, takes):
     """K7's launcher refuses what the kernel does not take with a
     ValueError before it reaches the extension (a check failing inside
     the extension took the whole process down on the card), and hands
-    DeepSeek's MLA shape (qk 192, value 128, bf16) to the kernel."""
+    DeepSeek's MLA shape (qk 192, value 128, bf16) and Nemotron-4's
+    (qk and value 192, bf16) to the kernel."""
     from repro_torch.kernels.attention import flash_attention as k7
     calls = []
 

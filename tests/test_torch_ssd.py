@@ -329,3 +329,52 @@ def test_tensor_core_operand_rounding_against_the_f64_bound(scheme, fits):
     worst = max(float(((y.double() - y64).abs() / y_lim).max()),
                 float(((S.double() - S64).abs() / S_lim).max()))
     assert (worst <= 1.0) == fits, worst
+
+
+def _states_list_and_stack(S, chunk_decay):
+    """`inter_chunk_states` as it was: each entering state appended to a
+    list, stacked at the end (the states held twice)."""
+    B, nh, nc, N, hp = S.shape
+    S_prev = torch.zeros((B, nh, N, hp), dtype=torch.float32)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S_prev)
+        S_prev = S[:, :, c] + S_prev * chunk_decay[:, :, c, None, None]
+    return torch.stack(S_in, 2), S_prev
+
+
+def test_inter_chunk_states_into_one_buffer():
+    """The entering states written into one (B, nh, nc, N, hp) buffer are
+    bitwise the list-and-stack version's, and the loop's f32 values are
+    the reference's `lax.scan` (`repro/kernels/ssd/ops.py`, the same
+    step) at rtol 1e-5 / atol 1e-6: XLA fuses a step's product and sum
+    into one FMA, which PyTorch on the CPU rounds twice (1-ulp drift a
+    step, carried along the chain). Under `torch.func.vmap` the buffer
+    takes the batch dim."""
+    import jax
+    rng = np.random.RandomState(23)
+    B, nh, nc, N, hp = 2, 3, 9, 8, 4
+    S = rng.randn(B, nh, nc, N, hp).astype(np.float32)
+    decay = rng.rand(B, nh, nc).astype(np.float32)
+    got_in, got_last = ops.inter_chunk_states(*_t(S, decay))
+    want_in, want_last = _states_list_and_stack(*_t(S, decay))
+    assert torch.equal(got_in, want_in) and torch.equal(got_last, want_last)
+
+    def scan_step(S_prev, inp):                 # the reference's step
+        S_c, dec = inp
+        return S_c + S_prev * dec[..., None, None], S_prev
+    j_last, j_in = jax.lax.scan(scan_step, jnp.zeros((B, nh, N, hp)),
+                                (jnp.moveaxis(jnp.asarray(S), 2, 0),
+                                 jnp.moveaxis(jnp.asarray(decay), 2, 0)))
+    np.testing.assert_allclose(got_in.numpy(),
+                               np.moveaxis(np.asarray(j_in), 0, 2),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_last.numpy(), np.asarray(j_last),
+                               rtol=1e-5, atol=1e-6)
+    # two requests, the second's states halved: one vmap, each row its own
+    S2, d2 = _t(np.stack([S, S * 0.5]), np.stack([decay, decay]))
+    mapped_in, mapped_last = torch.func.vmap(ops.inter_chunk_states)(S2, d2)
+    for r in range(2):
+        want = ops.inter_chunk_states(S2[r], d2[r])
+        assert torch.equal(mapped_in[r], want[0])
+        assert torch.equal(mapped_last[r], want[1])
