@@ -42,10 +42,14 @@ Phases, each printing one JSON line:
            decode_32k caches (128 rows of 4,096 or 32,768 slots;
            the plain version row block by row block), nemotron's serving
            step, ragged 4K caches and an f32 0 row at G = 12, G = 7 through
-           the split combine, on a
+           the split combine, qwen2-vl's and nemotron's decode_32k steps
+           as their paths run them (68 slots read of a 4,096-slot
+           cache), on a
            32K-slot cache split across blocks, ragged 4K-slot caches,
            rows with kv_length 0 against the mean of V, and a Python-int
-           kv_length that launches K8 alone), K9 and its plain version
+           kv_length that launches K8 alone; every row's trace shows the
+           kernel `kernel_for` names, and no bf16 row with hd above 64
+           or G above 8 shows the CUDA-core kernel), K9 and its plain version
            each within a bound
            derived from f32 accumulation against a float64 evaluation
            (Mamba2-370M's prefill, adaptation, round and served-prefill
@@ -74,7 +78,9 @@ Phases, each printing one JSON line:
            K8's and K9's earlier shape classes) against the output
            digests of the parent commit's kernels on the same inputs
            (`tools/kernel_bits_parent.json`), bitwise where the toolchain
-           is the one that wrote them.
+           is the one that wrote them, but for the 32 bf16 K8 cases at
+           hd 96 and 128, whose kernel was redesigned (counted as moved
+           by design).
   refusals each kernel wrapper refuses, on CUDA tensors, a call its
            binding would refuse (a ValueError, no launch, no plain
            fall-back); each binding's own refused call, straight on the
@@ -1330,7 +1336,11 @@ def check_k8(torch):
     (held against the mean of V over all C slots, the reference kernel's
     answer; the plain version gives NaN there). A Python-int kv_length
     is the decode path's route: one call must launch K8 and nothing
-    else. SDPA is the yardstick, with no mask where every slot is valid."""
+    else. Every row's trace must show the kernel `kernel_for` names (the
+    combine beside it where there are splits), and a bf16 row with hd
+    above 64 or G above 8 never the CUDA-core `flash_decode_kernel`.
+    SDPA is the yardstick, with no mask where every slot is valid (over
+    the valid slots where an int kv_length is below C)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import flash_decode as k8
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -1360,31 +1370,36 @@ def check_k8(torch):
         # decode_32k
         (128, 32768, 8, 4, 128, "bfloat16", "int"),    # jamba at decode_32k
         (128, 32768, 4, 7, 128, "bfloat16", "int"),    # qwen2-vl at
-        # decode_32k: G = 7 on the kG = 8 kernel, one dead row
+        # decode_32k: G = 7, rows 7..15 of the fragment zero
         (4, 4096, 4, 7, 128, "bfloat16", "ragged"),    # G = 7 through the
         # combine (16 splits)
         (128, 32768, 16, 1, 64, "bfloat16", "int"),    # seamless at
         # decode_32k: G = 1, hd 64 (mma.sync)
         (128, 32768, 8, 12, 192, "bfloat16", "int"),   # nemotron at
-        # decode_32k, a full 25.8 GB cache: kG = 12, kHD = 192
+        # decode_32k, a full 25.8 GB cache: G = 12, hd 192
         (1, 64, 8, 12, 192, "bfloat16", "int"),        # nemotron's
         # serving step
         (4, 4096, 8, 12, 192, "bfloat16", "ragged"),   # G = 12 ragged,
         # through the combine
         (4, 100, 2, 12, 192, "float32", "zero_row"),   # f32 at G = 12,
         # hd 192, a 0 row
+        (128, 4096, 4, 7, 128, "bfloat16", 68),        # qwen2-vl's
+        # decode_32k step as its path runs it: 68 of the slots held
+        (128, 4096, 8, 12, 192, "bfloat16", 68),       # nemotron's
     ]
     rows, summary = [], None
     gen = torch.Generator(device="cuda").manual_seed(8)
     for (B, C, Kv, G, hd, dt, lengths) in cases:
+        t_case = time.perf_counter()
         dtype = getattr(torch, dt)
         H = Kv * G
         q = torch.randn((B, H, hd), device="cuda", generator=gen).to(dtype)
         kc = torch.randn((B, C, Kv, hd), device="cuda", generator=gen).to(dtype)
         vc = torch.randn((B, C, Kv, hd), device="cuda", generator=gen).to(dtype)
-        if lengths == "int":
-            kvl = C
-            kvl_t = torch.full((B,), C, device="cuda", dtype=torch.int32)
+        as_int = lengths == "int" or isinstance(lengths, int)
+        if as_int:
+            kvl = C if lengths == "int" else lengths
+            kvl_t = torch.full((B,), kvl, device="cuda", dtype=torch.int32)
         else:
             kvl = torch.randint(1, C + 1, (B,), device="cuda", generator=gen,
                                 dtype=torch.int32)
@@ -1416,8 +1431,10 @@ def check_k8(torch):
         ms = time_ms(kernel, torch)
         plain_ms = time_ms(plain_fn, torch)
         qt = q[:, :, None]
-        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-        mask = (None if lengths == "int" else
+        kt, vt = (t.transpose(1, 2).contiguous()[:, :, :kvl]
+                  if isinstance(lengths, int) else
+                  t.transpose(1, 2).contiguous() for t in (kc, vc))
+        mask = (None if as_int else
                 (torch.arange(C, device="cuda")[None, :]
                  < kvl_t[:, None])[:, None, None, :])
         library = lambda: F.scaled_dot_product_attention(
@@ -1430,12 +1447,13 @@ def check_k8(torch):
         valid = int(torch.where(kvl_t > 0, kvl_t.clamp(max=C), C).sum())
         elem = q.element_size()
         moved = (nbytes(q, out) + 2 * valid * Kv * hd * elem
-                 + (0 if lengths == "int" else nbytes(kvl_t)))
+                 + (0 if as_int else nbytes(kvl_t)))
         flops = 2.0 * H * valid * (hd + hd)
         b_ms, b_by = bound_ms(moved, flops, dt)
         row = {"name": "flash_decode",
                "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} {dt} "
                        f"kv_length={lengths}",
+               "kernel_for": k8.kernel_for(dtype, G, hd),
                "plain_rows_a_call": min(rows_a_call, B),
                "splits": k8.splits_for(kc, kvl, G),
                "max_abs_err": err, "tol": tol, "worst_of_limit": worst,
@@ -1448,6 +1466,7 @@ def check_k8(torch):
                "bound_ms": b_ms, "bound_by": b_by}
         if zero_row:
             row["zero_row_vs_mean_v"] = zero_row
+        row["case_s"] = time.perf_counter() - t_case
         rows.append(row)
         if summary is None:
             summary = row
@@ -1456,14 +1475,37 @@ def check_k8(torch):
         if not worst <= 1.0:
             raise PhaseFailed(f"K8 disagrees with plain: {row['case']} "
                               f"err {err}, {worst} of the limit ({tol})")
+        route = k8_route_errors(row, dt, G, hd)
+        if route:
+            raise PhaseFailed(f"K8 route: {row['case']}: {route}")
         # an int kv_length launches K8 and nothing else: no fill
-        if lengths == "int" and row["splits"] == 1 and not (
+        if as_int and row["splits"] == 1 and not (
                 per_call == 1 and all("flash_decode" in name
                                       for name in one_call)):
             raise PhaseFailed(f"K8 with an int kv_length launched {one_call} "
                               f"({per_call} device events a call), not K8 "
                               f"alone")
     return rows, summary
+
+
+def k8_route_errors(row, dt: str, G: int, hd: int) -> list:
+    """What is wrong with a `check_k8` row's traced kernels: the one
+    `kernel_for` names must be among them (its template arguments as
+    the profiler prints them, spaces aside), the combine too where the
+    call has splits, and a bf16 call with hd above 64 or G above 8 must
+    not show the CUDA-core `flash_decode_kernel`."""
+    names = [n.replace(" ", "") for n in row["device_us_by_kernel"]]
+    want = row["kernel_for"].replace(" ", "")
+    errors = []
+    if not any(want in n for n in names):
+        errors.append(f"{row['kernel_for']} not traced")
+    if row["splits"] > 1 and not any("flash_decode_combine_kernel" in n
+                                     for n in names):
+        errors.append("no combine beside the splits")
+    if dt == "bfloat16" and (hd > 64 or G > 8) and any(
+            "flash_decode_kernel" in n for n in names):
+        errors.append("a bf16 call ran the CUDA-core flash_decode_kernel")
+    return errors
 
 
 U32 = 2.0 ** -24                 # f32 unit roundoff
@@ -1780,6 +1822,16 @@ K8_LONG_CASE = "B=1 C=32768 Kv=5 G=3 hd=64 bfloat16 kv_length=int"
 K7_NEMOTRON_CASE = ("B=1 H=96 Kv=8 L=4096 hd=192 hd_v=192 bfloat16 "
                     "causal=True window=None q_offset=0")
 K8_NEMOTRON_CASE = "B=128 C=32768 Kv=8 G=12 hd=192 bfloat16 kv_length=int"
+# decode_32k's own K8 calls, each a row of the kernels line beside its
+# path: the reference's CLI marks the cache as holding 64 tokens, so a
+# step reads 65-68 slots; 68 of a 4,096-slot cache is the same work as
+# of the 32,768-slot one
+K8_DECODE_32K_CASES = (
+    ("B=128 C=4096 Kv=4 G=7 hd=128 bfloat16 kv_length=68",
+     "qwen2-vl-7b decode_32k step (68 slots read)", "qwen2_vl_decode"),
+    ("B=128 C=4096 Kv=8 G=12 hd=192 bfloat16 kv_length=68",
+     "nemotron-4-340b decode_32k step (68 slots read)",
+     "decode_32k_nemotron-4-340b"))
 # K9 past 65,535 head-chunks: jamba's 128 heads at 65,536 tokens, 512
 # chunks of 128 (the y kernel's grid on x)
 K9_JAMBA_L, K9_JAMBA_HEADS = 65536, 128
@@ -1829,6 +1881,8 @@ def phase_kernels(torch, cfg):
         dict(pick("flash_decode", K8_NEMOTRON_CASE),
              shape="nemotron-4-340b decode_32k, a full cache",
              launches_path="decode_32k_nemotron-4-340b"),
+        *(dict(pick("flash_decode", case), shape=shape, launches_path=path)
+          for case, shape, path in K8_DECODE_32K_CASES),
         # no path prefills 65,536 tokens: the row goes with K9's longest
         # path, Mamba2-370M's prefill_32k
         dict(k9_jamba, launches_path="prefill_32k_mamba2-370m")]
@@ -1837,41 +1891,55 @@ def phase_kernels(torch, cfg):
 
 def check_parent_bits(torch):
     """Every case of `tools/kernel_bits.py` (K7 `<64, 64>`, `<128, 128>`,
-    `<192, 128>` and f32; K8 at every G <= 8 and head dim bucket it took;
-    K9 at `check_k9`'s shapes, hp 128 and Q < 64), run on this tree's
-    kernels, against the output digests of the parent commit's kernels
-    on the same inputs (`PARENT_BITS`, written by that tool on an H100
-    from the parent tree): adding K7 `<192, 192>`, K8 at kG = 12 / kHD =
-    192 and moving K9's grid must change no bit. Digests compare only
-    under the toolchain that wrote them (torch, CUDA, nvcc, card name):
-    under another the row says so and holds nothing."""
+    `<192, 128>` and f32; K8 at every G <= 8 and head dim bucket; K9 at
+    `check_k9`'s shapes, hp 128 and Q < 64), run on this tree's kernels,
+    against the output digests of the parent commit's kernels on the
+    same inputs (`PARENT_BITS`, written by that tool on an H100 from the
+    parent tree). The 32 bf16 K8 cases at hd 96 and 128
+    (`kernel_bits.K8_REDESIGNED`) now run `flash_decode_wide_kernel`, so
+    their bits move by design and they are counted, not held (`check_k8`
+    and the vmap fold hold that kernel against the plain version); every
+    other case must keep every bit. Digests compare only under the
+    toolchain that wrote them (torch, CUDA, nvcc, card name): under
+    another the row says so and holds nothing."""
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import kernel_bits
     with open(PARENT_BITS) as fh:
         parent = json.load(fh)
+    redesigned = set(kernel_bits.K8_REDESIGNED)
+    if len(redesigned) != 32 or not redesigned <= set(parent["cases"]):
+        raise PhaseFailed("kernel_bits.K8_REDESIGNED does not name 32 of "
+                          "the parent's cases")
     mine = kernel_bits.toolchain(torch)
     comparable = all(parent.get(k) == v for k, v in mine.items())
     cases = kernel_bits.digests(torch)
     names = sorted(set(cases) | set(parent["cases"]))
     differ = [n for n in names if cases.get(n) != parent["cases"].get(n)]
+    moved = [n for n in differ if n in redesigned]
+    others = [n for n in differ if n not in redesigned]
     row = {"name": "parent_bits", "cases": len(names),
-           "equal": len(names) - len(differ), "differ": differ[:20],
+           "held_cases": len(names) - len(redesigned),
+           "equal": len(names) - len(differ),
+           "moved_by_design": len(moved),
+           "redesigned_unmoved": len(redesigned) - len(moved),
+           "differ": others[:20],
            "toolchain": mine, "parent_toolchain": {
                k: parent.get(k) for k in mine},
            "comparable": comparable,
-           "held": comparable and not differ}
+           "held": comparable and not others}
     torch.cuda.empty_cache()
-    if comparable and differ:
+    if comparable and others:
         raise PhaseFailed(f"kernel outputs moved from the parent's: {row}")
     return row
 
 
 def check_vmap_fold(torch):
     """K7, K8 and K9 under `torch.func.vmap` over R requests, on the card
-    at the served shapes: one launch for the whole map (the request axis
-    folded into the batch axis, `kernels/_vmap.py`), bitwise equal to R
-    separate kernel calls (each batch row is computed alone), no merge
-    copy; and a call the binding refuses (K7 at bf16 hd 256) raises under
+    at the served shapes (K8 on both tensor-core kernels): one launch for
+    the whole map (the request axis folded into the batch axis,
+    `kernels/_vmap.py`), bitwise equal to R separate kernel calls (each
+    batch row is computed alone), no merge copy, K8 within `closeness`'s
+    bf16 limit of the plain version; and a call the binding refuses (K7 at bf16 hd 256) raises under
     vmap too, with no launch and no plain fall-back."""
     from repro_torch.kernels import _checks, _vmap
     from repro_torch.kernels.attention import ops as attn_ops
@@ -1901,6 +1969,19 @@ def check_vmap_fold(torch):
          (rand(R, 1, 15, 64), rand(R, 1, 64, 5, 64), rand(R, 1, 64, 5, 64),
           torch.randint(1, 65, (R, 1), device="cuda", generator=gen,
                         dtype=torch.int32))),
+        # flash_decode_wide_kernel: qwen2.5's and nemotron's serving steps
+        ("flash_decode", "(R=4) x B=1 C=64 Kv=2 G=8 hd=128 bf16, int "
+                         "kv_length",
+         lambda q, k, v: dec_ops.decode_attention(q, k, v, 64),
+         (rand(R, 1, 16, 128), rand(R, 1, 64, 2, 128),
+          rand(R, 1, 64, 2, 128))),
+        ("flash_decode", "(R=4) x B=1 C=64 Kv=8 G=12 hd=192 bf16, (B,) "
+                         "kv_length",
+         lambda q, k, v, n: dec_ops.decode_attention(q, k, v, n),
+         (rand(R, 1, 96, 192), rand(R, 1, 64, 8, 192),
+          rand(R, 1, 64, 8, 192),
+          torch.randint(1, 65, (R, 1), device="cuda", generator=gen,
+                        dtype=torch.int32))),
         ("ssd_chunk", "(R=4) x B=1 nh=32 L=256 hp=64 N=128 chunk 128",
          lambda *t: ssd_intra_chunk(*t, chunk=128), k9_in))
     rows = []
@@ -1919,8 +2000,15 @@ def check_vmap_fold(torch):
         row = {"name": "vmap_fold", "kernel": name, "case": case,
                "launches": launched, "bitwise_equal": equal,
                "copy_bytes": _vmap.copy_bytes - copies}
+        if name == "flash_decode":   # the folded call against plain
+            with all_plain():
+                plain = torch.stack([fn(*(a[r] for a in args))
+                                     for r in range(R)])
+            row["max_abs_err"], _, row["worst_of_limit"] = closeness(
+                got[0], plain, "bfloat16")
         rows.append(row)
-        if launched != 1 or not equal or row["copy_bytes"]:
+        if launched != 1 or not equal or row["copy_bytes"] or not row.get(
+                "worst_of_limit", 0.0) <= 1.0:
             raise PhaseFailed(f"vmap fold: {row}")
     reset_launches()
     q = rand(2, 1, 8, 4, 256)
@@ -2251,6 +2339,7 @@ KERNEL_GROUPS = (
     ("K7 flash_attention", ("flash_attention_mma_kernel",
                             "flash_attention_f32_kernel"), "flash_attention"),
     ("K8 flash_decode", ("flash_decode_kernel", "flash_decode_mma_kernel",
+                         "flash_decode_wide_kernel",
                          "flash_decode_combine_kernel"), "flash_decode"),
     ("K9 ssd_chunk", ("ssd_state_kernel", "ssd_y_kernel"),
      "ssd_chunk"),
@@ -4476,8 +4565,8 @@ def phase_long_shapes(torch):
 
 # nemotron-4-340b (arXiv:2402.16819) at full width, bf16, random weights
 # from seed 0: d_model 18,432, 96 query heads over 8 kv heads (G = 12) of
-# head_dim 192 (K7 `<192, 192>`, K8 at kG = 12, kHD = 192), a relu2 MLP of
-# 73,728, a vocabulary of 256,000. Reckoned from the config
+# head_dim 192 (K7 `<192, 192>`, K8's `flash_decode_wide_kernel<192>`),
+# a relu2 MLP of 73,728, a vocabulary of 256,000. Reckoned from the config
 # (`nemotron_reckoning`, checked against the parameters `init_lm` lays
 # out): the embedding and the head 2 · 256,000 · 18,432 · 2 B =
 # 18,874,368,000 B; a layer 2·d·H·hd + 2·d·Kv·hd + 2·d·d_ff + 2·d =

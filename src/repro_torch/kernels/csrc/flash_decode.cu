@@ -44,22 +44,39 @@
 //   writes its own 16 head dims with no merge (~1,300 cycles after
 //   staging). Not for the flops: 2·G a cache element is far below what
 //   the tensor cores would bind at.
-// - f32, and bf16 with a wider head or G > 8, run flash_decode_kernel on
-//   the CUDA cores: kernels built for the exact G, kLPR lanes a K row
-//   (two 16-byte chunks a lane where the query rows fit in registers),
-//   each warp its own online softmax over its rows, P through shared
-//   memory to P·V with the lanes over the head dims, one merge of the 8
-//   warps.
-// - Nemotron-4's heads (G = 12 query heads a kv head, hd = 192): a row
-//   of 192 is 24 (bf16) or 48 (f32) chunks, not a power of two, so a
-//   lane reads three chunks of it (kLPR = 8 or 16 lanes a row). The G ·
-//   hd query values a lane group would keep in registers (12 · 24 a
-//   lane) do not fit beside the 12 · 6 P·V accumulators, so where a
-//   lane's share passes 64 values the query rows stay in shared memory
-//   as f32, chunk-major, and each score reads them there: the lanes of
-//   one chunk index share the address across the rows (a broadcast),
-//   consecutive chunk indices hit consecutive banks. Those kernels keep
-//   one block of 255 registers a thread on an SM (kMinBlocks).
+// - Every other bf16 call (hd in (64, 192], or G in 9..12) runs
+//   flash_decode_wide_kernel, on the tensor cores too. On the CUDA cores
+//   a key of hd 128 cost ~2,000 FMAs, 16 shuffles and 128 exp2 for the
+//   G = 8 rows, more instruction slots than the ~35 SM cycles in which the
+//   device memory delivers its 512 bytes: that kernel ran at 34–42 % of
+//   the bytes bound at G 7–12. On mma.sync the same key costs 3 MMAs
+//   (4.5 at hd 192). All G <= 12 query rows fill rows 0..G-1 of one
+//   16-row A fragment (rows 8..15 in its second and fourth registers).
+//   The warps split the keys, not the head dims: each warp takes its own
+//   16-key slice of every staged tile, keeps the online softmax of its
+//   rows and O over all hd dims in registers, and the 4 warps merge (m,
+//   l, O) once, at the end, through shared memory. Split over the dims,
+//   as the hd <= 64 kernel is, every warp would redo S and read the
+//   whole K tile through ldmatrix (12 warps and ~4.6 KB of shared-memory
+//   reads a key at hd 192). Two blocks an SM keep ~100 KB or more of
+//   copies in flight an SM (Little's law at ~1–2 µs and ~25 GB/s an SM):
+//   three 34.8 KB stages a block at hd 128, two 51.2 KB stages at hd
+//   192.
+// - f32 runs flash_decode_kernel on the CUDA cores: kernels built for the
+//   exact G, kLPR lanes a K row (two 16-byte chunks a lane where the
+//   query rows fit in registers), each warp its own online softmax over
+//   its rows, P through shared memory to P·V with the lanes over the
+//   head dims, one merge of the 8 warps.
+// - Nemotron-4's heads in f32 (G = 12 query heads a kv head, hd = 192):
+//   a row of 192 is 48 chunks, not a power of two, so a lane reads three
+//   chunks of it (kLPR = 16 lanes a row). The G · hd query values a lane
+//   group would keep in registers do not fit beside the 12 · 6 P·V
+//   accumulators, so where a lane's share passes 64 values the query
+//   rows stay in shared memory, chunk-major, and each score reads them
+//   there: the lanes of one chunk index share the address across the
+//   rows (a broadcast), consecutive chunk indices hit consecutive banks.
+//   Those kernels keep one block of 255 registers a thread on an SM
+//   (kMinBlocks).
 // - Softmax in log2 units: scores are scaled by scale·log2(e) and
 //   exponentiated with exp2f.
 // - A scalar kv_length (the decode path's Python int) is a kernel
@@ -137,9 +154,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // a K row of kHD elements is kChunks 16-byte chunks, read by kLPR lanes
 // kCPL chunks each (two where the query rows fit in registers, so a
 // score needs one shuffle level less; three at kHD = 192, whose chunk
-// count is 3 · 2^k); a tile is 8 KB of K (12 KB at kHD = 192), kSteps
-// row steps of every warp; in P·V each lane owns kDPL consecutive dims.
-// kQShared: the query rows are read from shared memory, not registers.
+// count is 3 · 2^k); a tile is kSteps row steps of every warp; in P·V
+// each lane owns kDPL consecutive dims. kQShared: the query rows are
+// read from shared memory, not registers. Only f32 is built on it.
 template <typename T, int kHD, int kG>
 struct Shape {
   static constexpr int kVec = 16 / sizeof(T);   // elements a chunk
@@ -157,14 +174,11 @@ struct Shape {
   static constexpr int kMinBlocks = (kG > 8 || kHD > 128) ? 1 : kBlocksPerSM;
   static constexpr int kPlanes = kVec / 4;   // float4 planes of a q chunk
 };
-static_assert(Shape<float, 192, 12>::kLPR == 16 &&
-                  Shape<__nv_bfloat16, 192, 12>::kLPR == 8,
+static_assert(Shape<float, 192, 12>::kLPR == 16,
               "a 192-wide row is read 3 chunks a lane");
 
 template <int kBytes>
 struct Bits;
-template <>
-struct Bits<2> { using type = unsigned short; };
 template <>
 struct Bits<4> { using type = unsigned int; };
 template <>
@@ -201,8 +215,8 @@ __device__ __forceinline__ void load_dims(const T* src, float (&dst)[kN]) {
   }
 }
 
-// f32, and bf16 with hd > 64: one block per (split, kv head, batch row),
-// 8 warps, on the CUDA cores. Each warp scores
+// f32: one block per (split, kv head, batch row), 8 warps, on the CUDA
+// cores. Each warp scores
 // its rows of every staged tile (kLPR lanes a row, reduced by shuffles),
 // keeps its own online softmax over them, and accumulates P·V with its
 // lanes over the head dims, P read back from shared memory; the warps
@@ -693,6 +707,285 @@ flash_decode_mma_kernel(const Args p) {
   }
 }
 
+// --------------------- bf16, hd in (64, 192] or G in 9..12: tensor cores
+
+constexpr int kWideWarps = 4;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideTk = kWideWarps * 16;   // keys a tile: 16 a warp
+
+// The ring of one head-dim bucket: rows staged with an 8-element pad
+// (kLD), kStages tiles of 64 keys of K and V; kBlocksPerSM blocks an SM
+// (`blocks_per_sm` in decode_attention/flash_decode.py). Timed in
+// turns on the H100 (tools/probe_k1_k8.py's k8_parent step): at hd 192
+// two blocks of 2 stages beat one block of 4 (5 % on a full 32K cache,
+// 26 % on decode_32k's 68-slot step, where a second block hides a
+// block's first trip); at hd 128 one block of 4 stages was within 3 %
+// of two blocks of 3 on the long caches and 36 % slower on the 68-slot
+// step.
+template <int kHD>
+struct Wide {
+  static constexpr int kLD = kHD + 8;
+  static constexpr int kTile = kWideTk * kLD;   // elements of a K or V tile
+  static constexpr int kStages = kHD <= 128 ? 3 : 2;
+  static constexpr int kSmem = kStages * 2 * kTile * 2;   // bytes
+  static constexpr int KC = kHD / 16;   // 16-wide k chunks of S
+  static constexpr int NT = kHD / 8;    // 8-dim n tiles of O
+};
+// the blocks' rings, merge state (< 1 KB) and 1 KB reserved a block fit
+// an SM (228 KB); the merge of the warps' O fits the ring
+constexpr int kWideBlockExtra = 1024 + 1024;
+static_assert(kBlocksPerSM * (Wide<128>::kSmem + kWideBlockExtra) <= 233472 &&
+                  kBlocksPerSM * (Wide<192>::kSmem + kWideBlockExtra) <=
+                      233472,
+              "the ring fits the SM at its residency");
+static_assert(kWideWarps * kMaxG * (kMaxD + 8) * 4 <= Wide<192>::kSmem &&
+                  kWideWarps * kMaxG * (128 + 8) * 4 <= Wide<128>::kSmem,
+              "the warps' partial O fit the ring");
+
+// One block of 4 warps per (split, kv head, batch row), the staging,
+// splits and masking of flash_decode_mma_kernel. The G query rows are
+// rows 0..G-1 of the 16-row A fragment: row gq in registers 0 and 2,
+// row gq + 8 in 1 and 3 (zero past G). Warp w takes keys 16w..16w+15 of
+// every tile: S for its slice is 2 n tiles (KC MMAs each), its online
+// softmax (m, l for rows gq and gq + 8, in log2 units) and O += P V over
+// all kHD dims (NT n tiles, 2 KC MMAs each, P as hi + lo bf16 as in the
+// hd <= 64 kernel, so a weight keeps 2^-17 of its value). After the
+// last tile the warps' (m, l, O) merge through the ring's memory: each
+// row's 4 warp weights are computed once, then every thread sums 4 dims
+// of the 4 partial O a step. With one warp a scheduler nothing hides a
+// latency, and an exp2, a division and a chain of shared-memory loads
+// for every output element took ~7,900 SM cycles at G = 12, hd = 192,
+// more than staging and the key loop (clock64() phases,
+// tools/probe_k1_k8.py).
+template <int kHD>
+__global__ void __launch_bounds__(kWideThreads, kBlocksPerSM)
+flash_decode_wide_kernel(const Args p) {
+  using W = Wide<kHD>;
+  constexpr int kLD = W::kLD, kTile = W::kTile, kStages = W::kStages;
+  constexpr int KC = W::KC, NT = W::NT;
+  extern __shared__ __align__(16) unsigned char stage[];
+  bf16* ring = reinterpret_cast<bf16*>(stage);   // slots of {K, V} tiles
+  // the warps' (m, l) of each row, then their merge weights
+  __shared__ float m_w[kWideWarps][kMaxG], l_w[kWideWarps][kMaxG];
+  __shared__ float f_w[kWideWarps][kMaxG];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, t4 = lane % 4;   // query row, key/column pair
+  const int G = p.G, hd = p.hd;
+  const int len = p.kvl ? p.kvl[b] : p.kvl_s;
+  const bool empty = len <= 0;
+  const int span = empty ? p.C : min(len, p.C);
+  const int start = split * p.per_split;
+  const int end = min(start + p.per_split, span);
+  const int ntiles = end > start ? (end - start + kWideTk - 1) / kWideTk : 0;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+
+  auto fetch = [&](int t) {  // tile t's K and V rows into its ring slot
+    if (t < ntiles) {
+      bf16* ks = ring + (t % kStages) * 2 * kTile;
+      bf16* vs = ks + kTile;
+      const int j0 = start + t * kWideTk;
+      const int rows = min(kWideTk, end - j0);
+      constexpr int kCh = kHD / 8;
+      for (int idx = threadIdx.x; idx < kWideTk * kCh; idx += kWideThreads) {
+        const int rr = idx / kCh, cc = (idx % kCh) * 8;
+        const bool ok = rr < rows && cc < hd;
+        cp_async16_zfill(ks + rr * kLD + cc,
+                         ok ? kb + (long long)(j0 + rr) * p.sk.c + cc : kb,
+                         ok ? 16 : 0);
+        cp_async16_zfill(vs + rr * kLD + cc,
+                         ok ? vb + (long long)(j0 + rr) * p.sv.c + cc : vb,
+                         ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  // Q as the A fragments of its KC k chunks: rows gq and gq + 8
+  unsigned qa[KC][4];
+  const long long bh = (long long)b * p.Kv + kvh;
+  const bf16* q0 = static_cast<const bf16*>(p.q) + bh * G * hd;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int g = gq + 8 * (i & 1), c = kc * 16 + 2 * t4 + 8 * (i / 2);
+      qa[kc][i] = g < G && c < hd
+                      ? *reinterpret_cast<const unsigned*>(q0 + g * hd + c)
+                      : 0u;
+    }
+  // the online softmax of rows gq and gq + 8 (l: this lane's part of
+  // each row sum) and O over all dims: o[nt][0..1] row gq, [2..3] gq + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of tile t
+    __syncthreads();                // everyone's; slot t - 1 is free
+    fetch(t + kStages - 1);
+    // this warp's 16 keys of the tile; a slice wholly past the range
+    // weighs 0 and is skipped
+    const int keys = min(kWideTk, end - (start + t * kWideTk)) - warp * 16;
+    if (keys <= 0) continue;
+    const bf16* Kt = ring + (t % kStages) * 2 * kTile + warp * 16 * kLD;
+    const bf16* Vt = Kt + kTile;
+
+    // S = Q Kᵀ over the slice: n tiles of keys 0..7 and 8..15
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      unsigned kf[4];
+      ldsm_x4(kf, Kt + ((lane % 8) + 8 * (lane / 16)) * kLD + kc * 16 +
+                      8 * ((lane / 8) & 1));
+      mma_bf16(s[0], qa[kc], kf[0], kf[1]);
+      mma_bf16(s[1], qa[kc], kf[2], kf[3]);
+    }
+    // e = 0, 1: row gq; e = 2, 3: row gq + 8. A key past the range
+    // scores -inf, so it weighs 0
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kt = nt * 8 + 2 * t4 + (e & 1);
+        s[nt][e] = kt >= keys ? -INFINITY
+                   : empty    ? kNegInf
+                              : s[nt][e] * p.scale2;
+        tmax[e / 2] = fmaxf(tmax[e / 2], s[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(kFullMask, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(kFullMask, tmax[r], 2));
+      const float m_new = fmaxf(m[r], tmax[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - m[e / 2]);
+        l[e / 2] += s[nt][e];
+      }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+
+    // P as the A fragment of the slice's 16 keys, hi + lo bf16
+    unsigned ph[4], pl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = s[i / 2][2 * (i & 1)];
+      const float x1 = s[i / 2][2 * (i & 1) + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          x0 - __low2float(hi), x1 - __high2float(hi));
+      ph[i] = *reinterpret_cast<const unsigned*>(&hi);
+      pl[i] = *reinterpret_cast<const unsigned*>(&lo);
+    }
+    // O += P V, two n tiles of dims a V fragment
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned vf[4];
+      ldsm_x4_trans(vf, Vt + ((lane % 8) + 8 * ((lane / 8) & 1)) * kLD +
+                            np * 16 + 8 * (lane / 16));
+      mma_bf16(o[2 * np], pl, vf[0], vf[1]);
+      mma_bf16(o[2 * np + 1], pl, vf[2], vf[3]);
+      mma_bf16(o[2 * np], ph, vf[0], vf[1]);
+      mma_bf16(o[2 * np + 1], ph, vf[2], vf[3]);
+    }
+  }
+
+  // merge the warps' states through the ring's memory:
+  // red (kWideWarps, G, kLD) f32, row pitch kLD so the quads' float2
+  // stores of 8 rows spread over the banks
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(stage);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFullMask, l[r], 1);
+    l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
+    const int g = gq + 8 * r;
+    if (g < G) {
+      float* row = red + (warp * G + g) * kLD;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int d = nt * 8 + 2 * t4;
+        if (d < hd)
+          *reinterpret_cast<float2*>(row + d) =
+              make_float2(o[nt][2 * r], o[nt][2 * r + 1]);
+      }
+      if (t4 == 0) {
+        m_w[warp][g] = m[r];
+        l_w[warp][g] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  // each row's weights once: warp w's share exp2(m_w - M), over the row
+  // sum L where this block writes the output; (M, L) to the combine
+  // where there are splits
+  if (threadIdx.x < G * kWideWarps) {
+    const int g = threadIdx.x / kWideWarps, w = threadIdx.x % kWideWarps;
+    float mm = kNegInf;
+#pragma unroll
+    for (int ww = 0; ww < kWideWarps; ++ww) mm = fmaxf(mm, m_w[ww][g]);
+    float ll = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWideWarps; ++ww)
+      ll += exp2f(m_w[ww][g] - mm) * l_w[ww][g];
+    const float e = exp2f(m_w[w][g] - mm);
+    f_w[w][g] = p.splits == 1 ? e / fmaxf(ll, 1e-30f) : e;
+    if (p.splits > 1 && w == 0) {
+      float* ml = p.part_ml + ((bh * p.splits + split) * G + g) * 2;
+      ml[0] = mm;
+      ml[1] = ll;
+    }
+  }
+  __syncthreads();
+  // the weighted sum of the warps' O, 4 dims a thread
+  const int hd4 = hd / 4;
+  for (int it = threadIdx.x; it < G * hd4; it += kWideThreads) {
+    const int g = it / hd4, d = (it - g * hd4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) {
+      const float f = f_w[w][g];
+      const float4 x =
+          *reinterpret_cast<const float4*>(red + (w * G + g) * kLD + d);
+      a.x += f * x.x;
+      a.y += f * x.y;
+      a.z += f * x.z;
+      a.w += f * x.w;
+    }
+    if (p.splits == 1) {
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(
+          static_cast<bf16*>(p.o) + (bh * G + g) * hd + d);
+      o2[0] = __floats2bfloat162_rn(a.x, a.y);
+      o2[1] = __floats2bfloat162_rn(a.z, a.w);
+    } else {
+      *reinterpret_cast<float4*>(
+          p.part_acc + ((bh * p.splits + split) * G + g) * hd + d) = a;
+    }
+  }
+}
+
 // Merge the splits of one (kv head, batch row, query head): the
 // weights exp2(m_s - M) and the denominator by block reductions (each
 // thread holds its splits' (m, l) pairs, read once), then each float4
@@ -826,6 +1119,18 @@ cudaError_t launch_mma(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int kHD>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = Wide<kHD>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_wide_kernel<kHD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  flash_decode_wide_kernel<kHD>
+      <<<dim3(a.splits, a.Kv, B), kWideThreads, kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_combine(const Args& a, int B, cudaStream_t stream) {
   flash_decode_combine_kernel<T>
@@ -833,15 +1138,16 @@ cudaError_t launch_combine(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 with hd <= 64 and G <= 8 (the serving path) on the tensor cores
-// (its 16-row fragment holds 8 live rows); f32 and bf16 with a wider
-// head or more query heads on the CUDA cores; then the combine
+// bf16 on the tensor cores: hd <= 64 and G <= 8 (the serving path) on
+// the kernel whose warps split the dims, every other call on the one
+// whose warps split the keys; f32 on the CUDA cores; then the combine.
+// `kernel_for` in decode_attention/flash_decode.py mirrors this.
 cudaError_t launch_all(int dtype, const Args& a, int B, cudaStream_t stream) {
   cudaError_t err;
   if (dtype == 1) {
     err = a.hd <= kMmaD && a.G <= 8 ? launch_mma(a, B, stream)
-          : a.hd <= 128             ? launch_g<bf16, 128>(a, B, stream)
-                                    : launch_g<bf16, 192>(a, B, stream);
+          : a.hd <= 128             ? launch_wide<128>(a, B, stream)
+                                    : launch_wide<192>(a, B, stream);
   } else if (a.hd <= 32) {
     err = launch_g<float, 32>(a, B, stream);
   } else if (a.hd <= 64) {
@@ -864,7 +1170,8 @@ cudaError_t launch_all(int dtype, const Args& a, int B, cudaStream_t stream) {
 // kvl: (B,) int32 valid slot counts, or null to use kvl_s for every row.
 // splits in [1, 512]; with splits > 1, scratch holds B*Kv*splits*G*(hd+2)
 // floats, 16-byte aligned. G <= 12, hd <= 192, hd % (16 / elem) == 0, and
-// a multiple of 24 above 128 (whole lanes of P·V: 6 dims a lane).
+// a multiple of 24 above 128 (the f32 kernel's whole lanes of P·V: 6
+// dims a lane).
 cudaError_t launch_flash_decode(int dtype, const void* q, const void* k,
                                 const void* v, const int* kvl, int kvl_s,
                                 void* o, float* scratch,

@@ -10,7 +10,10 @@ length; with more than one split a second kernel merges the splits'
 online-softmax partials. `num_splits` picks the split count: one at the
 serving step's short cache, so one launch there. A Python-int
 kv_length goes to the kernel as an argument, so a call launches no
-fill. Any cache length C is accepted.
+fill. Any cache length C is accepted. bf16 runs on the tensor cores
+(``flash_decode_mma_kernel`` at hd <= 64 and G <= 8, the serving path;
+``flash_decode_wide_kernel`` for every other bf16 call), f32 on the
+CUDA cores; `kernel_for` names the kernel a call takes.
 
 The launch sits in an ``autograd.Function`` (no backward: decode runs
 without a gradient) whose ``vmap`` rule folds the request axis of
@@ -40,12 +43,43 @@ MIN_KEYS_PER_SPLIT = 256    # below this a split's set-up outweighs its keys
 MAX_SPLITS = 512            # the combine kernel's limit
 
 
-def blocks_per_sm(group: int, hd: int) -> int:
-    """K8 blocks resident on an SM for G = `group` query heads a kv head
-    at head dim `hd`: BLOCKS_PER_SM, but one for the kernels built for G
+def kernel_for(dtype, group: int, hd: int) -> str:
+    """The ``__global__`` K8 launches for a call in `dtype` with G =
+    `group` query heads a kv head at head dim `hd`, as the profiler names
+    it (template arguments included): `launch_all` and `launch_g` in
+    csrc/flash_decode.cu, line for line. bf16 runs on the tensor cores,
+    f32 on the CUDA cores; a call with more than one split also launches
+    ``flash_decode_combine_kernel``."""
+    if dtype == torch.bfloat16:
+        if hd <= 64 and group <= 8:
+            return "flash_decode_mma_kernel"
+        if hd <= 128:
+            return "flash_decode_wide_kernel<128>"
+        return "flash_decode_wide_kernel<192>"
+    k_hd = 32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 192
+    if group <= 2:
+        k_g = 2
+    elif group == 3:
+        k_g = 3
+    elif group == 4:
+        k_g = 4
+    elif group <= 8:
+        k_g = 8
+    else:
+        k_g = 12
+    return f"flash_decode_kernel<float, {k_hd}, {k_g}>"
+
+
+def blocks_per_sm(group: int, hd: int, dtype=torch.bfloat16) -> int:
+    """K8 blocks resident on an SM for the kernel `kernel_for` names: the
+    minimum of its ``__launch_bounds__``, which its shared memory also
+    allows. BLOCKS_PER_SM (kBlocksPerSM in csrc/flash_decode.cu: bf16's
+    two tensor-core kernels), but one for the f32 kernels built for G
     above 8 or hd above 128, which take up to 255 registers a thread
-    (`Shape::kMinBlocks` in csrc/flash_decode.cu)."""
-    return 1 if group > 8 or hd > 128 else BLOCKS_PER_SM
+    (`Shape::kMinBlocks`)."""
+    if kernel_for(dtype, group, hd).startswith("flash_decode_kernel<"):
+        return 1 if group > 8 or hd > 128 else BLOCKS_PER_SM
+    return BLOCKS_PER_SM
 
 
 def num_splits(batch: int, kv_heads: int, span: int, sms: int = 132,
@@ -69,7 +103,8 @@ def splits_for(k_cache, kv_length, group: int = 1) -> int:
     head."""
     B, C, Kv, hd = k_cache.shape
     return num_splits(B, Kv, ref.cache_span(kv_length, C),
-                      _sm_count(k_cache.device), blocks_per_sm(group, hd))
+                      _sm_count(k_cache.device),
+                      blocks_per_sm(group, hd, k_cache.dtype))
 
 
 class _FlashDecode(torch.autograd.Function):

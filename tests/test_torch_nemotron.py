@@ -2,8 +2,9 @@
 kv heads (G = 12) of head_dim 192, on the CPU against the JAX package.
 
 On the card K7 runs this shape as `flash_attention_mma_kernel<192,
-192>` and K8 as the CUDA-core `flash_decode_kernel` built for kG = 12,
-kHD = 192 (`chip_smoke.py` holds both against these plain versions);
+192>` and K8 in bf16 as the tensor-core `flash_decode_wide_kernel<192>`
+(in f32 as the CUDA-core `flash_decode_kernel` built for kG = 12, kHD =
+192; `chip_smoke.py` holds them against these plain versions);
 here each wrapper takes its plain version because the tensors lie on
 the CPU.
 
@@ -230,12 +231,41 @@ def test_k8_launcher_takes_g12_hd192_and_refuses_past_it(ext, dtype):
 
 
 def test_k8_wide_kernels_plan_one_block_an_sm():
-    """The kernels built for G > 8 or hd > 128 keep one block an SM, so
-    the split count fills 132 SMs with one wave of single blocks."""
-    assert k8.blocks_per_sm(12, 192) == k8.blocks_per_sm(3, 192) == 1
-    assert k8.blocks_per_sm(8, 128) == k8.BLOCKS_PER_SM == 2
+    """The f32 kernels built for G > 8 or hd > 128 (nemotron's heads at
+    kG = 12, kHD = 192: 255 registers a thread) keep one block an SM,
+    so the split count fills 132 SMs with one wave of single blocks;
+    bf16's tensor-core kernel at those heads (`flash_decode_wide_kernel
+    <192>`, two 51.2 KB stages) keeps two."""
+    assert k8.blocks_per_sm(12, 192, torch.float32) == 1
+    assert k8.blocks_per_sm(3, 192, torch.float32) == 1
+    assert k8.blocks_per_sm(12, 192, torch.bfloat16) == k8.BLOCKS_PER_SM == 2
     # one decode step of 1 sequence over a 32K cache: 8 kv heads
     assert k8.num_splits(1, 8, 32768, per_sm=1) == 132 // 8
     assert k8.num_splits(1, 8, 32768) == 2 * 132 // 8
     # decode_32k's batch of 128: one split
     assert k8.num_splits(128, 8, 32768, per_sm=1) == 1
+
+
+# (dtype, G, hd, B, Kv, span) -> (blocks an SM, splits): the residency
+# of the kernel `kernel_for` names (kBlocksPerSM for bf16's tensor-core
+# kernels, `Shape::kMinBlocks` for f32's) and the splits that follow on
+# 132 SMs
+RESIDENCY = [
+    (torch.bfloat16, 12, 192, 1, 8, 32768, 2, 33),    # nemotron, one row
+    (torch.bfloat16, 12, 192, 128, 8, 32768, 2, 1),   # its decode_32k
+    (torch.bfloat16, 12, 192, 4, 8, 4096, 2, 8),      # ragged, 8 splits
+    (torch.bfloat16, 7, 128, 1, 4, 32768, 2, 66),     # qwen2-vl, one row
+    (torch.bfloat16, 7, 128, 4, 4, 4096, 2, 16),      # its ragged case
+    (torch.bfloat16, 8, 128, 2, 2, 64, 2, 1),         # qwen2.5's group
+    (torch.bfloat16, 12, 64, 1, 8, 32768, 2, 33),     # G 12, hd 64
+    (torch.bfloat16, 3, 64, 1, 5, 32768, 2, 52),      # SmolLM's 32K step
+    (torch.float32, 12, 192, 1, 8, 32768, 1, 16),     # f32, 255 registers
+    (torch.float32, 8, 128, 1, 2, 32768, 2, 128),
+]
+
+
+@pytest.mark.parametrize("dtype,G,hd,Bq,Kv,span,blocks,splits", RESIDENCY)
+def test_k8_residency_sets_the_split_count(dtype, G, hd, Bq, Kv, span,
+                                           blocks, splits):
+    assert k8.blocks_per_sm(G, hd, dtype) == blocks
+    assert k8.num_splits(Bq, Kv, span, 132, blocks) == splits

@@ -2,7 +2,11 @@
 """Output bits of K7, K8 and K9 at every shape class the kernels took
 before the nemotron-4-340b instantiations (K7 `<192, 192>`, K8 at kG =
 12 and kHD = 192) and K9's grid on x were added, for holding two trees'
-kernels against each other on one card.
+kernels against each other on one card. The 32 bf16 K8 cases at hd 96
+and 128 (`K8_REDESIGNED`) ran the CUDA-core `flash_decode_kernel` when
+`kernel_bits_parent.json` was written and run the tensor-core
+`flash_decode_wide_kernel` since: their bits moved by design, and
+`chip_smoke.check_parent_bits` counts them without holding them.
 
     python3 tools/kernel_bits.py --src DIR --out FILE.json
     python3 tools/kernel_bits.py --compare PARENT.json CHANGE.json
@@ -20,8 +24,9 @@ differs or is missing.
 The cases: K7 `<64, 64>`, `<128, 128>` and `<192, 128>` in bf16 (causal,
 window, q_offset, G up to 8, element staging of odd strides, a ragged
 tile) and its f32 kernel (hd_v <= 128 and <= 192); K8 at every G from 1
-to 8 and every head dim bucket (bf16: 32, 64 on the tensor cores, 96,
-128; f32: 16, 32, 64, 128) over one split with ragged lengths and a row
+to 8 and every head dim bucket (bf16: 32, 64 on `flash_decode_mma_kernel`,
+96, 128 on `flash_decode_wide_kernel<128>`; f32: 16, 32, 64, 128) over
+one split with ragged lengths and a row
 of kv_length 0 and over several splits with a Python-int length; K9 at
 the shapes `chip_smoke.py`'s `check_k9` runs (Mamba2-370M's prefill,
 adaptation, round and served prefills, an odd chunk, the overflow
@@ -57,6 +62,12 @@ K7_CASES = (
 )
 # K8: (dtype, head dims) over G = 1..8, each at two cache shapes
 K8_DIMS = (("bfloat16", (32, 64, 96, 128)), ("float32", (16, 32, 64, 128)))
+K8_SHAPES = ((3, 100, 2, "ragged0"), (1, 4096, 2, "int"))   # B, C, Kv
+# the bf16 cases whose kernel was redesigned: hd 96 and 128, G 1..8
+K8_REDESIGNED = tuple(
+    f"K8 B={B} C={C} Kv={Kv} G={G} hd={hd} bfloat16 kv_length={lengths}"
+    for hd in (96, 128) for G in range(1, 9)
+    for B, C, Kv, lengths in K8_SHAPES)
 # K9: (B, nh, L, hp, N, chunk, dt_scale)
 K9_CASES = (
     (4, 32, 1024, 64, 128, 128, 1.0),
@@ -114,8 +125,7 @@ def k8_cases(torch):
         dtype = getattr(torch, dt)
         for hd in dims:
             for G in range(1, 9):
-                for B, C, Kv, lengths in ((3, 100, 2, "ragged0"),
-                                          (1, 4096, 2, "int")):
+                for B, C, Kv, lengths in K8_SHAPES:
                     rng = np.random.RandomState(200 + n)
                     n += 1
                     q, kc, vc = (torch.from_numpy(

@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
 """Probe K1 (inner update) and K8 (flash decode) on the card.
 
-    python3 tools/probe_k1_k8.py [--steps checks,k1_variants,k8_phases,k8_layout]
+    python3 tools/probe_k1_k8.py [--steps checks,k8_checks,k1_variants,k8_phases,k8_layout]
                                  [--parent DIR] [--out FILE]
 
 1. `nvcc -Xptxas -v` on `inner_update.cu` and `flash_decode.cu`: each
    kernel's registers, spills and shared memory.
 2. `chip_smoke.py`'s K1, K4 and K8 checks (the kernel against its plain
-   version, `device_ms` beside the library yardstick and the bound).
+   version, `device_ms` beside the library yardstick and the bound);
+   `k8_checks`: K8's alone, with the vmap fold and the parent-bits
+   check (`tools/kernel_bits.py`), each reported whether or not it
+   passes.
 3. K1's loop at the full SmolLM-360M plane in the variants of
    `VARIANTS` (block size, float4s a thread, streaming hints, one pass
    over the plane or whole waves of a grid-stride loop), each in turns
    with the library call that computes the same update under
    `chip_smoke.device_times`: `torch.sub(alpha=)` for a scalar α,
    `addcmul` for a per-client α and for K4's flat out-of-place case.
-4. K8's phases in SM cycles (a copy of its tensor-core kernel with
-   clock64() at the phase ends); then K8 on the decode path's
+4. K8's phases in SM cycles (a copy of its two tensor-core kernels
+   with clock64() at the phase ends, at `K8_PHASE_CASES`: the serving
+   steps and decode_32k's steps as the paths run them); then K8 on the
+   decode path's
    interleaved cache against the same cache stored head-major.
    And K8, SDPA, K1 and addcmul timed after the L2 flush `device_ms`
    uses (an in-place write) against after a read-only flush.
 5. With `--parent DIR` (a tree holding the previous
    `src/repro_torch/kernels/csrc/`): the previous K1 and K8 kernels
-   against the current ones at the same inputs, in turns.
+   against the current ones at the same inputs, in turns; with the
+   `k8_parent` step, K8 alone, at `K8_PARENT_CASES`, against the parent
+   and every `--alt DIR` tree.
 
 Kernels for 3–5 are built by nvcc into a shared library with a
 plain C interface (`build/probe/`, gitignored) and driven by ctypes.
@@ -153,48 +160,109 @@ extern "C" int k1_parent(const float* theta, float* out, const float* alpha,
 PARENT_K8_SRC = r'''
 #include "flash_decode.cu"
 extern "C" int k8_parent(int dtype, const void* q, const void* k,
-                         const void* v, const int* kvl, void* o,
+                         const void* v, int kvl_s, void* o, float* scratch,
                          const long long* strides, int B, int C, int Kv,
-                         int G, int hd, float scale, cudaStream_t s) {
-  return (int)launch_flash_decode(dtype, q, k, v, kvl, o, strides, B, C, Kv,
-                                  G, hd, scale, s);
+                         int G, int hd, int splits, float scale,
+                         cudaStream_t s) {
+  return (int)launch_flash_decode(dtype, q, k, v, nullptr, kvl_s, o, scratch,
+                                  strides, B, C, Kv, G, hd, splits, scale, s);
 }
 '''
+# (B, C, Kv, G, hd, kv_length) bf16 cases of parent_k8: SmolLM's serving
+# step and 32K handoff; the hd-128 serving group, nemotron's serving
+# step, mixtral's ring, jamba's, qwen2-vl's and nemotron's full 32K
+# caches and the two decode_32k steps as their paths run them
+K8_PARENT_CASES = ((1, 64, 5, 3, 64, 64), (1, 32768, 5, 3, 64, 32768),
+                   (2, 64, 2, 8, 128, 64), (1, 64, 8, 12, 192, 64),
+                   (128, 4096, 8, 6, 128, 4096),
+                   (128, 32768, 8, 4, 128, 32768),
+                   (128, 32768, 4, 7, 128, 32768),
+                   (128, 32768, 8, 12, 192, 32768),
+                   (128, 4096, 4, 7, 128, 68), (128, 4096, 8, 12, 192, 68))
 
-# K8's tensor-core kernel (the serving step's) with clock64() at its
-# phase ends, written by each block's thread 0 into g_probe: staged
-# (first tile landed), computed (key loop done), written (its output);
-# each edit below must match the source once
+# K8's tensor-core kernels with clock64() at their phase ends, written
+# by each block's thread 0 into g_probe: staged (first tile landed),
+# computed (key loop done; for the wide kernel before its warps merge),
+# written (its output). Each edit must match the kernel's own text once
+# (`marked`); the file-level edit declares g_probe.
+K8_RECORD = (
+    "  if (threadIdx.x == 0) {\n"
+    "    const long long T3 = clock64();\n    unsigned long long G1;\n"
+    "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(G1));\n"
+    "    unsigned sm;\n    asm(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+    "    const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+    " + blockIdx.x;\n"
+    "    if (blk < kProbeBlocks) {\n"
+    "      long long* r = g_probe + blk * 6;\n"
+    "      r[0] = T1 - T0; r[1] = T2 - T1; r[2] = T3 - T2;\n"
+    "      r[3] = (long long)G0; r[4] = (long long)G1; r[5] = sm;\n"
+    "    }\n  }\n}\n")
+K8_START = (
+    "  const int gq = lane / 4, t4 = lane % 4;\n"
+    "  const long long T0 = clock64();\n  long long T1 = T0;\n"
+    "  unsigned long long G0;\n"
+    "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(G0));\n")
+K8_GQ = "  const int gq = lane / 4, t4 = lane % 4;   // query row, key/column pair\n"
 K8_END = ("    if (warp == 0 && t4 == 0) {\n"
           "      p.part_ml[row * 2] = m;\n"
           "      p.part_ml[row * 2 + 1] = l;\n    }\n  }\n")
-K8_MARKS = [
-    ("  const int gq = lane / 4, t4 = lane % 4;   // query row, key/column pair\n",
-     "  const int gq = lane / 4, t4 = lane % 4;\n"
-     "  const long long T0 = clock64();\n  long long T1 = T0;\n"
-     "  unsigned long long G0;\n"
-     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(G0));\n"),
-    ("    const bf16* Vt = Kt + kTile;\n",
-     "    const bf16* Vt = Kt + kTile;\n    if (t == 0) T1 = clock64();\n"),
-    ("  // row gq's sum over the quad;",
-     "  const long long T2 = clock64();\n  // row gq's sum over the quad;"),
-    (K8_END + "}\n",
-     K8_END +
-     "  if (threadIdx.x == 0) {\n"
-     "    const long long T3 = clock64();\n    unsigned long long G1;\n"
-     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(G1));\n"
-     "    unsigned sm;\n    asm(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
-     "    const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
-     " + blockIdx.x;\n"
-     "    if (blk < kProbeBlocks) {\n"
-     "      long long* r = g_probe + blk * 6;\n"
-     "      r[0] = T1 - T0; r[1] = T2 - T1; r[2] = T3 - T2;\n"
-     "      r[3] = (long long)G0; r[4] = (long long)G1; r[5] = sm;\n"
-     "    }\n  }\n}\n"),
-    ("namespace {\n",
-     "namespace {\nconstexpr int kProbeBlocks = 4096;\n"
-     "__device__ long long g_probe[kProbeBlocks * 6];\n"),
-]
+K8_WIDE_END = ("          p.part_acc + ((bh * p.splits + split) * G + g) * hd + d)"
+               " = a;\n    }\n  }\n")
+# kernel: (the line that opens it, its edits)
+K8_KERNELS = {
+    "flash_decode_mma_kernel": (
+        "flash_decode_mma_kernel(const Args p) {\n", [
+            (K8_GQ, K8_START),
+            ("    const bf16* Vt = Kt + kTile;\n",
+             "    const bf16* Vt = Kt + kTile;\n"
+             "    if (t == 0) T1 = clock64();\n"),
+            ("  // row gq's sum over the quad;",
+             "  const long long T2 = clock64();\n"
+             "  // row gq's sum over the quad;"),
+            (K8_END + "}\n", K8_END + K8_RECORD)]),
+    "flash_decode_wide_kernel": (
+        "flash_decode_wide_kernel(const Args p) {\n", [
+            (K8_GQ, K8_START),
+            ("    fetch(t + kStages - 1);\n",
+             "    fetch(t + kStages - 1);\n    if (t == 0) T1 = clock64();\n"),
+            ("  // merge the warps' states through the ring's memory:",
+             "  const long long T2 = clock64();\n"
+             "  // merge the warps' states through the ring's memory:"),
+            (K8_WIDE_END + "}\n", K8_WIDE_END + K8_RECORD)]),
+}
+K8_FILE_MARK = (
+    "namespace {\n",
+    "namespace {\nconstexpr int kProbeBlocks = 4096;\n"
+    "__device__ long long g_probe[kProbeBlocks * 6];\n")
+# (B, C, Kv, G, hd) bf16 cases of k8_phases: SmolLM's serving step and
+# 32K handoff (flash_decode_mma_kernel); qwen2.5's serving group,
+# nemotron's serving step and qwen2-vl's and nemotron's decode_32k
+# steps as their paths run them (flash_decode_wide_kernel); kv_length
+# is C but for the last two (68)
+K8_PHASE_CASES = ((1, 64, 5, 3, 64, 64), (1, 32768, 5, 3, 64, 32768),
+                  (2, 64, 2, 8, 128, 64), (1, 64, 8, 12, 192, 64),
+                  (128, 4096, 4, 7, 128, 68), (128, 4096, 8, 12, 192, 68))
+
+
+def marked(src: str) -> str:
+    """flash_decode.cu with every K8_KERNELS edit made inside its kernel."""
+    for opening, edits in K8_KERNELS.values():
+        head, body = src.split(opening, 1) if src.count(opening) == 1 else (
+            None, None)
+        if head is None:
+            raise SystemExit(f"probe kernel not found once: {opening!r}")
+        body, rest = body.split("\n}\n", 1)
+        body += "\n}\n"
+        for old, new in edits:
+            if body.count(old) != 1:
+                raise SystemExit(f"probe mark not found once: {old!r}")
+            body = body.replace(old, new)
+        src = head + opening + body + rest
+    if src.count(K8_FILE_MARK[0]) != 1:
+        raise SystemExit("probe file mark not found once")
+    return src.replace(*K8_FILE_MARK)
+
+
 K8_PROBE_API = r"""
 extern "C" int k8_probe(int dtype, const void* q, const void* k,
                         const void* v, int kvl_s, void* o, float* scratch,
@@ -264,6 +332,23 @@ def smoke_checks(torch, cs, records):
         emit(records, {"step": "check", "kernel": name,
                        "s": time.perf_counter() - t0, "rows": rows})
     return n_plane
+
+
+def k8_checks(torch, cs, records):
+    """`check_k8`, `check_vmap_fold` and `check_parent_bits`, each
+    emitted with its seconds, or with the failure it raised."""
+    for name, check in (("K8", lambda: cs.check_k8(torch)[0]),
+                        ("vmap_fold", lambda: cs.check_vmap_fold(torch)),
+                        ("parent_bits", lambda: cs.check_parent_bits(torch))):
+        t0 = time.perf_counter()
+        try:
+            rows, error = check(), None
+        except Exception as e:     # noqa: BLE001 — report, then go on
+            rows, error = None, f"{type(e).__name__}: {e}"
+        emit(records, {"step": "k8_checks", "check": name,
+                       "s": time.perf_counter() - t0, "error": error,
+                       "rows": rows})
+        torch.cuda.empty_cache()
 
 
 def k1_variants(torch, cs, n_plane, records):
@@ -349,72 +434,93 @@ def parent_kernels(torch, cs, n_plane, parent, records):
     del theta, g
     torch.cuda.empty_cache()
 
+    parent_k8(torch, cs, [parent], records)
+
+
+def parent_k8(torch, cs, trees, records):
+    """K8 of each tree in `trees` (a directory holding
+    `src/repro_torch/kernels/csrc/`: the parent commit unpacked, or a
+    variant of this one) against this tree's, in turns on one card at
+    K8_PARENT_CASES, each at the split count this tree's wrapper picks."""
+    from repro_torch.kernels.decode_attention import flash_decode as k8w
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    libs = []
+    for i, tree in enumerate(trees):
+        pdir = os.path.join(tree, "src", "repro_torch", "kernels", "csrc")
+        lib = build_lib(f"k8_parent{i}", PARENT_K8_SRC, pdir)
+        lib.k8_parent.argtypes = [ctypes.c_int, P, P, P, ctypes.c_int, P, P,
+                                  P] + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                             P]
+        libs.append((tree, lib))
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for (B, C, Kv, G, hd) in ((1, 64, 5, 3, 64), (16, 100, 5, 3, 64),
-                              (1, 32768, 5, 3, 64)):
+    for (B, C, Kv, G, hd, kvl) in K8_PARENT_CASES:
         q = torch.randn((B, Kv * G, hd), device="cuda",
                         generator=gen).bfloat16()
         kc, vc = (torch.randn((B, C, Kv, hd), device="cuda",
                               generator=gen).bfloat16() for _ in range(2))
-        kvl = torch.full((B,), C, dtype=torch.int32, device="cuda")
         out = torch.empty_like(q)
+        splits = k8w.splits_for(kc, kvl, G)
+        scratch = torch.empty(max(B * Kv * splits * G * (hd + 2), 1),
+                              device="cuda")
         st = (ctypes.c_longlong * 6)(*kc.stride()[:3], *vc.stride()[:3])
+        new = dec_ops.decode_attention(q, kc, vc, kvl)
+        for tree, lib in libs:
+            def old(lib=lib):
+                rc = lib.k8_parent(1, q.data_ptr(), kc.data_ptr(),
+                                   vc.data_ptr(), kvl, out.data_ptr(),
+                                   scratch.data_ptr(), st, B, C, Kv, G, hd,
+                                   splits, 1.0 / hd ** 0.5,
+                                   torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"k8_parent: CUDA error {rc}")
 
-        def old():
-            rc = k8.k8_parent(1, q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                              kvl.data_ptr(), out.data_ptr(), st, B, C, Kv,
-                              G, hd, 1.0 / hd ** 0.5,
-                              torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"k8_parent: CUDA error {rc}")
-
-        old()
-        new = dec_ops.decode_attention(q, kc, vc, C)
-        torch.cuda.synchronize()
-        dev = cs.device_times(torch, lambda: dec_ops.decode_attention(
-            q, kc, vc, C), old)
-        emit(records, {"step": "parent", "kernel": "K8",
-                       "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} bf16",
-                       "max_abs_diff": float((new.float() - out.float())
-                                             .abs().max()),
-                       "device_ms": dev["device_ms"],
-                       "parent_device_ms": dev["library_device_ms"]})
+            old()
+            torch.cuda.synchronize()
+            big = C * B > 1 << 20
+            dev = cs.device_times(
+                torch, lambda: dec_ops.decode_attention(q, kc, vc, kvl), old,
+                **({"blocks": 2, "calls": 10} if big else {}))
+            emit(records, {"step": "parent", "kernel": "K8", "tree": tree,
+                           "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} bf16 "
+                                   f"kv_length={kvl}", "splits": splits,
+                           "max_abs_diff": float((new.float() - out.float())
+                                                 .abs().max()),
+                           "device_ms": dev["device_ms"],
+                           "parent_device_ms": dev["library_device_ms"]})
+        del q, kc, vc, out, scratch, new
+        torch.cuda.empty_cache()
 
 
 def k8_phases(torch, cs, records):
     """K8's phases in SM clock cycles (median over blocks and calls, the
-    L2 evicted before each call): entry to its first tile staged, the
-    key loop, the output written."""
+    L2 evicted before each call) at K8_PHASE_CASES: entry to its first
+    tile staged, the key loop, the merge and the output written."""
     from repro_torch.kernels.decode_attention import flash_decode as k8
     with open(os.path.join(CSRC, "flash_decode.cu")) as f:
-        src = f.read()
-    for old, new in K8_MARKS:
-        if src.count(old) != 1:
-            raise SystemExit(f"probe mark not found once: {old!r}")
-        src = src.replace(old, new)
+        src = marked(f.read())
     lib = build_lib("k8_phases", src + K8_PROBE_API, CSRC)
     lib.k8_probe.argtypes = [ctypes.c_int, P, P, P, ctypes.c_int, P, P,
                              P] + [ctypes.c_int] * 6 + [ctypes.c_float, P]
     lib.k8_probe_read.argtypes = [P, ctypes.c_int]
     flush = cs.l2_flush_buffer(torch)
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for (B, C, Kv, G, hd) in ((1, 64, 5, 3, 64), (1, 32768, 5, 3, 64)):
+    for (B, C, Kv, G, hd, kvl) in K8_PHASE_CASES:
         q = torch.randn((B, Kv * G, hd), device="cuda",
                         generator=gen).bfloat16()
         kc, vc = (torch.randn((B, C, Kv, hd), device="cuda",
                               generator=gen).bfloat16() for _ in range(2))
         out = torch.empty_like(q)
-        splits = k8.splits_for(kc, C)
+        splits = k8.splits_for(kc, kvl, G)
         scratch = torch.empty(max(B * Kv * splits * G * (hd + 2), 1),
                               device="cuda")
         st = (ctypes.c_longlong * 6)(*kc.stride()[:3], *vc.stride()[:3])
-        nblk = splits * Kv * B
+        nblk = min(splits * Kv * B, 4096)
         host = (ctypes.c_longlong * (nblk * 6))()
 
         def call():
             rc = lib.k8_probe(1, q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                              C, out.data_ptr(), scratch.data_ptr(), st, B, C,
-                              Kv, G, hd, splits, 1.0 / hd ** 0.5,
+                              kvl, out.data_ptr(), scratch.data_ptr(), st, B,
+                              C, Kv, G, hd, splits, 1.0 / hd ** 0.5,
                               torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"k8_probe: CUDA error {rc}")
@@ -429,16 +535,23 @@ def k8_phases(torch, cs, records):
             rec = list(host)
             rows += [rec[i * 6:i * 6 + 6] for i in range(nblk)]
         span = [r[4] - r[3] for r in rows]
-        med = lambda xs: sorted(xs)[len(xs) // 2]
+        med = lambda xs: sorted(xs)[len(xs) // 2]   # noqa: E731
+        first = min(r[3] for r in rows[-nblk:])
         emit(records, {"step": "k8_phases",
-                       "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} bf16",
+                       "case": f"B={B} C={C} Kv={Kv} G={G} hd={hd} bf16 "
+                               f"kv_length={kvl}",
+                       "kernel": k8.kernel_for(torch.bfloat16, G, hd),
                        "splits": splits,
                        "staged_cycles": med([r[0] for r in rows]),
                        "loop_cycles": med([r[1] for r in rows]),
                        "write_cycles": med([r[2] for r in rows]),
                        "block_ns_median": med(span),
                        "block_ns_max": max(span),
+                       "last_call_span_ns": max(r[4] for r in rows[-nblk:])
+                       - first,
                        "instrumented_device_ms": cs.device_ms(call, torch)})
+        del q, kc, vc, out, scratch
+        torch.cuda.empty_cache()
 
 
 def k8_layout(torch, cs, records):
@@ -546,6 +659,9 @@ def flush_kinds(torch, cs, records):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="tree holding the previous csrc/")
+    ap.add_argument("--alt", action="append", default=[],
+                    help="with the k8_parent step: another tree whose K8 "
+                         "is timed against this one's (repeatable)")
     ap.add_argument("--out", help="also write every record here (JSON)")
     ap.add_argument("--steps",
                     default="checks,k1_variants,k8_phases,k8_layout,"
@@ -572,7 +688,9 @@ def main(argv=None) -> int:
     n_plane = None
     if "checks" in steps:
         n_plane = smoke_checks(torch, cs, records)
-    if "k1_variants" in steps or args.parent:
+    if "k8_checks" in steps:
+        k8_checks(torch, cs, records)
+    if "k1_variants" in steps or (args.parent and "k8_parent" not in steps):
         n_plane = n_plane or plane_size(torch)
     if "k1_variants" in steps:
         k1_variants(torch, cs, n_plane, records)
@@ -582,7 +700,10 @@ def main(argv=None) -> int:
         k8_layout(torch, cs, records)
     if "flush_kinds" in steps:
         flush_kinds(torch, cs, records)
-    if args.parent:
+    if "k8_parent" in steps:
+        parent_k8(torch, cs, ([args.parent] if args.parent else [])
+                  + args.alt, records)
+    elif args.parent:
         parent_kernels(torch, cs, n_plane, args.parent, records)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
